@@ -12,8 +12,8 @@ Phases, each printing its own lines:
   4. times with CUDA events: kernel, plain version, a torch.bmm yardstick of
      the same four products, and the card's bound for the same work;
   5. the main path: `run_ablation_detector` on `yolo_irc.proposed()` at full
-     width (random init, 8 chips in chunks of 4, 2 images, columns ideal and
-     all), with the kernel's launch count checked; then the single-chip
+     width (random init, 16 chips in chunks of 4, 2 images, columns ideal
+     and all), with the kernel's launch count checked; then the single-chip
      layer path `irc_mvm_from_mapped`;
   6. one whole-network chunk through the kernel and through the plain route;
   7. the CLI `python -m repro_torch.launch.mc --network detector --chips 4`;
@@ -39,7 +39,8 @@ SRC = ROOT / "src"
 
 # Card peaks (NVIDIA H100 SXM data sheet, dense, at the 700 W limit).
 PEAK_BYTES_PER_S = 3.35e12
-PEAK_F32_FLOPS = 67e12
+PEAK_F32_FLOPS = 67e12          # FFMA, outside the tensor cores
+PEAK_TF32_FLOPS = 495e12        # tensor cores, f32 operands
 
 # full-width geometry of yolo_irc.proposed(): 576x1024 images, stem /2
 S0_ROWS_PER_IMAGE = 288 * 512
@@ -206,14 +207,18 @@ def phase_kernels(ops_):
 
 def bound_ms(C, B, R, N, per_chip_x, per_chip_g):
     """Least time for the work: each input read once and the output written
-    once at the memory rate, against 4 products x.plane (multiply + add) at
-    the f32 FFMA rate; returns (ms, "bytes" | "operations")."""
+    once at the memory rate, against the operations at the peak of their
+    type.  The two block-current products x.e+- (multiply + add) are f32 and
+    need FFMA; the two counts x.g+- have both operands in {0,1}, which the
+    tensor cores sum exactly, so they go at the TF32 rate.  Returns (ms,
+    "bytes" | "operations")."""
     nbytes = 4 * ((C if per_chip_x else 1) * B * R
                   + 2 * C * R * N + 2 * (C if per_chip_g else 1) * R * N
                   + 3 * C * B * N)
-    flops = 2 * 4 * C * B * R * N
+    flops_per_product = 2 * C * B * R * N
     t_bytes = nbytes / PEAK_BYTES_PER_S * 1e3
-    t_ops = flops / PEAK_F32_FLOPS * 1e3
+    t_ops = (2 * flops_per_product / PEAK_F32_FLOPS
+             + 2 * flops_per_product / PEAK_TF32_FLOPS) * 1e3
     return (t_ops, "operations") if t_ops >= t_bytes else (t_bytes, "bytes")
 
 
@@ -311,7 +316,8 @@ def phase_main_path(ops_):
     ev = data.batch_for_step(1000, 2)
     images = torch.from_numpy(ev.images).cuda()
     key = prng.PRNGKey(0, device="cuda")
-    n_chips, chunk = 8, 4
+    # 4 chunks: every steady lap but the last enqueues the next chunk
+    n_chips, chunk = 16, 4
     columns = tuple(c for c in TABLE2_ABLATION if c[0] in ("ideal", "all"))
     mc = McConfig(n_chips=n_chips, chunk_size=chunk)
     torch.cuda.synchronize()
@@ -330,8 +336,10 @@ def phase_main_path(ops_):
               and res.n_chips == n_chips, f"{name}: bad population result")
         log("5 main path", f"{name}: map50 {m['mean']:.4f}±{m['std']:.4f} "
             f"over {res.n_chips} chips, {res.chips_per_sec:.4f} chips/s "
-            f"steady, first chunk {res.compile_s:.2f}s, device_s "
-            f"{res.device_s:.2f}, host_s {res.host_s:.2f}")
+            f"steady, {res.n_chips / res.wall_s:.4f} chips/s overall, "
+            f"wall_s {res.wall_s:.3f}, first chunk {res.compile_s:.3f}s, "
+            f"enqueue_s {res.enqueue_s:.3f}, device_s {res.device_s:.3f}, "
+            f"host_s {res.host_s:.3f}")
     n_chunks = -(-n_chips // chunk)
     want = 14 * n_chunks * len(columns)
     log("5 main path", f"yolo_irc.proposed() 576x1024, 2 images, {n_chips} "
@@ -520,8 +528,6 @@ def main(argv=None) -> int:
               "(src/repro_torch is missing)", file=sys.stderr)
         return 2
     sys.path.insert(0, str(SRC))
-    os.environ.setdefault("REPRO_TORCH_BUILD",
-                          str(ROOT / "build" / "repro_torch"))
     t_start = time.perf_counter()
     card = gpu_name_and_limit()
     log("1 env", f"python {sys.version.split()[0]} torch {torch.__version__}"

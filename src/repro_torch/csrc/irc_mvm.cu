@@ -24,13 +24,15 @@
 // Ragged edges (R not a multiple of 32, N not of 64, B not of the row tile)
 // are masked here; the caller pads nothing.
 //
-// What bounds it on the H100: four f32 products of x against the planes,
-// 2*4*C*B*R*N floating-point operations, against reading x once
-// (4*C*B*R bytes for per-chip x).  At the detector's s0b1 shape (C=4,
-// B=294,912, R=572, N=60) that is 324 GFLOP against 2.7 GB: about 4.8 ms at
-// the 67 TFLOP/s f32 FFMA peak versus 0.8 ms of memory traffic, so the
-// card's FFMA rate bounds it.  The block currents need true f32 (IEEE FFMA,
-// not TF32), so this first design stays on the FFMA pipes:
+// What bounds it on the H100: four products of x against the planes, each
+// 2*C*B*R*N floating-point operations, against reading x once (4*C*B*R
+// bytes for per-chip x).  The two block-current products need true f32
+// (IEEE FFMA, not TF32); the two counts have {0,1} operands, which tensor
+// cores sum exactly.  At the detector's s0b1 shape (C=4, B=294,912, R=572,
+// N=60) that is 162 GFLOP at the 67 TFLOP/s FFMA peak (2.42 ms) plus
+// 162 GFLOP at the 495 TFLOP/s TF32 peak (0.33 ms), against 1.06 ms of
+// memory traffic (3.55 GB, 2.7 GB of it x), so the FFMA rate bounds it.
+// This first design computes all four products on the FFMA pipes:
 //   * a thread block owns one chip, a tile of BM = 4*TM word-line rows and
 //     64 columns; 256 threads, thread (ty, tx) owns column tx and rows
 //     ty + 4*i, i < TM;

@@ -2,8 +2,7 @@
 
 The source compiles at first use with `nvcc -gencode
 arch=compute_90a,code=sm_90a` into `build/repro_torch/libirc_mvm.so` under
-the repository root (or `$REPRO_TORCH_BUILD`), a library with a plain C
-interface that ctypes loads.  Nothing here runs when the module is imported:
+the repository root, a library with a plain C interface that ctypes loads.  Nothing here runs when the module is imported:
 the CPU tests import it on machines without nvcc or a card.
 
 `launch_chips` takes tensors that `repro_torch.kernels.ops` has already
@@ -40,10 +39,9 @@ _FLAG_NL, _FLAG_IR, _FLAG_SA, _FLAG_RANGE, _FLAG_DIFF = 1, 2, 4, 8, 16
 
 
 def build_dir() -> Path:
-    """Where the kernel library is built: `$REPRO_TORCH_BUILD` or
-    `build/repro_torch/` at the repository root."""
-    env = os.environ.get("REPRO_TORCH_BUILD")
-    return Path(env) if env else _REPO / "build" / "repro_torch"
+    """Where the kernel library is built: `build/repro_torch/` at the
+    repository root."""
+    return _REPO / "build" / "repro_torch"
 
 
 def nvcc_path() -> str:
@@ -68,9 +66,10 @@ def build(verbose: bool = False) -> Path:
     if out.exists() and out.stat().st_mtime >= SOURCE.stat().st_mtime:
         BUILD_S = 0.0
         return out
+    nvcc = nvcc_path()
     out.parent.mkdir(parents=True, exist_ok=True)
     tmp = out.with_suffix(f".{os.getpid()}.tmp.so")
-    cmd = [nvcc_path(), "-gencode", "arch=compute_90a,code=sm_90a",
+    cmd = [nvcc, "-gencode", "arch=compute_90a,code=sm_90a",
            "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
            "-Xptxas", "-v", "-o", str(tmp), str(SOURCE)]
     t0 = time.perf_counter()

@@ -5,10 +5,9 @@
 
 Random-init weights (from a seeded `torch.Generator`), the analytic device
 model, per-chip mAP@0.5 on a synthetic IVS-geometry batch; every group conv
-goes through the fused IRC MVM kernel on the card.  `--det-config proposed`
-runs the paper's full 576x1024 geometry, `smoke` (default, as in the JAX
-package's CLI) the 32x32 test geometry.  `--device cpu` runs the plain
-PyTorch path on the CPU.  Layer-level sweeps, QAT (`--det-steps`), the
+goes through the fused IRC MVM kernel on the card.  The geometry is
+`yolo_irc.smoke()` (32x32 images), as in the JAX package's CLI.
+`--device cpu` runs the plain PyTorch path on the CPU.  Layer-level sweeps, QAT (`--det-steps`), the
 measured and aged device models, and run directories come in later slices.
 """
 from __future__ import annotations
@@ -47,7 +46,7 @@ def run_detector(args) -> dict:
     from repro_torch.runtime import resolve_device
 
     dev = resolve_device(args.device)
-    cfg = getattr(yolo_irc, args.det_config)()
+    cfg = yolo_irc.smoke()
     det = IRCDetector(cfg)
     data = SyntheticDetectionData(img_hw=cfg.img_hw, stride=cfg.strides,
                                   n_classes=cfg.n_classes,
@@ -61,7 +60,7 @@ def run_detector(args) -> dict:
     mc = McConfig(n_chips=args.chips, chunk_size=args.chunk)
     columns = _ablation_columns(args.ablation, TABLE2_ABLATION)
 
-    print(f"# detector {args.det_config} {cfg.img_hw[0]}x{cfg.img_hw[1]} "
+    print(f"# detector smoke {cfg.img_hw[0]}x{cfg.img_hw[1]} "
           f"batch={args.det_batch} chips={args.chips} chunk={args.chunk} "
           f"device={dev} pipeline={not args.no_pipeline}")
     print(f"{'config':14s} {'map50 mean±std':>16s} {'drop':>7s} "
@@ -85,7 +84,8 @@ def run_detector(args) -> dict:
         report["results"][name] = {
             "metrics": m, "wall_s": res.wall_s,
             "chips_per_sec": res.chips_per_sec, "first_chunk_s": res.compile_s,
-            "device_s": res.device_s, "host_s": res.host_s,
+            "enqueue_s": res.enqueue_s, "device_s": res.device_s,
+            "host_s": res.host_s,
             "per_chip_map50": res.per_chip["map50"].tolist()}
     report["kernel_launches"] = dict(ops.LAUNCHES)
     print(f"# kernel launches {json.dumps(ops.LAUNCHES)}")
@@ -104,10 +104,6 @@ def main(argv=None) -> None:
     ap.add_argument("--network", default="detector", choices=["detector"],
                     help="detector: whole-network mAP@0.5 population sweep "
                          "(the layer-level sweep comes in a later slice)")
-    ap.add_argument("--det-config", default="smoke",
-                    choices=["smoke", "proposed"],
-                    help="detector geometry: smoke (32x32) or proposed "
-                         "(the paper's 576x1024)")
     ap.add_argument("--det-batch", type=int, default=2,
                     help="detector eval batch size")
     ap.add_argument("--det-steps", type=int, default=0,

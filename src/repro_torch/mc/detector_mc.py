@@ -154,6 +154,7 @@ def run_mc_detector(key: torch.Tensor, det, params, images: torch.Tensor,
 
     moments = {"map50": StreamingMoments(mc.quantiles)}
     timer = PhaseTimer("mc_detector_chunks", unit="chips")
+    enq_timer = PhaseTimer("mc_detector_enqueue", unit="chips")
     dev_timer = PhaseTimer("mc_detector_device", unit="chips")
     host_timer = PhaseTimer("mc_detector_host", unit="chips")
     chunks = [_chip_range(lo, min(lo + mc.chunk_size, mc.n_chips), key)
@@ -163,36 +164,43 @@ def run_mc_detector(key: torch.Tensor, det, params, images: torch.Tensor,
         return evaluate_map_per_chip(preds, gt_boxes, gt_classes,
                                      det.cfg.n_anchors, det.cfg.n_classes)
 
-    if pipeline:
-        planes, meta = detector_planes(det, params)
+    hoisted = None
 
-        def dispatch(ids) -> _ToHost:
-            """Enqueue one chunk's sample + forward + copy to the host."""
+    def dispatch(ids) -> _ToHost:
+        """Enqueue one chunk's sample + forward + copy to the host (the
+        first call also hoists the group mappings)."""
+        nonlocal hoisted
+        with enq_timer.lap(items=int(ids.shape[0])):
+            if hoisted is None:
+                hoisted = detector_planes(det, params)
+            planes, meta = hoisted
             return _ToHost(_sample_and_forward(
                 params, images, key, ids, planes, det_cfg=det.cfg,
                 spec=det.spec, cfg_ni=mc.cfg, sa_extra=sa_extra, meta=meta,
                 kernel_impl=kernel_impl, device=mc.device))
 
-        inflight = dispatch(chunks[0]) if chunks else None
-
     for chunk_i, ids in enumerate(chunks):
         n_chunk = int(ids.shape[0])
         with timer.lap(items=n_chunk):
             if pipeline:
+                if chunk_i == 0:
+                    inflight = dispatch(ids)
                 with dev_timer.lap(items=n_chunk):
                     preds = inflight.wait()
                 if chunk_i + 1 < len(chunks):
                     inflight = dispatch(chunks[chunk_i + 1])
             else:
-                with dev_timer.lap(items=n_chunk):
+                with enq_timer.lap(items=n_chunk):
                     ens = build_detector_ensemble(key, det, params,
                                                   chip_ids=ids, cfg=mc.cfg,
                                                   device=mc.device)
-                    preds = det.apply(params, images, mode="ensemble",
-                                      ensemble=ens, cfg_ni=mc.cfg,
-                                      sa_extra=sa_extra,
-                                      kernel_impl=kernel_impl,
-                                      device=mc.device).cpu().numpy()
+                    out = det.apply(params, images, mode="ensemble",
+                                    ensemble=ens, cfg_ni=mc.cfg,
+                                    sa_extra=sa_extra,
+                                    kernel_impl=kernel_impl,
+                                    device=mc.device)
+                with dev_timer.lap(items=n_chunk):
+                    preds = out.cpu().numpy()
             with host_timer.lap(items=n_chunk):
                 vals = score(preds)
         moments["map50"].update(vals)
@@ -202,7 +210,7 @@ def run_mc_detector(key: torch.Tensor, det, params, images: torch.Tensor,
         metrics={name: m.summary() for name, m in moments.items()},
         per_chip={name: m.per_chip for name, m in moments.items()},
         wall_s=timer.total_s, chips_per_sec=timer.rate(),
-        compile_s=timer.compile_s,
+        compile_s=timer.compile_s, enqueue_s=enq_timer.total_s,
         device_s=dev_timer.total_s, host_s=host_timer.total_s)
 
 

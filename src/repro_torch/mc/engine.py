@@ -95,15 +95,18 @@ class McResult:
 
     `wall_s` covers the whole sweep; `compile_s` is the first chunk's wall
     (on the card it holds the kernel build and first-launch costs);
-    `chips_per_sec` is the steady rate over the later chunks.  `device_s`
-    is the time the host sat blocked on device results and `host_s` the
-    host-side scoring time."""
+    `chips_per_sec` is the steady rate over the later chunks.
+    `enqueue_s` is the host time spent sampling chips and enqueueing their
+    forward (on the CPU the work itself runs there), `device_s` the time the
+    host then sat blocked on device results, and `host_s` the host-side
+    scoring time."""
     n_chips: int
     metrics: Dict[str, Dict[str, float]]
     per_chip: Dict[str, np.ndarray]
     wall_s: float
     chips_per_sec: float
     compile_s: float = 0.0
+    enqueue_s: float = 0.0
     device_s: float = 0.0
     host_s: float = 0.0
 

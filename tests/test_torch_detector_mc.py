@@ -170,6 +170,19 @@ def test_ablation_columns_and_ideal_spread(setup):
         assert set(r.metrics["map50"]) >= {"count", "mean", "std", "q50"}
 
 
+@pytest.mark.parametrize("pipeline", [True, False])
+def test_sweep_timers_cover_every_enqueue(setup, pipeline):
+    _, _, det, tp, ev = setup
+    r = tmc.run_mc_detector(
+        prng.PRNGKey(0, device="cpu"), det, tp, torch.from_numpy(ev.images),
+        ev.boxes, ev.classes, mc=McConfig(n_chips=3, chunk_size=1),
+        pipeline=pipeline)
+    # the enqueue, wait and scoring laps nest inside the chunk laps
+    assert r.enqueue_s > 0 and r.host_s > 0
+    assert r.enqueue_s + r.device_s + r.host_s <= r.wall_s
+    assert r.compile_s < r.wall_s
+
+
 def test_out_of_slice_paths_raise(setup):
     import dataclasses
     from repro_torch.device.base import DeviceModel

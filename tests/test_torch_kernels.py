@@ -181,11 +181,12 @@ def test_cuda_request_raises_when_kernel_cannot_load(monkeypatch):
 
 def test_build_raises_without_nvcc(monkeypatch, tmp_path):
     monkeypatch.setenv("CUDA_HOME", str(tmp_path))
-    monkeypatch.setenv("REPRO_TORCH_BUILD", str(tmp_path / "build"))
+    monkeypatch.setattr(kern, "build_dir", lambda: tmp_path / "build")
     monkeypatch.setattr(kern.os.path, "isfile", lambda p: False)
     monkeypatch.setattr(kern.shutil, "which", lambda name: None)
     with pytest.raises(RuntimeError, match="nvcc not found"):
         kern.build()
+    assert not (tmp_path / "build").exists()
 
 
 def test_epilogue_flags_and_near_tie_helper():
