@@ -5,18 +5,33 @@
 
 Phases, each printing its own lines:
   1. environment: torch/CUDA versions, the card's name and power limit;
-  2. build: compiles src/repro_torch/csrc/irc_mvm.cu for sm_90a;
-  3. kernel against its plain PyTorch version at the detector's full-width
-     shapes (shared/per-chip word lines and placement planes, binary and
-     diff outputs, all effects on and off; the single-chip case too);
-  4. times with CUDA events: kernel, plain version, a torch.bmm yardstick of
-     the same four products, and the card's bound for the same work;
-  5. the main path: `run_ablation_detector` on `yolo_irc.proposed()` at full
-     width (random init, 16 chips in chunks of 4, 2 images, columns ideal
-     and all), with the kernel's launch count checked; then the single-chip
-     layer path `irc_mvm_from_mapped`;
-  6. one whole-network chunk through the kernel and through the plain route;
-  7. the CLI `python -m repro_torch.launch.mc --network detector --chips 4`;
+  2. build: compiles src/repro_torch/csrc/{irc_mvm,ternary_matmul}.cu for
+     sm_90a, one nvcc process each, both started together;
+  3. kernels against their plain PyTorch versions: the IRC MVM (K1/K2) at
+     the detector's full-width shapes (shared/per-chip word lines and
+     placement planes, binary and diff outputs, all effects on and off; the
+     single-chip case too); the ternary matmul (K3) at ragged shapes and
+     the layer path's, {0,1} inputs bit-identical, normal and bfloat16
+     inputs within the JAX package's tolerances;
+  4. times with CUDA events: each kernel, its plain version, a library
+     yardstick (torch.bmm of the IRC MVM's four products; torch.matmul in
+     true f32 for K3) and the card's bound for the same work; K3's calls
+     are queued behind a sleep kernel so that the events hold device time
+     only, and the host's enqueue time per call is printed on its own line;
+  5. the main paths: `run_ablation_detector` on `yolo_irc.proposed()` at
+     full width (random init, 12 chips in chunks of 4, 2 images, columns
+     ideal and all), with K1's launch count checked; the single-chip layer
+     path `irc_mvm_from_mapped` (K2); the layer-level Table II
+     (`run_ablation`, all five columns, 540x60 layer, batch 256, 2048 dies
+     in chunks of 512) for the proposed design through K1 and the baseline
+     through the plain route, each with its ideal reference bits through
+     K3, launch counts checked;
+  6. one whole-network chunk through the kernel and through the plain
+     route; 512-die layer chunks through both routes (proposed, calibrated
+     per-chip planes, binary single-shot), flips only at near-ties;
+  7. the CLIs `python -m repro_torch.launch.mc --network detector --chips 4`
+     and `--network layer --chips 64 --ablation table2 --backend kernel`,
+     the two processes run side by side;
   8. a JSON line of every ported kernel, the card's name and power limit,
      and the final `{"ok": true, ...}` line.
 `--only profile` instead breaks one full-width chunk's device time down by
@@ -68,7 +83,8 @@ def gpu_name_and_limit() -> str:
 
 
 def cuda_ms(fn, reps: int = 5, warmup: int = 1) -> float:
-    """Median milliseconds of `fn()` on the current stream (CUDA events)."""
+    """Median milliseconds of one `fn()` on the current stream (CUDA
+    events)."""
     import torch
     for _ in range(warmup):
         fn()
@@ -83,6 +99,47 @@ def cuda_ms(fn, reps: int = 5, warmup: int = 1) -> float:
         end.synchronize()
         times.append(start.elapsed_time(end))
     return statistics.median(times)
+
+
+def queued_ms(fn, reps: int, calls: int) -> tuple:
+    """(median device milliseconds of one `fn()`, host milliseconds to
+    enqueue one).  Each rep queues `calls` back-to-back calls behind a sleep
+    kernel that outlasts their enqueue, so the CUDA events around them see
+    the device's time only; a rep whose enqueue outran its sleep is redone
+    with a longer sleep."""
+    import torch
+    fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(calls):
+        fn()
+    host_ms = (time.perf_counter() - t0) * 1e3 / calls
+    torch.cuda.synchronize()
+    probe = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
+    probe[0].record()
+    torch.cuda._sleep(10_000_000)
+    probe[1].record()
+    probe[1].synchronize()
+    cycles_per_ms = 10_000_000 / probe[0].elapsed_time(probe[1])
+    sleep_ms = 3 * host_ms * calls + 0.5
+    times = []
+    while len(times) < reps:
+        ev = [torch.cuda.Event(enable_timing=True) for _ in range(3)]
+        t0 = time.perf_counter()
+        ev[0].record()
+        torch.cuda._sleep(int(sleep_ms * cycles_per_ms))
+        ev[1].record()
+        for _ in range(calls):
+            fn()
+        enqueue_ms = (time.perf_counter() - t0) * 1e3
+        ev[2].record()
+        ev[2].synchronize()
+        if enqueue_ms < ev[0].elapsed_time(ev[1]):
+            times.append(ev[1].elapsed_time(ev[2]) / calls)
+        else:
+            sleep_ms *= 2
+            check(sleep_ms < 1e4, "queued_ms: enqueue outruns any sleep")
+    return statistics.median(times), host_ms
 
 
 def make_case(C: int, B: int, per_chip_x: bool, per_chip_g: bool, gen):
@@ -205,6 +262,101 @@ def phase_kernels(ops_):
     return report
 
 
+# K3 shapes: ragged edges, then the layer path's 256x540x60
+K3_CHECK_SHAPES = ((1, 16, 1), (33, 300, 77), (200, 1000, 40),
+                   (256, 540, 60))
+# K3 timed shapes: (name, B, K, N, x kind, back-to-back calls per timing)
+K3_TIMED = (("layer", 256, 540, 60, "bits", 200),
+            ("kernel_bench", 256, 2048, 512, "normal", 50),
+            ("s0", 2 * S0_ROWS_PER_IMAGE, 540, 60, "bits", 3))
+
+
+def k3_case(B, K, N, kind, gen):
+    """x [B,K] ({0,1} at density 0.5, or normal; float32 or bfloat16) and
+    int8 ternary weights [K,N] on the card."""
+    import torch
+    w = torch.randint(-1, 2, (K, N), generator=gen, device="cuda",
+                      dtype=torch.int8)
+    if kind == "bits":
+        x = (torch.rand((B, K), generator=gen, device="cuda") < 0.5).float()
+    else:
+        x = torch.randn((B, K), generator=gen, device="cuda")
+    return (x.to(torch.bfloat16) if kind == "bf16" else x), w
+
+
+def phase_k3_checks(ops_):
+    """Phase 3, K3: the ternary matmul against its plain version."""
+    import torch
+    from repro_torch.kernels.ref import ternary_matmul_ref
+    gen = torch.Generator(device="cuda").manual_seed(77)
+    for B, K, N in K3_CHECK_SHAPES:
+        errs = []
+        for kind in ("bits", "normal", "bf16"):
+            x, w = k3_case(B, K, N, kind, gen)
+            got = ops_.ternary_matmul(x, w)
+            want = ternary_matmul_ref(x, w)
+            torch.cuda.synchronize()
+            if kind == "bits":
+                check(torch.equal(got, want),
+                      f"K3 {B}x{K}x{N}: {{0,1}} inputs not bit-identical")
+            else:
+                tol = (1e-5, 1e-4) if kind == "normal" else (3e-2, 3e-2)
+                torch.testing.assert_close(got, want, rtol=tol[0],
+                                           atol=tol[1])
+            errs.append(float((got - want).abs().max()))
+        log("3 kernels", f"ternary_matmul {B}x{K}x{N}: {{0,1}} x "
+            f"bit-identical, max|err| normal x {errs[1]:.3g} (rtol 1e-5, "
+            f"atol 1e-4), bf16 x {errs[2]:.3g} (3e-2)")
+
+
+def k3_bound_ms(B, K, N, x_bytes, exact):
+    """Least time for x [B,K] @ w [K,N]: 2*B*K*N operations against x, the
+    int8 weights and the f32 output each moved once.  With {0,1} x
+    (`exact`) every product and partial sum is a small integer, which the
+    tensor cores sum exactly, so the operations go at the TF32 rate, as
+    K1's counts do in `bound_ms`; other x needs true f32, the FFMA rate.
+    Returns (ms, "bytes" | "operations")."""
+    peak = PEAK_TF32_FLOPS if exact else PEAK_F32_FLOPS
+    t_ops = 2 * B * K * N / peak * 1e3
+    t_bytes = (x_bytes * B * K + K * N + 4 * B * N) / PEAK_BYTES_PER_S * 1e3
+    return (t_ops, "operations") if t_ops >= t_bytes else (t_bytes, "bytes")
+
+
+def phase_k3_times(ops_):
+    """Phase 4, K3: kernel, plain version, torch.matmul yardstick (true f32,
+    the weights cast outside the timed call) and bound at three shapes;
+    device times from `queued_ms`, and each one's host enqueue per call."""
+    import torch
+    from repro_torch.kernels.ref import ternary_matmul_ref
+    gen = torch.Generator(device="cuda").manual_seed(78)
+    out = {}
+    for name, B, K, N, kind, calls in K3_TIMED:
+        x, w = k3_case(B, K, N, kind, gen)
+        wf = w.float()
+        err = float((ops_.ternary_matmul(x, w)
+                     - ternary_matmul_ref(x, w)).abs().max())
+        ms, host = queued_ms(lambda: ops_.ternary_matmul(x, w), reps=7,
+                             calls=calls)
+        plain_ms, plain_host = queued_ms(lambda: ternary_matmul_ref(x, w),
+                                         reps=5, calls=calls)
+        lib_ms, lib_host = queued_ms(lambda: torch.matmul(x, wf), reps=5,
+                                     calls=calls)
+        b_ms, b_by = k3_bound_ms(B, K, N, x.element_size(), kind == "bits")
+        out[name] = dict(ms=ms, plain_ms=plain_ms, library_ms=lib_ms,
+                         bound_ms=b_ms, bound_by=b_by, max_abs_err=err,
+                         shape=(B, K, N))
+        log("4 times", f"ternary_matmul {name} {B}x{K}x{N} ({kind} x): "
+            f"kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, torch.matmul "
+            f"f32 {lib_ms:.4f} ms, bound {b_ms:.4f} ms ({b_by}), share of "
+            f"bound {b_ms / ms:.3f}, max|err| {err:.3g}")
+        log("4 times", f"ternary_matmul {name}: host enqueue per call: "
+            f"kernel {host:.4f} ms, plain {plain_host:.4f} ms, torch.matmul "
+            f"{lib_host:.4f} ms")
+        del x, w, wf
+        torch.cuda.empty_cache()
+    return out
+
+
 def bound_ms(C, B, R, N, per_chip_x, per_chip_g):
     """Least time for the work: each input read once and the output written
     once at the memory rate, against the operations at the peak of their
@@ -316,8 +468,8 @@ def phase_main_path(ops_):
     ev = data.batch_for_step(1000, 2)
     images = torch.from_numpy(ev.images).cuda()
     key = prng.PRNGKey(0, device="cuda")
-    # 4 chunks: every steady lap but the last enqueues the next chunk
-    n_chips, chunk = 16, 4
+    # 3 chunks: the first steady lap enqueues the next chunk
+    n_chips, chunk = 12, 4
     columns = tuple(c for c in TABLE2_ABLATION if c[0] in ("ideal", "all"))
     mc = McConfig(n_chips=n_chips, chunk_size=chunk)
     torch.cuda.synchronize()
@@ -371,6 +523,146 @@ def phase_main_path(ops_):
     check(single_launches["irc_mvm"] == 1 and agree >= 0.999,
           f"layer path: launches {single_launches}, agreement {agree}")
     return launches, single_launches
+
+
+# the layer path's two designs: (name, layer args, McConfig fields)
+LAYER_DESIGNS = (
+    ("proposed", dict(scheme="ternary", bias_rows=32), dict(backend="kernel")),
+    ("baseline", dict(scheme="binary", bias_rows=0),
+     dict(backend="plain", accumulation="partial_sum", partial_rows=256)))
+LAYER_CHIPS, LAYER_CHUNK = 2048, 512
+
+
+def layer_args(**kw):
+    """The CLI's layer arguments at their defaults (540x60, batch 256,
+    density 0.5, seed 0), with overrides."""
+    import argparse
+    base = dict(seed=0, fan_in=540, n_out=60, batch=256, density=0.5,
+                scheme="ternary", bias_rows=32)
+    base.update(kw)
+    return argparse.Namespace(**base)
+
+
+def phase_layer_path(ops_):
+    """Phase 5, layer path: Table II in bit-agreement units for both
+    designs at the CLI's full width, each run's launches counted from 0;
+    returns the launch counts per design."""
+    import numpy as np
+    import torch
+    from repro_torch import prng
+    from repro_torch.launch.mc import build_layer
+    from repro_torch.mc.engine import McConfig, TABLE2_ABLATION, run_ablation
+    key = prng.PRNGKey(0, device="cuda")
+    n_chunks = -(-LAYER_CHIPS // LAYER_CHUNK)
+    counts = {}
+    for design, layer_kw, mc_kw in LAYER_DESIGNS:
+        args = layer_args(**layer_kw)
+        mc = McConfig(n_chips=LAYER_CHIPS, chunk_size=LAYER_CHUNK, **mc_kw)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        ops_.reset_launches()
+        t0 = time.perf_counter()
+        mapped, x, ref_bits = build_layer(args, "cuda")
+        results = run_ablation(key, mapped, x, ref_bits=ref_bits, mc=mc)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = dict(ops_.LAUNCHES)
+        counts[design] = launches
+        peak = torch.cuda.max_memory_allocated() / 2**30
+        for name, res in results.items():
+            agree = res.per_chip["bit_agreement"]
+            m = res.metrics["bit_agreement"]
+            check(res.n_chips == LAYER_CHIPS and np.isfinite(agree).all()
+                  and agree.min() >= 0 and agree.max() <= 1,
+                  f"layer {design} {name}: bad population result")
+            log("5 layer path", f"{design} {name}: agreement "
+                f"{m['mean']:.4f}±{m['std']:.4f} over {res.n_chips} chips, "
+                f"{res.chips_per_sec:.1f} chips/s steady, "
+                f"{res.n_chips / res.wall_s:.1f} chips/s overall, wall_s "
+                f"{res.wall_s:.3f}, first chunk {res.compile_s:.3f}s, "
+                f"enqueue_s {res.enqueue_s:.3f}, device_s "
+                f"{res.device_s:.3f}, host_s {res.host_s:.3f}")
+        ideal = results["ideal"].metrics["bit_agreement"]["mean"]
+        worst = results["all"].metrics["bit_agreement"]["mean"]
+        check(ideal > worst, f"layer {design}: ideal {ideal} <= all {worst}")
+        want_k1 = n_chunks * len(TABLE2_ABLATION) if mc.backend == "kernel" \
+            else 0
+        log("5 layer path", f"{design}: {args.scheme} {args.fan_in}x"
+            f"{args.n_out}, batch {args.batch}, {LAYER_CHIPS} chips in "
+            f"chunks of {LAYER_CHUNK}, backend {mc.backend}, accumulation "
+            f"{mc.accumulation}: wall {wall:.2f}s, peak device memory "
+            f"{peak:.2f} GiB, kernel launches {launches} (want "
+            f"irc_mvm_chips = {want_k1}, ternary_matmul >= 1)")
+        check(launches["ternary_matmul"] >= 1
+              and launches["irc_mvm_chips"] == want_k1,
+              f"layer {design}: launches {launches}")
+        del mapped, x, ref_bits, results
+        torch.cuda.empty_cache()
+    return counts
+
+
+def chunk_margin(ens, x, cfg):
+    """Decision margin of every output of the kernel's plain version on
+    this ensemble (what `near_tie_flips` reads)."""
+    from repro_torch.core.macro import DEFAULT_MACRO
+    from repro_torch.core.mapping import extend_rows
+    from repro_torch.kernels.ref import IrcEpilogueParams, irc_mvm_chips_ref
+    from repro_torch.mc.engine import periphery_noise
+    x_ext = extend_rows(x, ens.lead_rows)
+    eps, rnd = periphery_noise(ens.sa_keys, x_ext.shape[-2], ens.n_out)
+    params = IrcEpilogueParams.from_macro(
+        DEFAULT_MACRO, apply_nonlinearity=cfg.nonlinearity,
+        apply_ir=cfg.ir_drop, apply_sa=cfg.sa_variation,
+        apply_range=cfg.sensing_range)
+    return irc_mvm_chips_ref(x_ext, ens.ep, ens.en, ens.gp, ens.gn, eps, rnd,
+                             params, margin=True)[1]
+
+
+def phase_layer_network(ops_):
+    """Phase 6, layer path: one 512-die chunk through the kernel route and
+    the plain batched route, for the proposed design, its bias-calibrated
+    dies (per-chip placement planes) and the binary single-shot layer (a
+    reference line of count operand 0.5); per-chip bit agreement of the two
+    routes may differ only by near-tie decisions."""
+    import numpy as np
+    import torch
+    from repro_torch import prng
+    from repro_torch.core.nonideal import NonidealConfig
+    from repro_torch.kernels.ref import NEAR_TIE_TOL, near_tie_flips
+    from repro_torch.launch.mc import build_layer
+    from repro_torch.mc.engine import (bit_agreement_metric, ensemble_apply,
+                                       ensemble_apply_kernel)
+    from repro_torch.mc.ensemble import (calibrate_ensemble_bias,
+                                         sample_ensemble)
+    cfg = NonidealConfig.all()
+    key = prng.PRNGKey(1, device="cuda")
+    for case in ("proposed", "calibrated", "binary single-shot"):
+        scheme = "binary" if case.startswith("binary") else "ternary"
+        mapped, x, ref = build_layer(
+            layer_args(scheme=scheme, bias_rows=0 if scheme == "binary"
+                       else 32), "cuda")
+        ens = sample_ensemble(key, mapped, LAYER_CHUNK, cfg=cfg)
+        if case == "calibrated":
+            ens = calibrate_ensemble_bias(ens, x)
+            check(ens.planes_per_chip(), "calibrated planes are not per chip")
+        out_k = ensemble_apply_kernel(ens, x, cfg=cfg)
+        out_p = ensemble_apply(ens, x, cfg=cfg)
+        margin = chunk_margin(ens, x, cfg)
+        n, ok = near_tie_flips(out_k, out_p, margin)
+        metric = bit_agreement_metric(ref)
+        gap = (metric(out_k) - metric(out_p)).abs().cpu().numpy()
+        extra = ""
+        if case == "calibrated":
+            units, freq = np.unique(ens.bias_units.cpu().numpy(),
+                                    return_counts=True)
+            extra = f", bias units {dict(zip(units.tolist(), freq.tolist()))}"
+        log("6 layer network", f"{case}: {LAYER_CHUNK} dies, kernel vs "
+            f"plain route: {n} near-tie flips (margin < {NEAR_TIE_TOL}), "
+            f"per-chip bit agreement apart by at most {gap.max():.6f} "
+            f"({int(round(gap.max() * out_k[0].numel()))} outputs){extra}")
+        check(ok, f"layer {case}: {n} flips, not all near-ties")
+        del ens, out_k, out_p, margin
+        torch.cuda.empty_cache()
 
 
 def phase_network(ops_):
@@ -487,19 +779,29 @@ def phase_profile():
 
 
 def phase_cli():
-    """Phase 7: the CLI runs to its end on the card."""
+    """Phase 7: both CLIs, side by side, run to their end on the card."""
     env = dict(os.environ)
     env["PYTHONPATH"] = str(SRC) + os.pathsep + env.get("PYTHONPATH", "")
     t0 = time.perf_counter()
-    proc = subprocess.run(
-        [sys.executable, "-m", "repro_torch.launch.mc", "--network",
-         "detector", "--chips", "4"], cwd=ROOT, env=env,
-        capture_output=True, text=True, timeout=600)
-    tail = proc.stdout.strip().splitlines()[-4:]
-    for line in tail:
-        log("7 cli", line)
-    check(proc.returncode == 0, proc.stderr[-2000:])
-    log("7 cli", f"exit 0 in {time.perf_counter() - t0:.1f}s")
+    procs = [(argv, subprocess.Popen(
+        [sys.executable, "-m", "repro_torch.launch.mc", *argv], cwd=ROOT,
+        env=env, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True))
+        for argv in (["--network", "detector", "--chips", "4"],
+                     ["--network", "layer", "--chips", "64", "--ablation",
+                      "table2", "--backend", "kernel"])]
+    try:
+        for argv, proc in procs:
+            out, err = proc.communicate(timeout=600)
+            for line in out.strip().splitlines()[-7:]:
+                log("7 cli", line)
+            check(proc.returncode == 0, err[-2000:])
+            log("7 cli", f"{' '.join(argv)}: exit 0 within "
+                f"{time.perf_counter() - t0:.1f}s")
+    finally:
+        for _, proc in procs:
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
 
 
 PHASES = ("kernels", "times", "main", "network", "cli")
@@ -533,20 +835,33 @@ def main(argv=None) -> int:
     log("1 env", f"python {sys.version.split()[0]} torch {torch.__version__}"
         f" cuda {torch.version.cuda}; gpu: {card}")
 
-    from repro_torch.kernels import irc_mvm, ops
+    from repro_torch.kernels import build, irc_mvm, ops, ternary_matmul
+    sources = (irc_mvm.SOURCE, ternary_matmul.SOURCE)
+    build.build(*sources)
+    for src in sources:
+        log("2 build", f"nvcc sm_90a build of {src.name}: "
+            f"{build.BUILD_S[src.name]:.1f}s into {build.build_dir()}")
+        for line in build.BUILD_LOG.get(src.name, "").splitlines():
+            if "registers" in line or "spill" in line:
+                log("2 build", "ptxas: " + line.strip())
     irc_mvm.load()
-    log("2 build", f"nvcc sm_90a build of {irc_mvm.SOURCE.name}: "
-        f"{irc_mvm.BUILD_S:.1f}s into {irc_mvm.build_dir()}")
-    for line in irc_mvm.BUILD_LOG.splitlines():
-        if "registers" in line or "spill" in line:
-            log("2 build", "ptxas: " + line.strip())
+    ternary_matmul.load()
 
-    checks = phase_kernels(ops) if "kernels" in only else {}
-    times = phase_times(ops) if "times" in only else {}
-    launches, single = (phase_main_path(ops) if "main" in only
-                        else ({}, {}))
+    checks = {}
+    if "kernels" in only:
+        checks = phase_kernels(ops)
+        phase_k3_checks(ops)
+    times, k3_times = {}, {}
+    if "times" in only:
+        times = phase_times(ops)
+        k3_times = phase_k3_times(ops)
+    launches, single, layer = {}, {}, {}
+    if "main" in only:
+        launches, single = phase_main_path(ops)
+        layer = phase_layer_path(ops)
     if "network" in only:
         phase_network(ops)
+        phase_layer_network(ops)
     if "cli" in only:
         phase_cli()
     if "profile" in only:
@@ -569,6 +884,16 @@ def main(argv=None) -> int:
             "max_abs_err": t["max_abs_err"], "ms": t["ms"],
             "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],
             "bound_by": t["bound_by"], "library_ms": t["library_ms"]})
+    # K3 at the layer path's shape; its launches are the two layer runs'
+    t = k3_times["layer"]
+    kernels.append({
+        "name": "ternary_matmul", "route": "cuda",
+        "source": "src/repro_torch/csrc/ternary_matmul.cu",
+        "replaces": "src/repro/kernels/ternary_matmul.py:38",
+        "launches": sum(c["ternary_matmul"] for c in layer.values()),
+        "max_abs_err": max(v["max_abs_err"] for v in k3_times.values()),
+        "ms": t["ms"], "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],
+        "bound_by": t["bound_by"], "library_ms": t["library_ms"]})
     flips = sum(f for _, f in checks.values())
     log("8 summary", f"near-tie binary flips in phase 3: {flips}; total "
         f"{time.perf_counter() - t_start:.1f}s")

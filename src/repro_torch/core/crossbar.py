@@ -2,11 +2,16 @@
 
 `crossbar_forward` samples one chip (`sample_chip_planes`: per-cell device
 variation and HRS leak, drawn once per die) and runs it (`crossbar_apply`:
-32-cell IR-drop blocks, single-shot accumulation nonlinearity, SA offset and
+32-cell IR-drop blocks, the accumulation nonlinearity, SA offset and
 limited sensing range).  It is the single-chip plain path that the chip
-ensembles and the fused kernel are held against.  The baseline's
-partial-sum accumulation and the multi-macro `sensed_diff` readout come with
-the baseline design in a later slice.
+ensembles and the fused kernel are held against.
+
+Accumulation modes (Sec. III-C / IV-B.3): "single_shot" (proposed) sums the
+whole column in one analog step; "partial_sum" (baseline) splits it into
+`partial_rows`-row chunks summed digitally, each with its own
+nonlinearity.  `ideal_ternary_matmul` is the ideal digital reference,
+through the ternary matmul kernel on the card.  The multi-macro
+`sensed_diff` readout comes with the multi-macro `IRCLinear` slice.
 """
 from __future__ import annotations
 
@@ -19,40 +24,62 @@ from repro_torch import prng
 from repro_torch.core import nonideal as ni
 from repro_torch.core.macro import MacroSpec, DEFAULT_MACRO
 from repro_torch.core.mapping import MappedLayer, extend_inputs
+from repro_torch.kernels import ops
 
 
 def _block_reduce(x_ext: torch.Tensor, plane: torch.Tensor, block: int
                   ) -> torch.Tensor:
     """Per-IR-block partial currents: x_ext [..., R], plane [R, N]
-    -> [..., nb, N] with nb = ceil(R / block) (zero rows at the far end)."""
-    rows, n_out = plane.shape
+    -> [..., nb, N] with nb = ceil(R / block) (zero rows at the far end).
+    A chip batch of planes [C, R, N] takes x_ext [B, R] shared by every
+    chip or [C, B, R] per chip and gives [C, B, nb, N]."""
+    rows, n_out = plane.shape[-2:]
     nb = -(-rows // block)
     pad = nb * block - rows
     if pad:
         x_ext = F.pad(x_ext, (0, pad))
         plane = F.pad(plane, (0, 0, 0, pad))
     xb = x_ext.reshape(x_ext.shape[:-1] + (nb, block))
-    pb = plane.reshape(nb, block, n_out)
-    return torch.einsum("...bk,bkn->...bn", xb, pb)
+    pb = plane.reshape(plane.shape[:-2] + (nb, block, n_out))
+    if plane.ndim == 2:
+        return torch.einsum("...bk,bkn->...bn", xb, pb)
+    return (xb.transpose(-3, -2) @ pb).transpose(-3, -2)
 
 
 def _accumulate(blocks: torch.Tensor, counts: torch.Tensor,
                 cfg: ni.NonidealConfig, spec: MacroSpec, accumulation: str,
                 partial_rows: int, device=None
                 ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """IR drop + single-shot nonlinearity on per-block currents [..., nb, N];
-    returns (bit-line current [..., N], activated LRS count [..., N])."""
-    if accumulation != "single_shot":
-        raise NotImplementedError(
-            f"accumulation={accumulation!r} comes with the baseline-design "
-            "slice (binary weights, partial sums, in-memory BN)")
+    """IR drop + nonlinearity on per-block currents [..., nb, N] with their
+    activated-LRS counts (leading axes broadcast against the currents');
+    returns (bit-line current, activated LRS count), each [..., N].
+    "partial_sum" sums `partial_rows // ir_block` blocks per chunk (the last
+    chunk zero-padded) and applies the nonlinearity per chunk."""
     if cfg.ir_drop:
         blocks = blocks * ni._device_or_analytic(device).ir_drop_factors(
             blocks, spec, axis=-2)
     p_total = torch.sum(counts, dim=-2)
-    i_line = torch.sum(blocks, dim=-2)
-    if cfg.nonlinearity:
-        i_line = ni.apply_nonlinearity(i_line, p_total)
+    if accumulation == "single_shot":
+        i_line = torch.sum(blocks, dim=-2)
+        if cfg.nonlinearity:
+            i_line = ni.apply_nonlinearity(i_line, p_total)
+    elif accumulation == "partial_sum":
+        nb, n_out = blocks.shape[-2:]
+        chunk = max(1, partial_rows // spec.ir_block)
+        n_chunks = -(-nb // chunk)
+        pad = n_chunks * chunk - nb
+        if pad:
+            blocks = F.pad(blocks, (0, 0, 0, pad))
+            counts = F.pad(counts, (0, 0, 0, pad))
+        i_chunk = torch.sum(blocks.reshape(
+            blocks.shape[:-2] + (n_chunks, chunk, n_out)), dim=-2)
+        p_chunk = torch.sum(counts.reshape(
+            counts.shape[:-2] + (n_chunks, chunk, n_out)), dim=-2)
+        if cfg.nonlinearity:
+            i_chunk = ni.apply_nonlinearity(i_chunk, p_chunk)
+        i_line = torch.sum(i_chunk, dim=-2)
+    else:
+        raise ValueError(f"unknown accumulation mode: {accumulation!r}")
     return i_line, p_total
 
 
@@ -65,10 +92,12 @@ def sample_chip_planes(key: torch.Tensor, g_pos: torch.Tensor,
 
     The key splits into 3 (positive-plane mask, negative-plane mask, SA key)
     as in the reference, so chip identity matches it bit for bit.  Key batch
-    axes lead ep/en ([chips, R, N] from [chips, 2] keys) and k_sa."""
-    if scheme != "ternary":
-        raise NotImplementedError(
-            f"scheme={scheme!r} comes with the baseline-design slice")
+    axes lead ep/en ([chips, R, N] from [chips, 2] keys) and k_sa.  The
+    baseline ("binary") has ONE physical reference line: its variation mask
+    is drawn [rows, 1] from the same split key and is common to every
+    output column."""
+    if scheme not in ("ternary", "binary"):
+        raise ValueError(f"unknown mapping scheme: {scheme!r}")
     dev = ni._device_or_analytic(device)
     ks = prng.split(key, 3)
     k_var_p, k_var_n, k_sa = ks[..., 0, :], ks[..., 1, :], ks[..., 2, :]
@@ -77,7 +106,9 @@ def sample_chip_planes(key: torch.Tensor, g_pos: torch.Tensor,
     en = g_neg.expand(lead + g_neg.shape)
     if cfg.device_variation:
         ep = g_pos * dev.variation_mask(k_var_p, g_pos.shape, spec)
-        en = g_neg * dev.variation_mask(k_var_n, g_neg.shape, spec)
+        n_shape = ((g_neg.shape[0], 1) if scheme == "binary"
+                   else g_neg.shape)
+        en = g_neg * dev.variation_mask(k_var_n, n_shape, spec)
     leak = dev.hrs_leak_units(spec)
     if leak:
         ep = ep + (1.0 - g_pos) * leak
@@ -133,3 +164,14 @@ def crossbar_forward(key: torch.Tensor, x_bits: torch.Tensor,
                           partial_rows=partial_rows,
                           sa_extra_units=sa_extra_units, output=output,
                           device=device)
+
+
+def ideal_ternary_matmul(x_bits: torch.Tensor, w_t: torch.Tensor
+                         ) -> torch.Tensor:
+    """Ideal digital reference: {0,1} inputs [B, K] x ternary weights
+    [K, N] -> [B, N] float32, through the ternary matmul kernel on the card.
+    Raises ValueError on a weight outside {-1, 0, +1}, which the int8
+    weight operand could not carry."""
+    if not bool(((w_t == 0) | (w_t.abs() == 1)).all()):
+        raise ValueError("ideal_ternary_matmul needs weights in {-1, 0, +1}")
+    return ops.ternary_matmul(x_bits.float(), w_t.to(torch.int8))

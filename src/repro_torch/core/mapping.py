@@ -1,25 +1,31 @@
-"""Weight -> crossbar conductance-plane mapping (paper Sec. IV-B, Fig. 13b).
+"""Weight -> crossbar conductance-plane mapping (paper Sec. IV-B, Figs. 12-13).
 
 `ternary_planes` (proposed design): each weight column maps to a
 differential (G+, G-) bit-line pair; +1 -> (LRS, HRS), -1 -> (HRS, LRS),
-0 -> (HRS, HRS).  Row 0 is nearest the bit-line driver, and the <= 32 extra
-bias rows sit there.  The baseline's binary mapping comes with the baseline
-design in a later slice.
+0 -> (HRS, HRS).  `binary_planes` (baseline design): weights in {-1,+1} map
+to one convolution bit-line (LRS for +1) compared against a shared reference
+bit-line of half conductance.  Row 0 is nearest the bit-line driver; the
+proposed design's <= 32 extra bias rows and the baseline's in-memory BN
+rows sit there.
 """
 from __future__ import annotations
 
 import dataclasses
+from typing import Optional
 
 import torch
+
+from repro_torch.core.macro import MacroSpec, DEFAULT_MACRO
 
 
 @dataclasses.dataclass
 class MappedLayer:
     """A linear layer mapped onto crossbar conductance planes.
 
-    g_pos/g_neg: [rows_mapped, n_out] float {0,1}, row 0 nearest the driver;
-    the `bias_rows` leading rows are always-on common-mode bias (LRS on both
-    planes)."""
+    g_pos/g_neg: [rows_mapped, n_out] float, row 0 nearest the driver
+    ({0,1}; the baseline's reference line is 0.5); the `bias_rows` leading
+    rows are always on: common-mode bias (LRS on both planes) or the
+    baseline's in-memory BN rows."""
     g_pos: torch.Tensor
     g_neg: torch.Tensor
     bias_rows: int
@@ -50,6 +56,33 @@ def ternary_planes(w_t: torch.Tensor, bias_rows: int = 0) -> MappedLayer:
         g_neg = torch.cat([ones, g_neg], dim=0)
     return MappedLayer(g_pos=g_pos, g_neg=g_neg, bias_rows=bias_rows,
                        scheme="ternary", fan_in=w_t.shape[0])
+
+
+def binary_planes(w_b: torch.Tensor,
+                  bn_bias_units: Optional[torch.Tensor] = None,
+                  spec: MacroSpec = DEFAULT_MACRO) -> MappedLayer:
+    """Baseline mapping of binary weights [fan_in, n_out]: `g_pos` is the
+    convolution line (LRS for +1), `g_neg` the shared reference line at 0.5
+    everywhere, so ideally I_ref = p/2 for p activated rows.  With
+    `bn_bias_units` [n_out] (in-memory BN, Fig. 13a), `spec.bn_rows`
+    always-on leading rows carry round(b) clipped to +-bn_rows: |b| of them
+    LRS on the convolution line (b > 0) or on the reference line (b < 0)."""
+    w_b = w_b.float()
+    fan_in, n_out = w_b.shape
+    conv = (w_b > 0).float()
+    ref = torch.full((fan_in, n_out), 0.5, dtype=torch.float32,
+                     device=w_b.device)
+    bn = 0
+    if bn_bias_units is not None:
+        bn = spec.bn_rows
+        b = torch.clamp(torch.round(bn_bias_units.float()), -bn, bn)
+        r = torch.arange(bn, dtype=torch.float32, device=w_b.device)[:, None]
+        conv_bn = (r < torch.clamp(b, min=0)[None, :]).float()
+        ref_bn = (r < torch.clamp(-b, min=0)[None, :]).float()
+        conv = torch.cat([conv_bn, conv], dim=0)
+        ref = torch.cat([ref_bn, ref], dim=0)
+    return MappedLayer(g_pos=conv, g_neg=ref, bias_rows=bn, scheme="binary",
+                       fan_in=fan_in)
 
 
 def extend_inputs(x_bits: torch.Tensor, mapped: MappedLayer) -> torch.Tensor:

@@ -117,15 +117,6 @@ def _device_or_analytic(device):
     return device
 
 
-def sa_offset(key: torch.Tensor, p: torch.Tensor,
-              spec: MacroSpec = DEFAULT_MACRO, extra_units: float = 0.0,
-              device=None) -> torch.Tensor:
-    """Zero-mean Gaussian input-referred SA offset current (units) with the
-    device model's sigma (analytic: half the required difference g(p))."""
-    sigma = _device_or_analytic(device).sa_offset_sigma(p, spec, extra_units)
-    return sigma * prng.normal(key, p.shape)
-
-
 def sensing_failure(i_pos: torch.Tensor, i_neg: torch.Tensor,
                     spec: MacroSpec = DEFAULT_MACRO) -> torch.Tensor:
     """Boolean mask of comparisons outside the SA sensing window (Sec. III-D)."""
@@ -139,15 +130,22 @@ def resolve_sa(key: torch.Tensor, i_pos: torch.Tensor, i_neg: torch.Tensor,
                spec: MacroSpec = DEFAULT_MACRO, sa_extra_units: float = 0.0,
                device=None) -> torch.Tensor:
     """Binary SA decision in {0,1}: 1 iff (I+ - I- + offset) > 0, with
-    out-of-range comparisons replaced by random bits.  `key` is one key
-    ([2]); the draws have the shape of `i_pos`."""
-    k_off, k_rng = prng.split(key)
+    out-of-range comparisons replaced by random bits.  The offset is
+    zero-mean Gaussian with the device model's sigma (analytic: half the
+    required difference g(p)).  `key` is one key ([2]) or a batch [..., 2]
+    whose axes lead i_pos (a chip per key); each key draws the shape of
+    i_pos's remaining axes.  p_total broadcasts against i_pos."""
+    ks = prng.split(key)
+    k_off, k_rng = ks[..., 0, :], ks[..., 1, :]
+    shape = i_pos.shape[key.ndim - 1:]
     diff = i_pos - i_neg
     if cfg.sa_variation:
-        diff = diff + sa_offset(k_off, p_total, spec, sa_extra_units, device)
+        sigma = _device_or_analytic(device).sa_offset_sigma(
+            p_total, spec, sa_extra_units)
+        diff = diff + sigma * prng.normal(k_off, shape)
     out = (diff > 0).float()
     if cfg.sensing_range:
         fail = sensing_failure(i_pos, i_neg, spec)
-        rnd = prng.bernoulli(k_rng, 0.5, out.shape).float()
+        rnd = prng.bernoulli(k_rng, 0.5, shape).float()
         out = torch.where(fail, rnd, out)
     return out

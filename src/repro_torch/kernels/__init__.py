@@ -1,2 +1,3 @@
-"""The fused IRC MVM: its Hopper CUDA kernel (`irc_mvm`), its plain PyTorch
-version (`ref`) and the dispatching entry points (`ops`)."""
+"""The port's Hopper CUDA kernels: the fused IRC MVM (`irc_mvm`) and the
+ternary matmul (`ternary_matmul`), their shared nvcc build (`build`), their
+plain PyTorch versions (`ref`) and the dispatching entry points (`ops`)."""

@@ -1,9 +1,8 @@
-"""Build, load and launch the Hopper IRC MVM kernel (`csrc/irc_mvm.cu`).
+"""Load and launch the Hopper IRC MVM kernel (`csrc/irc_mvm.cu`).
 
-The source compiles at first use with `nvcc -gencode
-arch=compute_90a,code=sm_90a` into `build/repro_torch/libirc_mvm.so` under
-the repository root, a library with a plain C interface that ctypes loads.  Nothing here runs when the module is imported:
-the CPU tests import it on machines without nvcc or a card.
+The source compiles at first use into `build/repro_torch/libirc_mvm.so`
+(`repro_torch.kernels.build`).  Nothing here runs when the module is
+imported: the CPU tests import it on machines without nvcc or a card.
 
 `launch_chips` takes tensors that `repro_torch.kernels.ops` has already
 checked (device, dtype, shapes, contiguity) and enqueues the kernel on the
@@ -13,91 +12,28 @@ back to the plain version.
 from __future__ import annotations
 
 import ctypes
-import os
-import shutil
-import subprocess
-import threading
-import time
-from pathlib import Path
-from typing import Optional
 
 import torch
 
+from repro_torch.kernels import build
 from repro_torch.kernels.ref import IrcEpilogueParams
 
-_PKG = Path(__file__).resolve().parents[1]
-SOURCE = _PKG / "csrc" / "irc_mvm.cu"
-_REPO = _PKG.parents[1]
-_LOCK = threading.Lock()
-_LIB: Optional[ctypes.CDLL] = None
-#: seconds the last `load()` spent in nvcc (0.0 when already built)
-BUILD_S = 0.0
-#: nvcc's `-Xptxas -v` report of the last build (registers, spills, smem)
-BUILD_LOG = ""
+SOURCE = build.CSRC / "irc_mvm.cu"
 
 _FLAG_NL, _FLAG_IR, _FLAG_SA, _FLAG_RANGE, _FLAG_DIFF = 1, 2, 4, 8, 16
 
 
-def build_dir() -> Path:
-    """Where the kernel library is built: `build/repro_torch/` at the
-    repository root."""
-    return _REPO / "build" / "repro_torch"
-
-
-def nvcc_path() -> str:
-    """The CUDA compiler: `$CUDA_HOME/bin/nvcc`, `/usr/local/cuda/bin/nvcc`
-    or `nvcc` on PATH; raises when there is none."""
-    for cand in (os.environ.get("CUDA_HOME", "") + "/bin/nvcc",
-                 "/usr/local/cuda/bin/nvcc"):
-        if cand and os.path.isfile(cand):
-            return cand
-    found = shutil.which("nvcc")
-    if not found:
-        raise RuntimeError("nvcc not found: the IRC MVM kernel builds only "
-                           "where the CUDA toolkit is installed")
-    return found
-
-
-def build(verbose: bool = False) -> Path:
-    """Compile `csrc/irc_mvm.cu` for sm_90a; returns the library path.
-    Rebuilds when the source is newer than the library."""
-    global BUILD_S
-    out = build_dir() / "libirc_mvm.so"
-    if out.exists() and out.stat().st_mtime >= SOURCE.stat().st_mtime:
-        BUILD_S = 0.0
-        return out
-    nvcc = nvcc_path()
-    out.parent.mkdir(parents=True, exist_ok=True)
-    tmp = out.with_suffix(f".{os.getpid()}.tmp.so")
-    cmd = [nvcc, "-gencode", "arch=compute_90a,code=sm_90a",
-           "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
-           "-Xptxas", "-v", "-o", str(tmp), str(SOURCE)]
-    t0 = time.perf_counter()
-    proc = subprocess.run(cmd, capture_output=True, text=True)
-    BUILD_S = time.perf_counter() - t0
-    if proc.returncode != 0:
-        raise RuntimeError(f"nvcc failed ({proc.returncode}):\n{proc.stderr}")
-    global BUILD_LOG
-    BUILD_LOG = proc.stderr.strip()
-    if verbose:
-        print(BUILD_LOG)
-    os.replace(tmp, out)
-    return out
+def _bind(lib: ctypes.CDLL) -> None:
+    fn = lib.irc_mvm_chips_launch
+    fn.argtypes = ([ctypes.c_void_p] * 8 + [ctypes.c_int] * 4
+                   + [ctypes.c_longlong] * 2 + [ctypes.c_float] * 7
+                   + [ctypes.c_int, ctypes.c_void_p])
+    fn.restype = ctypes.c_int
 
 
 def load() -> ctypes.CDLL:
     """Build (if needed) and load the kernel library once per process."""
-    global _LIB
-    with _LOCK:
-        if _LIB is None:
-            lib = ctypes.CDLL(str(build()))
-            fn = lib.irc_mvm_chips_launch
-            fn.argtypes = ([ctypes.c_void_p] * 8 + [ctypes.c_int] * 4
-                           + [ctypes.c_longlong] * 2 + [ctypes.c_float] * 7
-                           + [ctypes.c_int, ctypes.c_void_p])
-            fn.restype = ctypes.c_int
-            _LIB = lib
-        return _LIB
+    return build.load(SOURCE, _bind)
 
 
 def epilogue_flags(params: IrcEpilogueParams) -> int:

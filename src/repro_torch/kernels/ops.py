@@ -1,13 +1,14 @@
-"""Public entry points of the IRC MVM kernels: checks and dispatch.
+"""Public entry points of the port's kernels: checks and dispatch.
 
 A CPU tensor goes to the plain PyTorch version (`repro_torch.kernels.ref`);
-a CUDA tensor goes to the hand-written Hopper kernel (`csrc/irc_mvm.cu`), or
-the call raises — there is no fallback from the card to the plain version.
+a CUDA tensor goes to the hand-written Hopper kernel (`csrc/irc_mvm.cu` for
+the IRC MVM, `csrc/ternary_matmul.cu` for the ternary matmul), or the call
+raises — there is no fallback from the card to the plain version.
 Each kernel wrapper counts its launches in a plain integer (`LAUNCHES`), so a
 run can show that its main path went through the kernel; calls served by the
 plain version do not count.
 
-Nothing needs padding: the kernel masks ragged R, N and B itself.
+Nothing needs padding: the kernels mask their ragged edges themselves.
 """
 from __future__ import annotations
 
@@ -16,10 +17,11 @@ from typing import Dict
 import torch
 
 from repro_torch.kernels.ref import (IrcEpilogueParams, irc_mvm_chips_ref,
-                                     irc_mvm_ref)
+                                     irc_mvm_ref, ternary_matmul_ref)
 
 #: kernel launches per wrapper since the last `reset_launches()`
-LAUNCHES: Dict[str, int] = {"irc_mvm_chips": 0, "irc_mvm": 0}
+LAUNCHES: Dict[str, int] = {"irc_mvm_chips": 0, "irc_mvm": 0,
+                            "ternary_matmul": 0}
 
 
 def reset_launches() -> None:
@@ -97,6 +99,37 @@ def _launch(dev, x, ep, en, gp, gn, eps_sa, rnd_bits, params):
     C, _, N = ep.shape
     out = torch.empty((C, x.shape[-2], N), dtype=torch.float32, device=dev)
     kern.launch_chips(*ops, out, params)
+    return out
+
+
+def _check_ternary(x: torch.Tensor, w_t: torch.Tensor) -> torch.device:
+    if x.ndim != 2 or w_t.ndim != 2 or x.shape[1] != w_t.shape[0]:
+        raise ValueError(f"ternary_matmul takes x [B,K] and w_t [K,N], got "
+                         f"{tuple(x.shape)} and {tuple(w_t.shape)}")
+    if x.dtype not in (torch.float32, torch.bfloat16):
+        raise ValueError(f"x must be float32 or bfloat16, got {x.dtype}")
+    if w_t.dtype != torch.int8:
+        raise ValueError(f"w_t must be int8 in {{-1,0,+1}}, got {w_t.dtype}")
+    if x.device != w_t.device:
+        raise ValueError(f"x and w_t must be on one device, got {x.device} "
+                         f"and {w_t.device}")
+    return x.device
+
+
+def ternary_matmul(x: torch.Tensor, w_t: torch.Tensor) -> torch.Tensor:
+    """Dense ternary matmul: x [B,K] float32 or bfloat16, w_t [K,N] int8
+    in {-1,0,+1} -> [B,N] float32, in ONE kernel launch on the card."""
+    dev = _check_ternary(x, w_t)
+    if dev.type == "cpu":
+        return ternary_matmul_ref(x, w_t)
+    if dev.type != "cuda":
+        raise RuntimeError(f"ternary_matmul runs on CPU or CUDA, not {dev}")
+    from repro_torch.kernels import ternary_matmul as kern
+    kern.load()
+    out = torch.empty((x.shape[0], w_t.shape[1]), dtype=torch.float32,
+                      device=dev)
+    kern.launch(x.contiguous(), w_t.contiguous(), out)
+    LAUNCHES["ternary_matmul"] += 1
     return out
 
 

@@ -1,5 +1,7 @@
-"""Plain PyTorch versions of the fused IRC MVM kernels.
+"""Plain PyTorch versions of the port's CUDA kernels.
 
+`ternary_matmul_ref` computes what `csrc/ternary_matmul.cu` computes: the
+ideal digital product of float inputs and int8 ternary weights.
 `irc_mvm_chips_ref` computes what the CUDA kernel (`csrc/irc_mvm.cu`)
 computes: the proposed design's single-shot crossbar MVM with its fused
 nonideal epilogue.  Conductance planes arrive with device variation and HRS
@@ -161,6 +163,12 @@ def irc_mvm_ref(x, ep, en, gp, gn, eps_sa, rnd_bits,
     res = irc_mvm_chips_ref(x, ep[None], en[None], gp, gn, eps_sa[None],
                             rnd_bits[None], params, margin=margin)
     return tuple(r[0] for r in res) if margin else res[0]
+
+
+def ternary_matmul_ref(x: torch.Tensor, w_t: torch.Tensor) -> torch.Tensor:
+    """Plain version of the ternary matmul kernel: x [B,K] float32 or
+    bfloat16, w_t [K,N] int8 in {-1,0,+1} -> [B,N] float32."""
+    return x.float() @ w_t.float()
 
 
 def near_tie_flips(out_a: torch.Tensor, out_b: torch.Tensor,

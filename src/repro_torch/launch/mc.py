@@ -1,14 +1,26 @@
-"""CLI for the whole-detector chip-population Monte Carlo (Table II).
+"""CLI for the chip-population Monte Carlo (Table II).
+
+  --network layer (default): a population of sampled chips of ONE IRC layer,
+  Table II columns of mean±std bit agreement with the ideal digital output
+  (the mAP-drop proxy), plus quantiles and throughput.
+
+  python -m repro_torch.launch.mc --chips 64 --ablation table2 --backend kernel
+  python -m repro_torch.launch.mc --chips 64 --scheme binary --bias-rows 0 \\
+      --accumulation partial_sum --ablation table2      # baseline design
+
+  --network detector: whole-network mAP@0.5 per chip of the detector at the
+  smoke geometry `yolo_irc.smoke()` (32x32 images), as in the JAX package's
+  CLI; every group conv goes through the fused IRC MVM kernel on the card.
 
   python -m repro_torch.launch.mc --network detector --chips 16 \\
       --ablation table2
 
-Random-init weights (from a seeded `torch.Generator`), the analytic device
-model, per-chip mAP@0.5 on a synthetic IVS-geometry batch; every group conv
-goes through the fused IRC MVM kernel on the card.  The geometry is
-`yolo_irc.smoke()` (32x32 images), as in the JAX package's CLI.
-`--device cpu` runs the plain PyTorch path on the CPU.  Layer-level sweeps, QAT (`--det-steps`), the
-measured and aged device models, and run directories come in later slices.
+Random weights from the seed (the layer's through the port's threefry, as
+the reference draws them; the detector's from a seeded `torch.Generator`),
+the analytic device model.  The layer's ideal reference bits go through the
+ternary matmul kernel on the card.  `--device cpu` runs the plain PyTorch
+path on the CPU.  QAT (`--det-steps`), the measured and aged device models,
+and run directories come in later slices.
 """
 from __future__ import annotations
 
@@ -30,6 +42,98 @@ def _ablation_columns(ablation: str, table):
     if ablation != "ideal":
         cols.append((ablation, by_name[ablation]))
     return cols
+
+
+def _table(results, metric: str) -> dict:
+    """Print one row per column (mean±std, drop against the ideal column,
+    quantiles, throughput) and return the report's per-column entries."""
+    print(f"{'config':14s} {metric + ' mean±std':>22s} {'drop':>7s} "
+          f"{'q05':>7s} {'q50':>7s} {'q95':>7s} {'chips':>5s} "
+          f"{'chips/s':>9s} {'first_s':>8s}")
+    ideal = results["ideal"].metrics[metric]["mean"]
+    rows = {}
+    for name, res in results.items():
+        m = res.metrics[metric]
+        print(f"{name:14s} {m['mean']:14.4f}±{m['std']:6.4f} "
+              f"{ideal - m['mean']:7.4f} {m.get('q05', float('nan')):7.4f} "
+              f"{m.get('q50', float('nan')):7.4f} "
+              f"{m.get('q95', float('nan')):7.4f} {res.n_chips:5d} "
+              f"{res.chips_per_sec:9.3f} {res.compile_s:8.3f}")
+        rows[name] = {
+            "metrics": res.metrics, "wall_s": res.wall_s,
+            "chips_per_sec": res.chips_per_sec,
+            "first_chunk_s": res.compile_s, "enqueue_s": res.enqueue_s,
+            "device_s": res.device_s, "host_s": res.host_s,
+            f"per_chip_{metric}": res.per_chip[metric].tolist()}
+    return rows
+
+
+def _finish(args, report: dict) -> dict:
+    """Add the kernel launch counts to the report and write it."""
+    from repro_torch.kernels import ops
+    report["kernel_launches"] = dict(ops.LAUNCHES)
+    print(f"# kernel launches {json.dumps(ops.LAUNCHES)}")
+    if args.json:
+        out = Path(args.json)
+        out.parent.mkdir(parents=True, exist_ok=True)
+        out.write_text(json.dumps(report, indent=1))
+        print(f"# wrote {out}")
+    return report
+
+
+def build_layer(args, device):
+    """The layer under test, drawn from `args.seed` with the reference's
+    keys: (mapped planes, word-line bits x [batch, fan_in], ideal reference
+    bits [batch, n_out])."""
+    import torch
+    from repro_torch import prng
+    from repro_torch.core.crossbar import ideal_ternary_matmul
+    from repro_torch.core.mapping import binary_planes, ternary_planes
+    from repro_torch.core.ternary import binary_quantize, ternary_quantize
+
+    k_w, k_x = prng.split(prng.PRNGKey(args.seed, device=device))
+    w_lat = prng.normal(k_w, (args.fan_in, args.n_out))
+    if args.scheme == "ternary":
+        w = ternary_quantize(w_lat)
+        mapped = ternary_planes(w, bias_rows=args.bias_rows)
+    else:
+        w = binary_quantize(w_lat)
+        mapped = binary_planes(w)
+    x = (prng.uniform(k_x, (args.batch, args.fan_in))
+         > 1.0 - args.density).to(torch.float32)
+    ref_bits = (ideal_ternary_matmul(x, w) > 0).to(torch.float32)
+    return mapped, x, ref_bits
+
+
+def run_layer(args) -> dict:
+    """Population bit agreement of one layer per ablation column; prints a
+    table, returns the report."""
+    from repro_torch import prng
+    from repro_torch.kernels import ops
+    from repro_torch.mc.engine import McConfig, TABLE2_ABLATION, run_mc
+    from repro_torch.runtime import resolve_device
+
+    dev = resolve_device(args.device)
+    columns = _ablation_columns(args.ablation, TABLE2_ABLATION)
+    ops.reset_launches()
+    mapped, x, ref_bits = build_layer(args, dev)
+    mc = McConfig(n_chips=args.chips, chunk_size=args.chunk,
+                  accumulation=args.accumulation, backend=args.backend,
+                  calibrate=args.calibrate)
+    key = prng.PRNGKey(args.seed, device=dev)
+
+    print(f"# {args.scheme} {args.fan_in}x{args.n_out} batch={args.batch} "
+          f"chips={args.chips} chunk={args.chunk} "
+          f"accumulation={args.accumulation} backend={args.backend} "
+          f"device={dev}" + (" calibrated" if args.calibrate else ""))
+    results = {name: run_mc(key, mapped, x, ref_bits=ref_bits,
+                            mc=dataclasses.replace(mc, cfg=cfg))
+               for name, cfg in columns}
+    rows = _table(results, "bit_agreement")
+    for name, res in results.items():
+        rows[name]["bias_units"] = (res.bias_units.tolist()
+                                    if res.bias_units is not None else None)
+    return _finish(args, {"args": vars(args), "results": rows})
 
 
 def run_detector(args) -> dict:
@@ -63,64 +167,74 @@ def run_detector(args) -> dict:
     print(f"# detector smoke {cfg.img_hw[0]}x{cfg.img_hw[1]} "
           f"batch={args.det_batch} chips={args.chips} chunk={args.chunk} "
           f"device={dev} pipeline={not args.no_pipeline}")
-    print(f"{'config':14s} {'map50 mean±std':>16s} {'drop':>7s} "
-          f"{'q05':>7s} {'q50':>7s} {'q95':>7s} {'chips':>5s} "
-          f"{'chips/s':>8s} {'first_s':>8s}")
-    results, report = {}, {"args": vars(args), "results": {}}
     ops.reset_launches()
-    for name, cfg_ni in columns:
-        results[name] = run_mc_detector(
-            key, det, params, images, ev.boxes, ev.classes,
-            mc=dataclasses.replace(mc, cfg=cfg_ni),
-            pipeline=not args.no_pipeline)
-    ideal = results["ideal"].metrics["map50"]["mean"]
-    for name, res in results.items():
-        m = res.metrics["map50"]
-        print(f"{name:14s} {m['mean']:8.4f}±{m['std']:6.4f} "
-              f"{ideal - m['mean']:7.4f} {m.get('q05', float('nan')):7.4f} "
-              f"{m.get('q50', float('nan')):7.4f} "
-              f"{m.get('q95', float('nan')):7.4f} {res.n_chips:5d} "
-              f"{res.chips_per_sec:8.3f} {res.compile_s:8.2f}")
-        report["results"][name] = {
-            "metrics": m, "wall_s": res.wall_s,
-            "chips_per_sec": res.chips_per_sec, "first_chunk_s": res.compile_s,
-            "enqueue_s": res.enqueue_s, "device_s": res.device_s,
-            "host_s": res.host_s,
-            "per_chip_map50": res.per_chip["map50"].tolist()}
-    report["kernel_launches"] = dict(ops.LAUNCHES)
-    print(f"# kernel launches {json.dumps(ops.LAUNCHES)}")
-    if args.json:
-        out = Path(args.json)
-        out.parent.mkdir(parents=True, exist_ok=True)
-        out.write_text(json.dumps(report, indent=1))
-        print(f"# wrote {out}")
-    return report
+    results = {name: run_mc_detector(key, det, params, images, ev.boxes,
+                                     ev.classes,
+                                     mc=dataclasses.replace(mc, cfg=cfg_ni),
+                                     pipeline=not args.no_pipeline)
+               for name, cfg_ni in columns}
+    return _finish(args, {"args": vars(args),
+                          "results": _table(results, "map50")})
 
 
 def main(argv=None) -> None:
-    """Parse arguments and run the detector sweep."""
+    """Parse arguments, refuse flags of the other network level, and run
+    the layer or the detector sweep."""
     ap = argparse.ArgumentParser(
         description="chip-ensemble Monte Carlo sweep (PyTorch/CUDA port)")
-    ap.add_argument("--network", default="detector", choices=["detector"],
-                    help="detector: whole-network mAP@0.5 population sweep "
-                         "(the layer-level sweep comes in a later slice)")
+    ap.add_argument("--network", default="layer",
+                    choices=["layer", "detector"],
+                    help="layer: one IRC layer, bit-agreement proxy; "
+                         "detector: whole-network mAP@0.5 population sweep")
     ap.add_argument("--det-batch", type=int, default=2,
                     help="detector eval batch size")
     ap.add_argument("--det-steps", type=int, default=0,
-                    help="QAT steps before the sweep (only 0, random init, "
-                         "in this slice)")
+                    help="QAT steps before the detector sweep (only 0, "
+                         "random init, in this slice)")
+    ap.add_argument("--no-pipeline", action="store_true",
+                    help="detector: serial chunk loop instead of the "
+                         "overlapped one")
     ap.add_argument("--chips", type=int, default=64)
     ap.add_argument("--chunk", type=int, default=32)
+    ap.add_argument("--batch", type=int, default=256)
+    ap.add_argument("--fan-in", type=int, default=540)
+    ap.add_argument("--n-out", type=int, default=60)
+    ap.add_argument("--density", type=float, default=0.5,
+                    help="activated word-line fraction")
+    ap.add_argument("--scheme", default="ternary",
+                    choices=["ternary", "binary"],
+                    help="proposed ternary | baseline binary mapping")
+    ap.add_argument("--bias-rows", type=int, default=32)
+    ap.add_argument("--accumulation", default="single_shot",
+                    choices=["single_shot", "partial_sum"])
+    ap.add_argument("--backend", default="plain", choices=["plain", "kernel"],
+                    help="layer forward: plain batched route, or the fused "
+                         "IRC MVM kernel (single-shot only)")
+    ap.add_argument("--calibrate", action="store_true",
+                    help="per-die extra-bias calibration before evaluation")
     ap.add_argument("--ablation", default="all",
                     help="'table2' for the full effect sweep, or one column "
                          "name (ideal|devvar|devvar+nl|devvar+nl+peri|all)")
-    ap.add_argument("--no-pipeline", action="store_true",
-                    help="serial chunk loop instead of the overlapped one")
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--device", default="cuda",
                     help="torch device (cuda, or cpu for the plain path)")
     ap.add_argument("--json", default="", help="write the report here")
     args = ap.parse_args(argv)
+
+    # flags of the other network level would be silently ignored: refuse
+    # them rather than write a report whose args misstate the run
+    other = (("scheme", "fan_in", "n_out", "density", "bias_rows",
+              "accumulation", "backend", "calibrate", "batch")
+             if args.network == "detector"
+             else ("det_batch", "det_steps", "no_pipeline"))
+    misused = [f"--{n.replace('_', '-')}" for n in other
+               if getattr(args, n) != ap.get_default(n)]
+    if misused:
+        raise SystemExit(f"--network {args.network} does not take "
+                         f"{', '.join(misused)}")
+    if args.network == "layer":
+        run_layer(args)
+        return
     if args.det_steps:
         raise SystemExit("--det-steps > 0 needs QAT, which comes in a later "
                          "slice of the port")

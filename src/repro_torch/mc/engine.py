@@ -1,29 +1,38 @@
-"""Chip-ensemble engine: one kernel launch evaluates a whole chip population.
+"""Chip-ensemble engine: one batched computation evaluates a whole chip
+population.
 
-`ensemble_apply_kernel` draws each chip's per-read periphery noise from its
-SA key (the reference's key discipline: `split(k_sa)` -> normal offsets and
-bernoulli(0.5) fallback bits of shape (B, N)) and runs the fused IRC MVM over
-the ensemble's leading chips axis.  `McConfig`/`McResult`/`TABLE2_ABLATION`
-carry the population sweeps of `repro_torch.mc.detector_mc`.  The plain
-batched `ensemble_apply` route, `run_mc` for single layers and per-die
-calibration come in later slices.
+Two routes give every chip of a `ChipEnsemble` on a batch of word lines:
+`ensemble_apply`, the plain batched route (both accumulation modes, any
+device model), and `ensemble_apply_kernel`, one launch of the fused IRC MVM
+(single-shot, analytic periphery).  Both draw each chip's per-read
+periphery noise from its SA key with the reference's key discipline
+(`split(k_sa)` -> normal offsets and bernoulli(0.5) fallback bits of shape
+(B, N)).  `run_mc` streams a layer's population through them in chunks,
+folding per-chip metrics into Welford/quantile accumulators, and
+`run_ablation` sweeps the Table II effect columns.  Chunking is invisible:
+chip c is keyed by `fold_in(key, c)` whichever chunk evaluates it.
+`McConfig`/`McResult`/`TABLE2_ABLATION` also carry the whole-detector
+sweeps of `repro_torch.mc.detector_mc`.
 """
 from __future__ import annotations
 
 import dataclasses
-from typing import Dict, Optional, Tuple
+from typing import Callable, Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
 
 from repro_torch import prng
 from repro_torch.core import nonideal as ni
+from repro_torch.core.crossbar import _accumulate, _block_reduce
 from repro_torch.core.macro import MacroSpec, DEFAULT_MACRO
-from repro_torch.core.mapping import extend_rows
+from repro_torch.core.mapping import MappedLayer, extend_rows
 from repro_torch.kernels import ops
 from repro_torch.kernels.ref import IrcEpilogueParams, irc_mvm_chips_ref
-from repro_torch.mc.ensemble import ChipEnsemble
-from repro_torch.mc.stats import DEFAULT_QUANTILES
+from repro_torch.mc.ensemble import (ChipEnsemble, calibrate_ensemble_bias,
+                                     sample_ensemble)
+from repro_torch.mc.stats import DEFAULT_QUANTILES, StreamingMoments
+from repro_torch.obs.timers import PhaseTimer
 
 
 def periphery_noise(sa_keys: torch.Tensor, B: int, N: int
@@ -34,6 +43,42 @@ def periphery_noise(sa_keys: torch.Tensor, B: int, N: int
     eps_sa = prng.normal(ks[..., 0, :], (B, N))
     rnd = prng.bernoulli(ks[..., 1, :], 0.5, (B, N)).float()
     return eps_sa, rnd
+
+
+def ensemble_apply(ens: ChipEnsemble, x_bits: torch.Tensor, *,
+                   cfg: ni.NonidealConfig, spec: MacroSpec = DEFAULT_MACRO,
+                   accumulation: str = "single_shot", partial_rows: int = 256,
+                   sa_extra_units: float = 0.0, output: str = "binary",
+                   per_chip_x: bool = False, device=None) -> torch.Tensor:
+    """Every chip of `ens` on x_bits -> [chips, B, n_out], the plain batched
+    route: chip c equals `crossbar_forward(fold_in(key, c), ...)` up to
+    float32 summation order.
+
+    x_bits is [B, fan_in] shared by every chip, or [chips, B, fan_in] with
+    `per_chip_x`.  The activated-LRS counts are sums of {0,1} products,
+    exact in float32 in any order: with shared placement planes and shared
+    word lines they are chip-independent and computed once ([B, nb, N]);
+    per-chip planes (calibrated dies) or per-chip word lines give them a
+    chips axis.  output="binary" gives SA decisions, "diff" the analog
+    difference."""
+    if output not in ("binary", "diff"):
+        raise ValueError(f"output must be 'binary' or 'diff', got {output!r}")
+    if per_chip_x:
+        assert x_bits.ndim == 3 and x_bits.shape[0] == ens.n_chips, (
+            f"per_chip_x needs [chips={ens.n_chips}, batch, fan_in] inputs, "
+            f"got {tuple(x_bits.shape)}")
+    x_ext = extend_rows(x_bits, ens.lead_rows)
+    blk = spec.ir_block
+    i_pos, p_pos = _accumulate(_block_reduce(x_ext, ens.ep, blk),
+                               _block_reduce(x_ext, ens.gp, blk), cfg, spec,
+                               accumulation, partial_rows, device)
+    i_neg, p_neg = _accumulate(_block_reduce(x_ext, ens.en, blk),
+                               _block_reduce(x_ext, ens.gn, blk), cfg, spec,
+                               accumulation, partial_rows, device)
+    if output == "diff":
+        return i_pos - i_neg
+    return ni.resolve_sa(ens.sa_keys, i_pos, i_neg, p_pos + p_neg, cfg, spec,
+                         sa_extra_units, device)
 
 
 def ensemble_apply_kernel(ens: ChipEnsemble, x_bits: torch.Tensor, *,
@@ -79,12 +124,18 @@ def ensemble_apply_kernel(ens: ChipEnsemble, x_bits: torch.Tensor, *,
 @dataclasses.dataclass(frozen=True)
 class McConfig:
     """One ensemble sweep: population size, chunking, effect toggles, the
-    reported quantiles and the device model (None: analytic).  The
-    reference's accumulation/backend/calibration fields come with the
-    slices that use them."""
+    accumulation mode, the layer sweep's backend ("plain": `ensemble_apply`;
+    "kernel": the fused IRC MVM, single-shot only) and per-die bias
+    calibration, the reported quantiles and the device model (None:
+    analytic)."""
     n_chips: int = 64
     chunk_size: int = 32
     cfg: ni.NonidealConfig = ni.NonidealConfig.all()
+    accumulation: str = "single_shot"
+    partial_rows: int = 256
+    sa_extra_units: float = 0.0
+    backend: str = "plain"               # "plain" | "kernel"
+    calibrate: bool = False
     quantiles: Tuple[float, ...] = DEFAULT_QUANTILES
     device: Optional[object] = None      # repro_torch.device.DeviceModel
 
@@ -99,7 +150,8 @@ class McResult:
     `enqueue_s` is the host time spent sampling chips and enqueueing their
     forward (on the CPU the work itself runs there), `device_s` the time the
     host then sat blocked on device results, and `host_s` the host-side
-    scoring time."""
+    scoring time.  `bias_units` holds each chip's calibrated bias rows when
+    the sweep calibrated its dies."""
     n_chips: int
     metrics: Dict[str, Dict[str, float]]
     per_chip: Dict[str, np.ndarray]
@@ -109,6 +161,7 @@ class McResult:
     enqueue_s: float = 0.0
     device_s: float = 0.0
     host_s: float = 0.0
+    bias_units: Optional[np.ndarray] = None
 
     def summary_line(self, metric: str = "map50") -> str:
         """One-line mean±std + quantile report for `metric`."""
@@ -121,6 +174,101 @@ class McResult:
                 f"first chunk {self.compile_s:.2f}s]")
 
 
+MetricFn = Callable[[torch.Tensor], torch.Tensor]  # [chips,B,N] -> [chips]
+HostMetricFn = Callable[[np.ndarray], np.ndarray]  # [chips,B,N] -> [chips]
+
+
+def bit_agreement_metric(ref_bits: torch.Tensor) -> MetricFn:
+    """Per-chip fraction of SA decisions that agree with the ideal digital
+    output `ref_bits` [B, N] (the mAP-drop proxy of the layer sweep)."""
+    ref = (ref_bits > 0.5).float()
+    return lambda out: torch.mean(((out > 0.5).float() == ref).float(),
+                                  dim=(-2, -1))
+
+
+def ones_fraction_metric() -> MetricFn:
+    """Per-chip fraction of 1-bits in the output (a drift indicator)."""
+    return lambda out: torch.mean(out, dim=(-2, -1))
+
+
+def run_mc(key: torch.Tensor, mapped: MappedLayer, x_bits: torch.Tensor, *,
+           ref_bits: Optional[torch.Tensor] = None, mc: McConfig = McConfig(),
+           spec: MacroSpec = DEFAULT_MACRO,
+           metric_fns: Optional[Dict[str, MetricFn]] = None,
+           host_metric_fns: Optional[Dict[str, HostMetricFn]] = None
+           ) -> McResult:
+    """Stream a population of `mc.n_chips` sampled chips of one mapped
+    layer over x_bits [B, fan_in], `mc.chunk_size` chips at a time.
+
+    Runs on the device that `key`, the planes and x_bits live on.
+    `ref_bits` ([B, n_out] ideal binary output) adds the `bit_agreement`
+    metric beside `ones_fraction`; `metric_fns` add reductions on the
+    device, `host_metric_fns` callbacks on the chunk's outputs in numpy.
+    With `mc.calibrate` each chunk's dies are bias-calibrated on x_bits
+    before the forward."""
+    if mc.backend not in ("plain", "kernel"):
+        raise ValueError(f"backend must be 'plain' or 'kernel', got "
+                         f"{mc.backend!r}")
+    if mc.backend == "kernel" and mc.accumulation != "single_shot":
+        raise ValueError("kernel backend fuses the single-shot path only")
+    fns: Dict[str, MetricFn] = {}
+    if ref_bits is not None:
+        fns["bit_agreement"] = bit_agreement_metric(ref_bits)
+    fns["ones_fraction"] = ones_fraction_metric()
+    fns.update(metric_fns or {})
+    host_fns: Dict[str, HostMetricFn] = dict(host_metric_fns or {})
+    moments = {name: StreamingMoments(mc.quantiles)
+               for name in (*fns, *host_fns)}
+    timer = PhaseTimer("mc_chunks", unit="chips")
+    enq_timer = PhaseTimer("mc_enqueue", unit="chips")
+    dev_timer = PhaseTimer("mc_device", unit="chips")
+    host_timer = PhaseTimer("mc_host", unit="chips")
+    bias_chunks: List[np.ndarray] = []
+    n_done = 0
+    for lo in range(0, mc.n_chips, mc.chunk_size):
+        ids = torch.arange(lo, min(lo + mc.chunk_size, mc.n_chips),
+                           dtype=torch.int64, device=key.device)
+        n_chunk = int(ids.shape[0])
+        with timer.lap(items=n_chunk):
+            with enq_timer.lap(items=n_chunk):
+                ens = sample_ensemble(key, mapped, chip_ids=ids, cfg=mc.cfg,
+                                      spec=spec, device=mc.device)
+                if mc.calibrate:
+                    ens = calibrate_ensemble_bias(ens, x_bits, spec,
+                                                  device=mc.device)
+                    bias_chunks.append(ens.bias_units.cpu().numpy())
+                if mc.backend == "kernel":
+                    out = ensemble_apply_kernel(
+                        ens, x_bits, cfg=mc.cfg, spec=spec,
+                        sa_extra_units=mc.sa_extra_units, device=mc.device)
+                else:
+                    out = ensemble_apply(
+                        ens, x_bits, cfg=mc.cfg, spec=spec,
+                        accumulation=mc.accumulation,
+                        partial_rows=mc.partial_rows,
+                        sa_extra_units=mc.sa_extra_units, device=mc.device)
+                del ens
+                on_device = {name: fn(out) for name, fn in fns.items()}
+            with dev_timer.lap(items=n_chunk):
+                vals = {name: v.cpu().numpy() for name, v in on_device.items()}
+                out_np = out.cpu().numpy() if host_fns else None
+            del out, on_device
+            with host_timer.lap(items=n_chunk):
+                for name, fn in host_fns.items():
+                    vals[name] = np.asarray(fn(out_np))
+                for name, v in vals.items():
+                    moments[name].update(v)
+        n_done += n_chunk
+    return McResult(
+        n_chips=n_done,
+        metrics={name: m.summary() for name, m in moments.items()},
+        per_chip={name: m.per_chip for name, m in moments.items()},
+        wall_s=timer.total_s, chips_per_sec=timer.rate(),
+        compile_s=timer.compile_s, enqueue_s=enq_timer.total_s,
+        device_s=dev_timer.total_s, host_s=host_timer.total_s,
+        bias_units=np.concatenate(bias_chunks) if bias_chunks else None)
+
+
 # Table II columns: effects switch on cumulatively, plus the all-on row.
 TABLE2_ABLATION: Tuple[Tuple[str, ni.NonidealConfig], ...] = (
     ("ideal", ni.NonidealConfig.none()),
@@ -131,3 +279,16 @@ TABLE2_ABLATION: Tuple[Tuple[str, ni.NonidealConfig], ...] = (
                                          sensing_range=True)),
     ("all", ni.NonidealConfig.all()),
 )
+
+
+def run_ablation(key: torch.Tensor, mapped: MappedLayer, x_bits: torch.Tensor,
+                 *, ref_bits: torch.Tensor,
+                 ablations: Sequence[Tuple[str, ni.NonidealConfig]]
+                 = TABLE2_ABLATION,
+                 mc: McConfig = McConfig(), spec: MacroSpec = DEFAULT_MACRO
+                 ) -> Dict[str, McResult]:
+    """Table II for one layer: one `run_mc` per effect column, on the same
+    chip key stream (each column resamples the same dies)."""
+    return {name: run_mc(key, mapped, x_bits, ref_bits=ref_bits,
+                         mc=dataclasses.replace(mc, cfg=cfg), spec=spec)
+            for name, cfg in ablations}

@@ -4,18 +4,22 @@ The paper's robustness claims are statistics over a population of dies.
 Chip `c` of `sample_ensemble(key, ...)` carries exactly the state that
 `crossbar_forward(fold_in(key, c), ...)` samples, stacked on a leading
 chips axis so one batched computation (or one kernel launch) serves the
-whole population.  Per-die bias calibration comes in a later slice.
+whole population.  `calibrate_ensemble_bias` is the paper's per-die
+deployment flow (Sec. IV-B.4): each chip's own variation draw gives it its
+own best extra-bias row count.
 """
 from __future__ import annotations
 
 import dataclasses
-from typing import Optional
+from typing import Optional, Sequence, Tuple
 
 import torch
 
 from repro_torch import prng
 from repro_torch.core import nonideal as ni
-from repro_torch.core.crossbar import sample_chip_planes
+from repro_torch.core.calibration import calibrate_bias
+from repro_torch.core.crossbar import (_accumulate, _block_reduce,
+                                       sample_chip_planes)
 from repro_torch.core.macro import MacroSpec, DEFAULT_MACRO
 from repro_torch.core.mapping import MappedLayer
 
@@ -24,10 +28,12 @@ from repro_torch.core.mapping import MappedLayer
 class ChipEnsemble:
     """A population of sampled chip instances of one mapped layer.
 
-    ep/en:    [chips, rows, n_out] effective conductances (chip identity);
-    gp/gn:    placement planes, [rows, n_out] shared by every chip;
-    sa_keys:  [chips, 2] int64 key words seeding each chip's per-read noise;
-    chip_ids: [chips] global chip indices (fold_in stream positions).
+    ep/en:      [chips, rows, n_out] effective conductances (chip identity);
+    gp/gn:      placement planes, [rows, n_out] shared by every chip, or
+                [chips, rows, n_out] after per-die bias calibration;
+    sa_keys:    [chips, 2] int64 key words seeding each chip's per-read noise;
+    chip_ids:   [chips] global chip indices (fold_in stream positions);
+    bias_units: [chips] calibrated active bias rows per chip, or None.
     """
     ep: torch.Tensor
     en: torch.Tensor
@@ -37,6 +43,7 @@ class ChipEnsemble:
     chip_ids: torch.Tensor
     scheme: str
     fan_in: int
+    bias_units: Optional[torch.Tensor] = None
 
     @property
     def n_chips(self) -> int:
@@ -57,6 +64,11 @@ class ChipEnsemble:
     def lead_rows(self) -> int:
         """Always-on bias rows prefixed ahead of the fan-in rows."""
         return self.rows - self.fan_in
+
+    def planes_per_chip(self) -> bool:
+        """True when the placement planes vary per chip ([chips, rows,
+        n_out]) rather than being one shared [rows, n_out] copy."""
+        return self.gp.ndim == 3
 
 
 def chip_keys(key: torch.Tensor, chip_ids: torch.Tensor) -> torch.Tensor:
@@ -95,3 +107,64 @@ def sample_ensemble_with_keys(keys: torch.Tensor, mapped: MappedLayer, *,
     return ChipEnsemble(ep=ep, en=en, gp=mapped.g_pos, gn=mapped.g_neg,
                         sa_keys=sa_keys, chip_ids=chip_ids,
                         scheme=mapped.scheme, fan_in=mapped.fan_in)
+
+
+def _chip_current_stats(x_ext: torch.Tensor, ep: torch.Tensor,
+                        ep_neg: torch.Tensor, gp: torch.Tensor,
+                        gn: torch.Tensor, spec: MacroSpec, device=None
+                        ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """(i_pos, i_neg, p_pair), each [chips, B * n_out], of every chip on a
+    calibration batch x_ext [B, rows], with the physical effects the SA
+    sees (variation already in the planes, IR drop here) and no periphery
+    model."""
+    cfg = ni.NonidealConfig(device_variation=True, ir_drop=True)
+    blk = spec.ir_block
+    i_pos, p_pos = _accumulate(_block_reduce(x_ext, ep, blk),
+                               _block_reduce(x_ext, gp, blk),
+                               cfg, spec, "single_shot", 256, device)
+    i_neg, p_neg = _accumulate(_block_reduce(x_ext, ep_neg, blk),
+                               _block_reduce(x_ext, gn, blk),
+                               cfg, spec, "single_shot", 256, device)
+    chips = ep.shape[0]
+    p_pair = (p_pos + p_neg).expand(i_pos.shape)
+    return (i_pos.reshape(chips, -1), i_neg.reshape(chips, -1),
+            p_pair.reshape(chips, -1))
+
+
+def calibrate_ensemble_bias(ens: ChipEnsemble, x_calib_bits: torch.Tensor,
+                            spec: MacroSpec = DEFAULT_MACRO,
+                            candidates: Sequence[int] = (0, 4, 8, 12, 16,
+                                                         20, 24, 28, 32),
+                            device=None) -> ChipEnsemble:
+    """Per-die extra-bias calibration (Sec. IV-B.4 deployment flow).
+
+    The ensemble's `lead_rows` are the physical bias-row budget; each chip
+    keeps only its calibrated count b_c <= lead_rows of them active.
+    Deactivated rows revert to HRS cells on both planes (conductance ->
+    HRS leak, LRS count -> 0), so the placement planes become per chip.
+    The calibration currents are measured with the bias rows off (the
+    candidates are added analytically), then scored on the host, one chip
+    at a time, as the reference does."""
+    lead = ens.lead_rows
+    if lead <= 0:
+        raise ValueError("calibration needs bias rows in the mapping "
+                         "(lead_rows > 0)")
+    cand = tuple(c for c in candidates if c <= lead)
+    x = x_calib_bits.float()
+    x_ext = torch.cat([torch.zeros(x.shape[:-1] + (lead,), device=x.device),
+                       x], dim=-1)
+    stats = _chip_current_stats(x_ext, ens.ep, ens.en, ens.gp, ens.gn, spec,
+                                device)
+    i_pos, i_neg, p_pair = (t.cpu() for t in stats)
+    bias = torch.tensor([calibrate_bias(ip, ineg, pp, spec, cand)[0]
+                         for ip, ineg, pp in zip(i_pos, i_neg, p_pair)],
+                        dtype=torch.float32, device=ens.ep.device)
+    row = torch.arange(ens.rows, dtype=torch.float32, device=bias.device)
+    on = (row[None, :] < bias[:, None]) | (row[None, :] >= lead)
+    m = on[:, :, None]
+    leak = ni._device_or_analytic(device).hrs_leak_units(spec)
+    gp = ens.gp if ens.planes_per_chip() else ens.gp[None]
+    gn = ens.gn if ens.planes_per_chip() else ens.gn[None]
+    return dataclasses.replace(
+        ens, ep=torch.where(m, ens.ep, leak), en=torch.where(m, ens.en, leak),
+        gp=(gp * m).contiguous(), gn=(gn * m).contiguous(), bias_units=bias)

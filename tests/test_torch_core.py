@@ -178,14 +178,22 @@ def test_crossbar_forward_same_sa_bits(partitionable, seed):
 
 
 def test_partial_sum_and_binary_scheme_raise():
+    """Partial sums and the binary scheme run (the baseline design); an
+    unknown accumulation mode or mapping scheme raises."""
     _, tm = _mapped()
     x = torch.ones((2, 540))
-    with pytest.raises(NotImplementedError, match="baseline"):
-        tcb.crossbar_forward(prng.PRNGKey(0, device="cpu"), x, tm,
-                             accumulation="partial_sum")
-    with pytest.raises(NotImplementedError, match="baseline"):
-        tcb.sample_chip_planes(prng.PRNGKey(0, device="cpu"), tm.g_pos,
-                               tm.g_neg, "binary", tni.NonidealConfig.all())
+    key = prng.PRNGKey(0, device="cpu")
+    out = tcb.crossbar_forward(key, x, tm, cfg=tni.NonidealConfig.all(),
+                               accumulation="partial_sum")
+    assert out.shape == (2, 60)
+    with pytest.raises(ValueError, match="accumulation"):
+        tcb.crossbar_forward(key, x, tm, accumulation="chunked")
+    ep, en, _ = tcb.sample_chip_planes(key, tm.g_pos, tm.g_neg, "binary",
+                                       tni.NonidealConfig.all())
+    assert ep.shape == en.shape == tm.g_pos.shape
+    with pytest.raises(ValueError, match="scheme"):
+        tcb.sample_chip_planes(key, tm.g_pos, tm.g_neg, "quaternary",
+                               tni.NonidealConfig.all())
 
 
 def _detectors():

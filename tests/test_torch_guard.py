@@ -35,5 +35,5 @@ def test_no_jax_or_reference_imports(path):
 
 def test_guard_sees_the_port():
     names = {p.name for p in _port_files()}
-    assert {"prng.py", "irc_mvm.py", "detector_mc.py",
-            "chip_smoke.py"} <= names
+    assert {"prng.py", "irc_mvm.py", "detector_mc.py", "ternary_matmul.py",
+            "build.py", "calibration.py", "chip_smoke.py"} <= names

@@ -15,6 +15,7 @@ torch = pytest.importorskip("torch")
 import jax.numpy as jnp  # noqa: E402
 
 from repro.kernels import ref as jref  # noqa: E402
+from repro_torch.kernels import build as nvb  # noqa: E402
 from repro_torch.kernels import irc_mvm as kern  # noqa: E402
 from repro_torch.kernels import ops  # noqa: E402
 from repro_torch.kernels import ref as tref  # noqa: E402
@@ -146,7 +147,8 @@ def test_cpu_tensor_uses_plain_version_without_counting():
         rtol=0, atol=0)
     single = ops.irc_mvm(x[0], ep[0], en[0], gp, gn, eps[0], rnd[0], p)
     assert single.shape == (B, N)
-    assert ops.LAUNCHES == {"irc_mvm_chips": 0, "irc_mvm": 0}
+    assert ops.LAUNCHES == {"irc_mvm_chips": 0, "irc_mvm": 0,
+                            "ternary_matmul": 0}
 
 
 def test_shape_checks_raise():
@@ -180,12 +182,14 @@ def test_cuda_request_raises_when_kernel_cannot_load(monkeypatch):
 
 
 def test_build_raises_without_nvcc(monkeypatch, tmp_path):
+    """No nvcc: the shared build step raises before it makes any
+    directory."""
     monkeypatch.setenv("CUDA_HOME", str(tmp_path))
-    monkeypatch.setattr(kern, "build_dir", lambda: tmp_path / "build")
-    monkeypatch.setattr(kern.os.path, "isfile", lambda p: False)
-    monkeypatch.setattr(kern.shutil, "which", lambda name: None)
+    monkeypatch.setattr(nvb, "build_dir", lambda: tmp_path / "build")
+    monkeypatch.setattr(nvb.os.path, "isfile", lambda p: False)
+    monkeypatch.setattr(nvb.shutil, "which", lambda name: None)
     with pytest.raises(RuntimeError, match="nvcc not found"):
-        kern.build()
+        nvb.build(kern.SOURCE)
     assert not (tmp_path / "build").exists()
 
 
