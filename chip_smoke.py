@@ -5,19 +5,28 @@
 
 Phases, each printing its own lines:
   1. environment: torch/CUDA versions, the card's name and power limit;
-  2. build: compiles src/repro_torch/csrc/{irc_mvm,ternary_matmul}.cu for
-     sm_90a, one nvcc process each, both started together;
+  2. build: compiles src/repro_torch/csrc/{irc_mvm,ternary_matmul,
+     flash_attention,xla_math}.cu for sm_90a, one nvcc process each, all
+     started together;
   3. kernels against their plain PyTorch versions: the IRC MVM (K1/K2) at
      the detector's full-width shapes (shared/per-chip word lines and
      placement planes, binary and diff outputs, all effects on and off; the
-     single-chip case too); the ternary matmul (K3) at ragged shapes and
-     the layer path's, {0,1} inputs bit-identical, normal and bfloat16
-     inputs within the JAX package's tolerances;
+     single-chip case too), bit-identical; the ternary matmul (K3) at
+     ragged shapes and the layer path's, {0,1} inputs bit-identical, normal
+     and bfloat16 inputs within the JAX package's tolerances; causal flash
+     attention (K4) at the JAX package's test shapes, a ragged Sq > Sk
+     case and chameleon-34b's attention layer (64 heads x 4096 x 128),
+     float32 and bfloat16, within the JAX package's tolerances (bfloat16
+     also row by row within one bf16 rounding); the elementwise kernels of
+     XLA's float32 math (fused multiply-add, erf_inv, exp) at the main
+     paths' shapes, bit-identical;
   4. times with CUDA events: each kernel, its plain version, a library
      yardstick (torch.bmm of the IRC MVM's four products; torch.matmul in
-     true f32 for K3) and the card's bound for the same work; K3's calls
-     are queued behind a sleep kernel so that the events hold device time
-     only, and the host's enqueue time per call is printed on its own line;
+     true f32 for K3; scaled_dot_product_attention, TF32 off, for K4;
+     torch.addcmul, erfinv and exp for the elementwise kernels) and the
+     card's bound for the same work; the calls of all but K1/K2 are queued
+     behind a sleep kernel so that the events hold device time only, and
+     the host's enqueue time per call is printed on its own line;
   5. the main paths: `run_ablation_detector` on `yolo_irc.proposed()` at
      full width (random init, 12 chips in chunks of 4, 2 images, columns
      ideal and all), with K1's launch count checked; the single-chip layer
@@ -25,13 +34,20 @@ Phases, each printing its own lines:
      (`run_ablation`, all five columns, 540x60 layer, batch 256, 2048 dies
      in chunks of 512) for the proposed design through K1 and the baseline
      through the plain route, each with its ideal reference bits through
-     K3, launch counts checked;
+     K3, launch counts checked; the op `ops.flash_attention` at
+     chameleon-34b's attention shape (K4, one launch per call); the
+     baseline design `yolo_irc.baseline()` at full width through
+     `run_ablation_detector`, all five Table II columns, on the plain
+     route (no K1 launch, as in the reference); every path that samples
+     dies must launch the erf_inv and exp kernels, and the plain route's
+     paths the fused multiply-add too;
   6. one whole-network chunk through the kernel and through the plain
      route; 512-die layer chunks through both routes (proposed, calibrated
      per-chip planes, binary single-shot), flips only at near-ties;
   7. the CLIs `python -m repro_torch.launch.mc --network detector --chips 4`
-     and `--network layer --chips 64 --ablation table2 --backend kernel`,
-     the two processes run side by side;
+     (the proposed design; the baseline, `--det-scheme binary --ablation
+     table2`) and `--network layer --chips 64 --ablation table2 --backend
+     kernel`, the three processes run side by side;
   8. a JSON line of every ported kernel, the card's name and power limit,
      and the final `{"ok": true, ...}` line.
 `--only profile` instead breaks one full-width chunk's device time down by
@@ -56,6 +72,7 @@ SRC = ROOT / "src"
 PEAK_BYTES_PER_S = 3.35e12
 PEAK_F32_FLOPS = 67e12          # FFMA, outside the tensor cores
 PEAK_TF32_FLOPS = 495e12        # tensor cores, f32 operands
+PEAK_BF16_FLOPS = 989e12        # tensor cores, bf16 operands
 
 # full-width geometry of yolo_irc.proposed(): 576x1024 images, stem /2
 S0_ROWS_PER_IMAGE = 288 * 512
@@ -180,13 +197,12 @@ def make_case(C: int, B: int, per_chip_x: bool, per_chip_g: bool, gen):
 
 
 def check_layout(tag, ops_, C, B, per_chip_x, per_chip_g, gen):
-    """Kernel vs plain version on one layout: counts exact, diff within
-    1e-3, binary flips only at near-ties.  Returns (max |diff error|,
-    near-tie flips)."""
+    """Kernel vs plain version on one layout: counts exact, the diff and
+    binary outputs bit-identical (the kernel adds and rounds in the plain
+    version's float32 order).  Returns (max |diff error|, binary flips)."""
     import torch
     from repro_torch.kernels.ref import (IrcEpilogueParams,
-                                         irc_mvm_chips_ref, near_tie_flips,
-                                         NEAR_TIE_TOL)
+                                         irc_mvm_chips_ref, near_tie_flips)
     from repro_torch.core.macro import DEFAULT_MACRO
     x, ep, en, gp, gn, eps, rnd = make_case(C, B, per_chip_x, per_chip_g,
                                             gen)
@@ -221,18 +237,17 @@ def check_layout(tag, ops_, C, B, per_chip_x, per_chip_g, gen):
             want, margin = irc_mvm_chips_ref(x, ep, en, gp, gn, eps, rnd,
                                              params, margin=True)
             if output == "diff":
-                # f32 sums in another order: 18 IR blocks of up to ~300
-                # units, a few ulps (3e-5 each) apart
                 err = float((got - want).abs().max())
-                check(err <= 1e-3, f"{tag} {effects} diff err {err}")
                 worst = max(worst, err)
                 same = float((got == want).float().mean())
                 log("3 kernels", f"{tag} {effects}: diff bit-identical to "
                     f"the plain version on {same:.6f} of outputs")
+                check(torch.equal(got, want),
+                      f"{tag} {effects}: diff not bit-identical, max|err| "
+                      f"{err}")
             else:
-                n, ok = near_tie_flips(got, want, margin)
-                check(ok, f"{tag} {effects}: {n} binary flips, not all "
-                      f"within margin {NEAR_TIE_TOL}")
+                n, _ = near_tie_flips(got, want, margin)
+                check(n == 0, f"{tag} {effects}: {n} binary flips")
                 flips += n
             del got, want, margin
     torch.cuda.synchronize()
@@ -255,8 +270,8 @@ def phase_kernels(ops_):
         err, flips = check_layout(tag, ops_, C, B, pcx, pcg, gen)
         report[tag] = (err, flips)
         log("3 kernels", f"{tag}: C={C} B={B} R={R_ROWS} N={N_COLS} "
-            f"counts exact, max|diff err|={err:.3g} (tol 1e-3), "
-            f"near-tie binary flips={flips} "
+            f"counts exact, max|diff err|={err:.3g} (bit-identical), "
+            f"binary flips={flips} "
             f"({time.perf_counter() - t0:.1f}s)")
         torch.cuda.empty_cache()
     return report
@@ -355,6 +370,256 @@ def phase_k3_times(ops_):
         del x, w, wf
         torch.cuda.empty_cache()
     return out
+
+
+# K4: (H, Sq, Sk, hd) of tests/test_kernels.py::TestFlashAttention, a
+# ragged Sq > Sk case, and one attention layer of chameleon-34b (64 query
+# heads, K/V expanded to H, head_dim 128) at the train_4k length
+K4_TEST_SHAPES = ((2, 64, 64, 16), (4, 128, 128, 32), (1, 100, 100, 16),
+                  (2, 256, 256, 64), (2, 96, 40, 16))
+K4_CHAMELEON = (64, 4096, 4096, 128)
+K4_F32 = dict(atol=2e-5, rtol=1e-4)
+K4_BF16 = dict(atol=3e-2, rtol=3e-2)
+
+
+def k4_case(H, Sq, Sk, hd, dtype, gen):
+    """q [H,Sq,hd], k/v [H,Sk,hd], standard normal, on the card."""
+    import torch
+    q, k, v = (torch.randn((H, S, hd), generator=gen, device="cuda")
+               for S in (Sq, Sk, Sk))
+    return tuple(t.to(dtype) for t in (q, k, v))
+
+
+def bf16_row_ratio(got, q, k, v):
+    """Worst ratio of the bf16 output's error to the bound it should keep:
+    against the plain version in f32 on the same bf16 inputs, one bf16
+    rounding of each output (2^-8 of its size) plus 1e-4 of its query row's
+    largest output for the f32 sum order.  At most 1 when the kernel is
+    right; scaled by row, so late rows, whose outputs average thousands of
+    values and are small, are held as tightly as early ones."""
+    import torch
+    from repro_torch.kernels.ref import flash_attention_ref
+    want = flash_attention_ref(q.float(), k.float(), v.float())
+    row = want.abs().amax(-1, keepdim=True)
+    bound = 2.0 ** -8 * want.abs() + 1e-4 * row
+    return float(((got.float() - want).abs() / bound).max())
+
+
+def phase_k4_checks(ops_):
+    """Phase 3, K4: causal flash attention against its plain version, both
+    tile sizes at the test shapes, float32 and bfloat16; the default tiles
+    at chameleon-34b's shape.  bfloat16 is held at the JAX tests' 3e-2 and,
+    row by row, to one bf16 rounding (`bf16_row_ratio`).  Returns max |err|
+    at chameleon-34b's shape in float32."""
+    import torch
+    from repro_torch.kernels.ref import flash_attention_ref
+    gen = torch.Generator(device="cuda").manual_seed(44)
+    cases = [(shape, tiles) for shape in K4_TEST_SHAPES
+             for tiles in ((64, 64), (32, 32), (64, 32))]
+    cases.append((K4_CHAMELEON, (64, 64)))
+    err_f32 = 0.0
+    for (H, Sq, Sk, hd), (bq, bk) in cases:
+        errs = []
+        for dtype, tol in ((torch.float32, K4_F32),
+                           (torch.bfloat16, K4_BF16)):
+            q, k, v = k4_case(H, Sq, Sk, hd, dtype, gen)
+            got = ops_.flash_attention(q, k, v, bq=bq, bk=bk)
+            want = flash_attention_ref(q, k, v)
+            torch.cuda.synchronize()
+            check(got.dtype == dtype and got.shape == (H, Sq, hd),
+                  f"K4 {H}x{Sq}x{Sk}x{hd}: {got.dtype} {tuple(got.shape)}")
+            torch.testing.assert_close(got.float(), want.float(), **tol)
+            errs.append(float((got.float() - want.float()).abs().max()))
+            del want
+            if dtype == torch.bfloat16:
+                ratio = bf16_row_ratio(got, q, k, v)
+                check(ratio <= 1.0, f"K4 {H}x{Sq}x{Sk}x{hd} bf16: error "
+                      f"{ratio:.3f} x its row-scaled bound")
+            del q, k, v, got
+            torch.cuda.empty_cache()
+        if (H, Sq, Sk, hd) == K4_CHAMELEON:
+            err_f32 = errs[0]
+        log("3 kernels", f"flash_attention H={H} Sq={Sq} Sk={Sk} hd={hd} "
+            f"tiles {bq}x{bk}: max|err| f32 {errs[0]:.3g} (atol 2e-5, rtol "
+            f"1e-4), bf16 {errs[1]:.3g} (3e-2; row-scaled {ratio:.3f} of "
+            f"one bf16 rounding + 1e-4 of the row)")
+    return err_f32
+
+
+def k4_bound_ms(H, Sq, Sk, hd, elem_bytes):
+    """Least time for causal attention: 2*H*hd multiply-adds for QK^T and
+    as many for PV per (query, key) pair with key <= query and key < Sk,
+    against q, k, v read once and the output written once.  PV multiplies
+    f32 softmax weights, so it needs f32 FFMA; QK^T does too on f32 inputs,
+    but on bf16 inputs its products are exact in f32, which the bf16 tensor
+    cores give, so it goes at their rate.  Returns (ms, "bytes" |
+    "operations")."""
+    pairs = sum(min(i + 1, Sk) for i in range(Sq))
+    ops_each = 2 * H * hd * pairs
+    qk_peak = PEAK_BF16_FLOPS if elem_bytes == 2 else PEAK_F32_FLOPS
+    t_ops = (ops_each / qk_peak + ops_each / PEAK_F32_FLOPS) * 1e3
+    t_bytes = elem_bytes * H * hd * (2 * Sq + 2 * Sk) / PEAK_BYTES_PER_S * 1e3
+    return (t_ops, "operations") if t_ops >= t_bytes else (t_bytes, "bytes")
+
+
+def phase_k4_times(ops_):
+    """Phase 4, K4 at chameleon-34b's shape, float32 and bfloat16: kernel,
+    plain version, scaled_dot_product_attention (causal; TF32 off, as the
+    port keeps it) and bound; device times from `queued_ms`."""
+    import torch
+    import torch.nn.functional as F
+    from repro_torch.kernels.ref import flash_attention_ref
+    check(not torch.backends.cuda.matmul.allow_tf32,
+          "TF32 is on for matmuls")
+    gen = torch.Generator(device="cuda").manual_seed(45)
+    H, Sq, Sk, hd = K4_CHAMELEON
+    out = {}
+    for dtype in (torch.float32, torch.bfloat16):
+        name = str(dtype).split(".")[-1]
+        q, k, v = k4_case(H, Sq, Sk, hd, dtype, gen)
+        ms, host = queued_ms(lambda: ops_.flash_attention(q, k, v), reps=5,
+                             calls=3)
+        plain_ms, plain_host = queued_ms(
+            lambda: flash_attention_ref(q, k, v), reps=3, calls=1)
+        lib_ms, lib_host = queued_ms(
+            lambda: F.scaled_dot_product_attention(
+                q[None], k[None], v[None], is_causal=True), reps=5, calls=3)
+        b_ms, b_by = k4_bound_ms(H, Sq, Sk, hd, q.element_size())
+        out[name] = dict(ms=ms, plain_ms=plain_ms, library_ms=lib_ms,
+                         bound_ms=b_ms, bound_by=b_by)
+        log("4 times", f"flash_attention {name} H={H} S={Sq} hd={hd} "
+            f"causal: kernel {ms:.3f} ms, plain {plain_ms:.3f} ms, sdpa "
+            f"{lib_ms:.3f} ms, bound {b_ms:.3f} ms ({b_by}), share of bound "
+            f"{b_ms / ms:.3f}")
+        log("4 times", f"flash_attention {name}: host enqueue per call: "
+            f"kernel {host:.4f} ms, plain {plain_host:.4f} ms, sdpa "
+            f"{lib_host:.4f} ms")
+        del q, k, v
+        torch.cuda.empty_cache()
+    return out
+
+
+# the elementwise kernels of XLA's float32 math (csrc/xla_math.cu) at the
+# main paths' shapes: one 512-die layer chunk's variation mask (erf_inv,
+# exp) and the detector's s0 SA epilogue, 4 chips x 2 images (fma)
+XLA_MASK_SHAPE = (512, R_ROWS, N_COLS)
+XLA_EPILOGUE_SHAPE = (4, 2 * S0_ROWS_PER_IMAGE, N_COLS)
+# float32 operations per element on the cheaper branch (so the bound stays
+# a lower bound): a fused multiply-add; erf_inv with log1p's small branch;
+# exp
+XLA_OPS = {"xla_fma": 1, "xla_erf_inv": 33, "xla_exp": 13}
+# the reference's jnp code each one computes in XLA's rounding (XLA fuses
+# it; there is no Pallas kernel behind it)
+XLA_REPLACES = {"xla_fma": "src/repro/core/nonideal.py:139",
+                "xla_erf_inv": "src/repro/core/nonideal.py:64",
+                "xla_exp": "src/repro/core/nonideal.py:65"}
+
+
+def xla_cases(gen):
+    """{kernel: (kernel call, plain call, library call, bytes moved,
+    elements)} on the main paths' shapes; the uniforms include 0 and the
+    poles +-1."""
+    import torch
+    from repro_torch import xla_order as xo
+    from repro_torch.kernels import ops
+    u = torch.rand(XLA_MASK_SHAPE, generator=gen, device="cuda") * 2 - 1
+    u.view(-1)[:4] = torch.tensor([0.0, 1.0, -1.0, -0.0], device="cuda")
+    z = 0.6 * torch.randn(XLA_MASK_SHAPE, generator=gen, device="cuda")
+    diff, eps = (torch.randn(XLA_EPILOGUE_SHAPE, generator=gen,
+                             device="cuda") for _ in range(2))
+    sigma = 1.0 + torch.rand(XLA_EPILOGUE_SHAPE[1:], generator=gen,
+                             device="cuda")         # shared by the chips
+    scale = 0.6
+    n_u, n_e = u.numel(), diff.numel()
+    return {
+        "xla_fma": (lambda: ops.xla_fma(sigma, eps, diff),
+                    lambda: xo.fma_plain(sigma, eps, diff),
+                    lambda: torch.addcmul(diff, sigma, eps),
+                    4 * (sigma.numel() + 3 * n_e), n_e),
+        "xla_erf_inv": (lambda: ops.xla_erf_inv(u, scale),
+                        lambda: xo.erf_inv_plain(u, scale),
+                        lambda: torch.special.erfinv(u), 8 * n_u, n_u),
+        "xla_exp": (lambda: ops.xla_exp(z), lambda: xo.exp_plain(z),
+                    lambda: torch.exp(z), 8 * n_u, n_u)}
+
+
+def same_bits(a, b) -> bool:
+    """Equal float32 bit patterns (NaNs included)."""
+    import torch
+    return a.shape == b.shape and torch.equal(a.view(torch.int32),
+                                              b.view(torch.int32))
+
+
+def phase_xla_checks(ops_):
+    """Phase 3, the elementwise kernels of XLA's float32 math against their
+    plain versions (float64-emulated fused multiply-adds) at the main
+    paths' shapes and on broadcast, strided and scalar operands of the fused
+    multiply-add: bit-identical."""
+    import torch
+    from repro_torch import xla_order as xo
+    gen = torch.Generator(device="cuda").manual_seed(55)
+    for name, (kern, plain, _, _, n) in xla_cases(gen).items():
+        got, want = kern(), plain()
+        torch.cuda.synchronize()
+        check(same_bits(got, want), f"{name}: not bit-identical to its plain"
+              f" version ({int((got != want).sum())} of {n} differ)")
+        log("3 kernels", f"{name} {tuple(got.shape)}: bit-identical to the "
+            f"plain version")
+        del got, want
+    a = torch.randn((4, 1, N_COLS), generator=gen, device="cuda")
+    b = torch.randn((1, 4096, N_COLS), generator=gen, device="cuda")
+    c = torch.randn((N_COLS, 4096, 4), generator=gen, device="cuda")
+    for args in ((a, b, c.transpose(0, 2)), (-1.5e-5, c, 1.0),
+                 (a, 2.2e-5, b), (torch.tensor(3.0, device="cuda"), b, a)):
+        check(same_bits(ops_.xla_fma(*args), xo.fma_plain(*args)),
+              "xla_fma: broadcast/strided/scalar operands differ")
+    log("3 kernels", "xla_fma broadcast, strided, scalar and 0-dim "
+        "operands: bit-identical")
+    torch.cuda.empty_cache()
+
+
+def phase_xla_times(ops_):
+    """Phase 4, the elementwise kernels: kernel, plain version, the one
+    torch call of the same function (torch.addcmul, torch.special.erfinv,
+    torch.exp; not XLA's rounding) and the bound; device times from
+    `queued_ms`, the plain versions' from `cuda_ms`."""
+    import torch
+    gen = torch.Generator(device="cuda").manual_seed(56)
+    out = {}
+    for name, (kern, plain, lib, nbytes, n) in xla_cases(gen).items():
+        got, want = kern(), plain()
+        err = float(torch.where(got.view(torch.int32) == want.view(
+            torch.int32), 0.0, (got - want).abs()).max())
+        del got, want
+        ms, host = queued_ms(kern, reps=7, calls=20)
+        # the plain versions copy their constants to the card, which
+        # synchronises: CUDA events around one call, as K1's plain version
+        plain_ms = cuda_ms(plain, reps=3)
+        lib_ms, _ = queued_ms(lib, reps=7, calls=20)
+        t_bytes = nbytes / PEAK_BYTES_PER_S * 1e3
+        t_ops = 2 * XLA_OPS[name] * n / PEAK_F32_FLOPS * 1e3
+        b_ms, b_by = ((t_ops, "operations") if t_ops >= t_bytes
+                      else (t_bytes, "bytes"))
+        out[name] = dict(ms=ms, plain_ms=plain_ms, library_ms=lib_ms,
+                         bound_ms=b_ms, bound_by=b_by, max_abs_err=err)
+        log("4 times", f"{name} {n} elements: kernel {ms:.4f} ms, plain "
+            f"{plain_ms:.3f} ms, torch {lib_ms:.4f} ms, bound {b_ms:.4f} ms "
+            f"({b_by}), share of bound {b_ms / ms:.3f}, host enqueue "
+            f"{host:.4f} ms per call")
+    torch.cuda.empty_cache()
+    return out
+
+
+# the elementwise kernels every path that samples dies launches (normals
+# and variation masks); the plain route's epilogue and partial sums add
+# the fused multiply-add
+XLA_SAMPLING = ("xla_erf_inv", "xla_exp")
+
+
+def check_xla_launched(tag, launches, names=XLA_SAMPLING):
+    """Each of `names` ran at least once on this path."""
+    check(all(launches[k] >= 1 for k in names),
+          f"{tag}: elementwise kernels not launched: {launches}")
 
 
 def bound_ms(C, B, R, N, per_chip_x, per_chip_g):
@@ -498,8 +763,10 @@ def phase_main_path(ops_):
         f"chips in chunks of {chunk}, columns {[c[0] for c in columns]}: "
         f"wall {wall:.2f}s, peak device memory {peak:.2f} GiB, kernel "
         f"launches {launches} (want irc_mvm_chips = 14 x {n_chunks} x "
-        f"{len(columns)} = {want})")
-    check(launches["irc_mvm_chips"] == want, f"launches {launches}")
+        f"{len(columns)} = {want}, xla_erf_inv and xla_exp >= 1)")
+    check(launches["irc_mvm_chips"] == want
+          and launches["flash_attention"] == 0, f"launches {launches}")
+    check_xla_launched("detector", launches)
 
     # single-chip layer path (K2): one s0b1 group conv of one chip
     blk = params["s0b1"]
@@ -523,6 +790,98 @@ def phase_main_path(ops_):
     check(single_launches["irc_mvm"] == 1 and agree >= 0.999,
           f"layer path: launches {single_launches}, agreement {agree}")
     return launches, single_launches
+
+
+def phase_k4_path(ops_):
+    """Phase 5, K4's path: the op entry point `ops.flash_attention` on one
+    chameleon-34b attention layer, float32 then bfloat16, launch counts
+    from 0; returns them."""
+    import torch
+    gen = torch.Generator(device="cuda").manual_seed(46)
+    ops_.reset_launches()
+    for dtype in (torch.float32, torch.bfloat16):
+        q, k, v = k4_case(*K4_CHAMELEON, dtype, gen)
+        o = ops_.flash_attention(q, k, v)
+        torch.cuda.synchronize()
+        check(o.dtype == dtype and o.shape == q.shape
+              and bool(torch.isfinite(o).all()), f"K4 path {dtype}: bad out")
+        del q, k, v, o
+    launches = dict(ops_.LAUNCHES)
+    log("5 k4 path", f"ops.flash_attention H=64 S=4096 hd=128, f32 and "
+        f"bf16: kernel launches {launches} (want flash_attention = 2)")
+    check(launches["flash_attention"] == 2
+          and sum(launches.values()) == 2, f"K4 path launches {launches}")
+    torch.cuda.empty_cache()
+    return launches
+
+
+# the baseline detector at full width: chips and chunk (the plain route's
+# [chips, B, 20 blocks, 60] block tensors take ~1.4 GB per chip and plane at
+# s0 with 2 images)
+BASELINE_CHIPS, BASELINE_CHUNK = 6, 2
+
+
+def phase_baseline_detector(ops_):
+    """Phase 5, the baseline design: `yolo_irc.baseline()` at 576x1024
+    (binary weights against the shared reference line, in-memory BN folded
+    from calibrated block statistics, partial sums of 212 rows) through
+    `run_ablation_detector`, all five Table II columns; the plain route,
+    so no kernel launches."""
+    import numpy as np
+    import torch
+    from repro_torch import prng
+    from repro_torch.configs import yolo_irc
+    from repro_torch.data.detection import SyntheticDetectionData
+    from repro_torch.mc.detector_mc import run_ablation_detector
+    from repro_torch.mc.engine import McConfig
+    from repro_torch.models.detector import IRCDetector
+    cfg = yolo_irc.baseline()
+    det = IRCDetector(cfg)
+    data = SyntheticDetectionData(img_hw=cfg.img_hw, stride=cfg.strides,
+                                  n_classes=cfg.n_classes,
+                                  n_anchors=cfg.n_anchors)
+    params = det.init(torch.Generator().manual_seed(0), device="cuda")
+    params = det.calibrate_bn(
+        params, torch.from_numpy(data.batch_for_step(999, 8).images).cuda())
+    ev = data.batch_for_step(1000, 2)
+    images = torch.from_numpy(ev.images).cuda()
+    mc = McConfig(n_chips=BASELINE_CHIPS, chunk_size=BASELINE_CHUNK)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    ops_.reset_launches()
+    t0 = time.perf_counter()
+    results = run_ablation_detector(prng.PRNGKey(0, device="cuda"), det,
+                                    params, images, ev.boxes, ev.classes,
+                                    mc=mc)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = dict(ops_.LAUNCHES)
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    for name, res in results.items():
+        m = res.metrics["map50"]
+        check(np.isfinite(res.per_chip["map50"]).all()
+              and res.n_chips == BASELINE_CHIPS,
+              f"baseline {name}: bad population result")
+        log("5 baseline", f"{name}: map50 {m['mean']:.4f}±{m['std']:.4f} "
+            f"over {res.n_chips} chips, {res.chips_per_sec:.4f} chips/s "
+            f"steady, {res.n_chips / res.wall_s:.4f} chips/s overall, "
+            f"wall_s {res.wall_s:.3f}, first chunk {res.compile_s:.3f}s, "
+            f"enqueue_s {res.enqueue_s:.3f}, device_s {res.device_s:.3f}, "
+            f"host_s {res.host_s:.3f}")
+    log("5 baseline", f"yolo_irc.baseline() 576x1024, 2 images, "
+        f"{BASELINE_CHIPS} chips in chunks of {BASELINE_CHUNK}, "
+        f"{len(results)} columns: wall {wall:.2f}s, peak device memory "
+        f"{peak:.2f} GiB, kernel launches {launches} (want irc_mvm_chips 0:"
+        f" partial sums take the plain route; the sampling's elementwise "
+        f"kernels >= 1)")
+    check(all(launches[k] == 0 for k in ("irc_mvm_chips", "irc_mvm",
+                                          "ternary_matmul",
+                                          "flash_attention")),
+          f"baseline launches {launches}")
+    check_xla_launched("baseline", launches, tuple(XLA_OPS))
+    del params, images
+    torch.cuda.empty_cache()
+    return launches
 
 
 # the layer path's two designs: (name, layer args, McConfig fields)
@@ -594,8 +953,12 @@ def phase_layer_path(ops_):
             f"{peak:.2f} GiB, kernel launches {launches} (want "
             f"irc_mvm_chips = {want_k1}, ternary_matmul >= 1)")
         check(launches["ternary_matmul"] >= 1
-              and launches["irc_mvm_chips"] == want_k1,
+              and launches["irc_mvm_chips"] == want_k1
+              and launches["flash_attention"] == 0,
               f"layer {design}: launches {launches}")
+        check_xla_launched(f"layer {design}", launches,
+                           tuple(XLA_OPS) if mc.backend == "plain"
+                           else XLA_SAMPLING)
         del mapped, x, ref_bits, results
         torch.cuda.empty_cache()
     return counts
@@ -779,7 +1142,8 @@ def phase_profile():
 
 
 def phase_cli():
-    """Phase 7: both CLIs, side by side, run to their end on the card."""
+    """Phase 7: the CLIs (the detector for both designs, the layer),
+    side by side, run to their end on the card."""
     env = dict(os.environ)
     env["PYTHONPATH"] = str(SRC) + os.pathsep + env.get("PYTHONPATH", "")
     t0 = time.perf_counter()
@@ -787,12 +1151,14 @@ def phase_cli():
         [sys.executable, "-m", "repro_torch.launch.mc", *argv], cwd=ROOT,
         env=env, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True))
         for argv in (["--network", "detector", "--chips", "4"],
+                     ["--network", "detector", "--det-scheme", "binary",
+                      "--chips", "4", "--ablation", "table2"],
                      ["--network", "layer", "--chips", "64", "--ablation",
                       "table2", "--backend", "kernel"])]
     try:
         for argv, proc in procs:
             out, err = proc.communicate(timeout=600)
-            for line in out.strip().splitlines()[-7:]:
+            for line in out.strip().splitlines()[-9:]:
                 log("7 cli", line)
             check(proc.returncode == 0, err[-2000:])
             log("7 cli", f"{' '.join(argv)}: exit 0 within "
@@ -835,8 +1201,10 @@ def main(argv=None) -> int:
     log("1 env", f"python {sys.version.split()[0]} torch {torch.__version__}"
         f" cuda {torch.version.cuda}; gpu: {card}")
 
-    from repro_torch.kernels import build, irc_mvm, ops, ternary_matmul
-    sources = (irc_mvm.SOURCE, ternary_matmul.SOURCE)
+    from repro_torch.kernels import (build, flash_attention_cuda as flash,
+                                     irc_mvm, ops, ternary_matmul, xla_math)
+    mods = (irc_mvm, ternary_matmul, flash, xla_math)
+    sources = tuple(m.SOURCE for m in mods)
     build.build(*sources)
     for src in sources:
         log("2 build", f"nvcc sm_90a build of {src.name}: "
@@ -844,21 +1212,27 @@ def main(argv=None) -> int:
         for line in build.BUILD_LOG.get(src.name, "").splitlines():
             if "registers" in line or "spill" in line:
                 log("2 build", "ptxas: " + line.strip())
-    irc_mvm.load()
-    ternary_matmul.load()
+    for mod in mods:
+        mod.load()
 
-    checks = {}
+    checks, k4_err = {}, None
     if "kernels" in only:
         checks = phase_kernels(ops)
         phase_k3_checks(ops)
-    times, k3_times = {}, {}
+        k4_err = phase_k4_checks(ops)
+        phase_xla_checks(ops)
+    times, k3_times, k4_times, xla_times = {}, {}, {}, {}
     if "times" in only:
         times = phase_times(ops)
         k3_times = phase_k3_times(ops)
-    launches, single, layer = {}, {}, {}
+        k4_times = phase_k4_times(ops)
+        xla_times = phase_xla_times(ops)
+    launches, single, layer, k4_launches, baseline = {}, {}, {}, {}, {}
     if "main" in only:
         launches, single = phase_main_path(ops)
         layer = phase_layer_path(ops)
+        k4_launches = phase_k4_path(ops)
+        baseline = phase_baseline_detector(ops)
     if "network" in only:
         phase_network(ops)
         phase_layer_network(ops)
@@ -894,8 +1268,26 @@ def main(argv=None) -> int:
         "max_abs_err": max(v["max_abs_err"] for v in k3_times.values()),
         "ms": t["ms"], "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],
         "bound_by": t["bound_by"], "library_ms": t["library_ms"]})
+    t = k4_times["float32"]
+    kernels.append({
+        "name": "flash_attention", "route": "cuda",
+        "source": "src/repro_torch/csrc/flash_attention.cu",
+        "replaces": "src/repro/kernels/flash_attention.py:75",
+        "launches": k4_launches["flash_attention"], "max_abs_err": k4_err,
+        "ms": t["ms"], "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],
+        "bound_by": t["bound_by"], "library_ms": t["library_ms"]})
+    # the elementwise kernels; their launches are the two detector runs'
+    for name, t in xla_times.items():
+        kernels.append({
+            "name": name, "route": "cuda",
+            "source": "src/repro_torch/csrc/xla_math.cu",
+            "replaces": XLA_REPLACES[name],
+            "launches": launches[name] + baseline[name],
+            "max_abs_err": t["max_abs_err"], "ms": t["ms"],
+            "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],
+            "bound_by": t["bound_by"], "library_ms": t["library_ms"]})
     flips = sum(f for _, f in checks.values())
-    log("8 summary", f"near-tie binary flips in phase 3: {flips}; total "
+    log("8 summary", f"binary flips of K1/K2 in phase 3: {flips}; total "
         f"{time.perf_counter() - t_start:.1f}s")
     print(json.dumps({"kernels": kernels}))
     print(card)

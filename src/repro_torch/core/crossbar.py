@@ -21,6 +21,7 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch import prng
+from repro_torch import xla_order as xo
 from repro_torch.core import nonideal as ni
 from repro_torch.core.macro import MacroSpec, DEFAULT_MACRO
 from repro_torch.core.mapping import MappedLayer, extend_inputs
@@ -46,6 +47,16 @@ def _block_reduce(x_ext: torch.Tensor, plane: torch.Tensor, block: int
     return (xb.transpose(-3, -2) @ pb).transpose(-3, -2)
 
 
+def _weighted_block_sum(blocks: torch.Tensor, factors, dim: int
+                        ) -> torch.Tensor:
+    """sum over `dim` of blocks (times the IR-drop factors, if any), in the
+    reference's order: sequential, each weighted step one fused
+    multiply-add."""
+    if factors is None:
+        return xo.seq_sum(blocks, dim)
+    return xo.seq_fma_sum(blocks, factors, dim)
+
+
 def _accumulate(blocks: torch.Tensor, counts: torch.Tensor,
                 cfg: ni.NonidealConfig, spec: MacroSpec, accumulation: str,
                 partial_rows: int, device=None
@@ -54,32 +65,37 @@ def _accumulate(blocks: torch.Tensor, counts: torch.Tensor,
     activated-LRS counts (leading axes broadcast against the currents');
     returns (bit-line current, activated LRS count), each [..., N].
     "partial_sum" sums `partial_rows // ir_block` blocks per chunk (the last
-    chunk zero-padded) and applies the nonlinearity per chunk."""
-    if cfg.ir_drop:
-        blocks = blocks * ni._device_or_analytic(device).ir_drop_factors(
-            blocks, spec, axis=-2)
-    p_total = torch.sum(counts, dim=-2)
-    if accumulation == "single_shot":
-        i_line = torch.sum(blocks, dim=-2)
-        if cfg.nonlinearity:
-            i_line = ni.apply_nonlinearity(i_line, p_total)
-    elif accumulation == "partial_sum":
-        nb, n_out = blocks.shape[-2:]
-        chunk = max(1, partial_rows // spec.ir_block)
-        n_chunks = -(-nb // chunk)
-        pad = n_chunks * chunk - nb
-        if pad:
-            blocks = F.pad(blocks, (0, 0, 0, pad))
-            counts = F.pad(counts, (0, 0, 0, pad))
-        i_chunk = torch.sum(blocks.reshape(
-            blocks.shape[:-2] + (n_chunks, chunk, n_out)), dim=-2)
-        p_chunk = torch.sum(counts.reshape(
-            counts.shape[:-2] + (n_chunks, chunk, n_out)), dim=-2)
-        if cfg.nonlinearity:
-            i_chunk = ni.apply_nonlinearity(i_chunk, p_chunk)
-        i_line = torch.sum(i_chunk, dim=-2)
-    else:
+    chunk zero-padded) and applies the nonlinearity per chunk.
+
+    Every sum runs in the reference's float32 order (`repro_torch.xla_order`):
+    sequential over blocks, the IR-drop weighting fused into each step.
+    Without the nonlinearity, XLA folds the reference's chunk sums and the
+    sum over chunks into one reduction over every block, so the partial-sum
+    line current is then the single-shot one."""
+    factors = (ni._device_or_analytic(device).ir_drop_factors(
+        blocks, spec, axis=-2) if cfg.ir_drop else None)
+    p_total = xo.seq_sum(counts, -2)
+    if accumulation not in ("single_shot", "partial_sum"):
         raise ValueError(f"unknown accumulation mode: {accumulation!r}")
+    if not cfg.nonlinearity:
+        return _weighted_block_sum(blocks, factors, -2), p_total
+    if accumulation == "single_shot":
+        i_line = _weighted_block_sum(blocks, factors, -2)
+        return ni.apply_nonlinearity(i_line, p_total), p_total
+    nb, n_out = blocks.shape[-2:]
+    chunk = max(1, partial_rows // spec.ir_block)
+    n_chunks = -(-nb // chunk)
+    pad = n_chunks * chunk - nb
+
+    def chunked(t):
+        if pad:
+            t = F.pad(t, (0, 0, 0, pad))
+        return t.reshape(t.shape[:-2] + (n_chunks, chunk, n_out))
+
+    i_chunk = _weighted_block_sum(
+        chunked(blocks), None if factors is None else chunked(factors), -2)
+    p_chunk = xo.seq_sum(chunked(counts), -2)
+    i_line = xo.seq_fma_sum(i_chunk, ni.nonlinearity_ratio(p_chunk), -2)
     return i_line, p_total
 
 

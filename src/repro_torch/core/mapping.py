@@ -15,6 +15,7 @@ from typing import Optional
 
 import torch
 
+from repro_torch import xla_order as xo
 from repro_torch.core.macro import MacroSpec, DEFAULT_MACRO
 
 
@@ -83,6 +84,17 @@ def binary_planes(w_b: torch.Tensor,
         ref = torch.cat([ref_bn, ref], dim=0)
     return MappedLayer(g_pos=conv, g_neg=ref, bias_rows=bn, scheme="binary",
                        fan_in=fan_in)
+
+
+def fold_bn_to_bias_units(gamma: torch.Tensor, beta: torch.Tensor,
+                          mean: torch.Tensor, var: torch.Tensor,
+                          eps: float = 1e-5) -> torch.Tensor:
+    """Fold BN into pre-activation bias units for in-memory BN: for gamma
+    > 0, sign(gamma * (y - mean) / std + beta) = sign(y + beta * std /
+    gamma - mean).  `binary_planes` rounds the units to whole LRS cells
+    (the BN-precision fragility the paper's proposed design removes)."""
+    std = xo.sqrt(var + eps)
+    return beta * std / torch.clamp(gamma, min=1e-6) - mean
 
 
 def extend_inputs(x_bits: torch.Tensor, mapped: MappedLayer) -> torch.Tensor:

@@ -13,6 +13,7 @@ import dataclasses
 import torch
 
 from repro_torch import prng
+from repro_torch import xla_order as xo
 from repro_torch.core.macro import MacroSpec, DEFAULT_MACRO
 
 
@@ -48,9 +49,10 @@ class NonidealConfig:
 def sample_variation_mask(key: torch.Tensor, shape, sigma: float
                           ) -> torch.Tensor:
     """Per-cell log-normal current mask exp(sigma * z), median 1 (Fig. 3).
-    Key batch axes lead the result."""
-    z = prng.normal(key, shape)
-    return torch.exp(sigma * z)
+    Key batch axes lead the result.  Rounded as the reference's jitted
+    sampling rounds it: sigma folded into the normal's constant sqrt(2)
+    (`prng.normal(scale=)`), XLA's exp."""
+    return xo.exp(prng.normal(key, shape, scale=sigma))
 
 
 # ------------------------------------------------------------------ nonlinearity
@@ -62,9 +64,10 @@ _NL_HI = (1.8063e-11, -3.204e-8, 2.2495e-5, -8.057e-3, 1.707)  # p > 140
 
 
 def _horner(p: torch.Tensor, coeffs) -> torch.Tensor:
+    # each step one fused multiply-add, as XLA contracts the reference's
     acc = torch.full_like(p, coeffs[0])
     for c in coeffs[1:]:
-        acc = acc * p + c
+        acc = xo.fma(acc, p, c)
     return acc
 
 
@@ -90,13 +93,16 @@ def ir_drop_factors(block_currents: torch.Tensor, alpha: float,
     along a bit-line, block 0 nearest the driver, with the cumulative wire
     drop cum_b = sum_j min(b, j) * I_j written as one min-matrix contraction
     (the reference's formulation; exact in real arithmetic to the
-    suffix-cumsum chain the kernels use)."""
+    suffix-cumsum chain the kernels use).  On the CPU torch's matmul adds
+    the contraction in XLA's order (sequential fused multiply-adds over j),
+    and 1 - alpha * cum is one fused multiply-add, as XLA contracts it
+    (`tests/test_torch_sum_order.py`)."""
     nb = block_currents.shape[axis]
     idx = torch.arange(nb, dtype=torch.float32, device=block_currents.device)
     w_min = torch.minimum(idx[:, None], idx[None, :])       # [j, b]
     moved = torch.movedim(block_currents, axis, -1)
     cum = torch.movedim(moved @ w_min, -1, axis)
-    return torch.clamp(1.0 - alpha * cum, 0.0, 1.0)
+    return torch.clamp(xo.fma(-alpha, cum, 1.0), 0.0, 1.0)
 
 
 # ------------------------------------------------------------------ SA periphery
@@ -106,7 +112,7 @@ def sa_required_diff(p: torch.Tensor, spec: MacroSpec = DEFAULT_MACRO
     """Required |I+ - I-| (units) for a correct SA decision vs activated LRS
     count p on the compared pair (Fig. 9)."""
     p = p.float()
-    return spec.sa_c0 + spec.sa_c1 * p + spec.sa_c2 * p * p
+    return xo.fma(spec.sa_c2 * p, p, xo.fma(spec.sa_c1, p, spec.sa_c0))
 
 
 def _device_or_analytic(device):
@@ -142,7 +148,7 @@ def resolve_sa(key: torch.Tensor, i_pos: torch.Tensor, i_neg: torch.Tensor,
     if cfg.sa_variation:
         sigma = _device_or_analytic(device).sa_offset_sigma(
             p_total, spec, sa_extra_units)
-        diff = diff + sigma * prng.normal(k_off, shape)
+        diff = xo.fma(sigma, prng.normal(k_off, shape), diff)
     out = (diff > 0).float()
     if cfg.sensing_range:
         fail = sensing_failure(i_pos, i_neg, spec)

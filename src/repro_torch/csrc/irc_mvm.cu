@@ -12,6 +12,7 @@
 //   block currents  I±[k] = sum_{r in IR block k} x[b,r] * e±[r,n]  (32 rows)
 //   counts          p±    = sum_r x[b,r] * g±[r,n]
 //   IR drop         suffix S[k] = sum_{j>=k} I[j];  cum[k] = sum_{j<=k} S[j] - S[0]
+//                   (both sums as two-level scans in runs of 16, see below)
 //                   i = sum_k I[k] * clip(1 - alpha * cum[k], 0, 1)
 //   nonlinearity    i *= ratio(p)  (piecewise quartic, clamped to [0, 320])
 //   output "diff"   i+ - i-
@@ -44,8 +45,14 @@
 //     (the IR-drop weights need every block before any is weighted) and runs
 //     the epilogue in registers, writing one f32 per output.
 // The counts are exact in any order ({0,1} products, sums < 2^24).  The
-// epilogue rounds each multiply and add separately (__fmul_rn/__fadd_rn), as
-// the plain version's separate tensor ops do.  Faster designs (tensor cores
+// epilogue follows the plain version's float32 order op for op, which is the
+// JAX reference's order on XLA's CPU backend (repro_torch/xla_order.py):
+// two-level scans of 16 for the IR-drop suffix sums and their prefix sums,
+// a sequential weighted block sum, and a fused multiply-add exactly where
+// XLA contracts one (the IR factor, the Horner steps, i+ * r+ - i- unless
+// the sensing window reads i+ * r+, sigma, diff + sigma * eps).  Every
+// multiply and add is an explicit __fmul_rn/__fadd_rn/__fmaf_rn, so nvcc
+// contracts nothing on its own.  Faster designs (tensor cores
 // for the {0,1} counts, TMA, a persistent grid, all groups of a layer in one
 // launch, periphery noise drawn in the epilogue) are later work.
 
@@ -70,7 +77,7 @@ enum : int {
 __device__ __forceinline__ float horner(const float* c, float p) {
   float acc = c[0];
 #pragma unroll
-  for (int i = 1; i < 5; ++i) acc = __fadd_rn(__fmul_rn(acc, p), c[i]);
+  for (int i = 1; i < 5; ++i) acc = __fmaf_rn(acc, p, c[i]);
   return acc;
 }
 
@@ -83,29 +90,58 @@ __device__ __forceinline__ float nl_ratio(float p_raw) {
   return (p_raw < 0.5f) ? 1.0f : r;
 }
 
-// IR-drop weighted sum of NB block currents (zero beyond the real blocks,
-// which leaves every real block's factor unchanged).
+// IR-drop weighted sum of the nb real block currents (nb <= NB; NB is the
+// register array's compile-time size), in the plain version's float32
+// order (repro_torch/xla_order.py): suffix sums and their prefix sums as a
+// two-level scan in runs of kScan along the scanned order, the factor
+// 1 - alpha * cum one fused multiply-add, the weighted sum sequential from
+// block 0 with one fused multiply-add per block.
+constexpr int kScan = 16;
+
 template <int NB>
-__device__ __forceinline__ float line_current(const float (&I)[NB],
+__device__ __forceinline__ float line_current(const float (&I)[NB], int nb,
                                               float alpha, bool ir) {
   if (!ir) {
-    float s = 0.0f;
+    float s = I[0];
 #pragma unroll
-    for (int k = 0; k < NB; ++k) s = __fadd_rn(s, I[k]);
+    for (int k = 1; k < NB; ++k)
+      if (k < nb) s = __fadd_rn(s, I[k]);
     return s;
   }
+  // suffix sums: the scan runs over q = nb - 1 - k, block nb - 1 first
   float S[NB];
-  S[NB - 1] = I[NB - 1];
+  float local = 0.0f, carry = 0.0f;
 #pragma unroll
-  for (int k = NB - 2; k >= 0; --k) S[k] = __fadd_rn(S[k + 1], I[k]);
-  float run = 0.0f, line = 0.0f;
+  for (int k = NB - 1; k >= 0; --k) {
+    S[k] = 0.0f;
+    if (k < nb) {
+      const int q = nb - 1 - k;
+      if (q % kScan == 0) {
+        if (k + 1 < NB && q > 0) carry = S[k + 1];
+        local = I[k];
+      } else {
+        local = __fadd_rn(local, I[k]);
+      }
+      S[k] = (q < kScan) ? local : __fadd_rn(local, carry);
+    }
+  }
+  float prev = 0.0f, line = 0.0f;
+  local = 0.0f;
+  carry = 0.0f;
 #pragma unroll
   for (int k = 0; k < NB; ++k) {
-    run = __fadd_rn(run, S[k]);
-    float cum = __fadd_rn(run, -S[0]);
-    float f = __fadd_rn(1.0f, -__fmul_rn(alpha, cum));
-    f = fminf(fmaxf(f, 0.0f), 1.0f);
-    line = __fadd_rn(line, __fmul_rn(I[k], f));
+    if (k < nb) {
+      if (k % kScan == 0) {
+        if (k > 0) carry = prev;
+        local = S[k];
+      } else {
+        local = __fadd_rn(local, S[k]);
+      }
+      prev = (k < kScan) ? local : __fadd_rn(local, carry);
+      const float cum = __fadd_rn(prev, -S[0]);
+      const float f = fminf(fmaxf(__fmaf_rn(-alpha, cum, 1.0f), 0.0f), 1.0f);
+      line = (k == 0) ? __fmul_rn(I[0], f) : __fmaf_rn(I[k], f, line);
+    }
   }
   return line;
 }
@@ -201,24 +237,33 @@ irc_mvm_chips_kernel(const float* __restrict__ x, const float* __restrict__ ep,
   for (int i = 0; i < TM; ++i) {
     const int b = row0 + ty + kRowLanes * i;
     if (b >= B || n >= N) continue;
-    float i_pos = line_current<NB>(Ip[i], prm.ir_alpha, ir);
-    float i_neg = line_current<NB>(In[i], prm.ir_alpha, ir);
+    float i_pos = line_current<NB>(Ip[i], nb, prm.ir_alpha, ir);
+    float i_neg = line_current<NB>(In[i], nb, prm.ir_alpha, ir);
+    const bool to_diff = prm.flags & kOutputDiff;
+    float diff;
     if (prm.flags & kNonlinearity) {
-      i_pos = __fmul_rn(i_pos, nl_ratio(cp[i]));
+      const float r_pos = nl_ratio(cp[i]);
       i_neg = __fmul_rn(i_neg, nl_ratio(cn[i]));
+      if ((prm.flags & kRange) && !to_diff) {
+        i_pos = __fmul_rn(i_pos, r_pos);
+        diff = __fadd_rn(i_pos, -i_neg);
+      } else {
+        diff = __fmaf_rn(i_pos, r_pos, -i_neg);
+      }
+    } else {
+      diff = __fadd_rn(i_pos, -i_neg);
     }
-    float diff = __fadd_rn(i_pos, -i_neg);
     const long long o = ((long long)c * B + b) * N + n;
-    if (prm.flags & kOutputDiff) {
+    if (to_diff) {
       out[o] = diff;
       continue;
     }
     if (prm.flags & kSa) {
       const float pp = __fadd_rn(cp[i], cn[i]);
-      float s = __fadd_rn(prm.sa_c0, __fmul_rn(prm.sa_c1, pp));
-      s = __fadd_rn(s, __fmul_rn(__fmul_rn(prm.sa_c2, pp), pp));
+      float s = __fmaf_rn(__fmul_rn(prm.sa_c2, pp), pp,
+                          __fmaf_rn(prm.sa_c1, pp, prm.sa_c0));
       s = __fmul_rn(0.5f, __fadd_rn(s, prm.sa_extra));
-      diff = __fadd_rn(diff, __fmul_rn(s, eps[o]));
+      diff = __fmaf_rn(s, eps[o], diff);
     }
     float res = diff > 0.0f ? 1.0f : 0.0f;
     if (prm.flags & kRange) {

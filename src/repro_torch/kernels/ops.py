@@ -1,9 +1,12 @@
 """Public entry points of the port's kernels: checks and dispatch.
 
-A CPU tensor goes to the plain PyTorch version (`repro_torch.kernels.ref`);
-a CUDA tensor goes to the hand-written Hopper kernel (`csrc/irc_mvm.cu` for
-the IRC MVM, `csrc/ternary_matmul.cu` for the ternary matmul), or the call
-raises — there is no fallback from the card to the plain version.
+A CPU tensor goes to the plain PyTorch version (`repro_torch.kernels.ref`;
+`repro_torch.xla_order` for the elementwise math); a CUDA tensor goes to the
+hand-written Hopper kernel (`csrc/irc_mvm.cu` for the IRC MVM,
+`csrc/ternary_matmul.cu` for the ternary matmul, `csrc/flash_attention.cu`
+for causal attention, `csrc/xla_math.cu` for the fused multiply-add,
+erf_inv and exp in XLA's float32 rounding), or the call raises — there is
+no fallback from the card to the plain version.
 Each kernel wrapper counts its launches in a plain integer (`LAUNCHES`), so a
 run can show that its main path went through the kernel; calls served by the
 plain version do not count.
@@ -16,12 +19,15 @@ from typing import Dict
 
 import torch
 
-from repro_torch.kernels.ref import (IrcEpilogueParams, irc_mvm_chips_ref,
+from repro_torch import xla_order as xo
+from repro_torch.kernels.ref import (IrcEpilogueParams,
+                                     flash_attention_ref, irc_mvm_chips_ref,
                                      irc_mvm_ref, ternary_matmul_ref)
 
 #: kernel launches per wrapper since the last `reset_launches()`
 LAUNCHES: Dict[str, int] = {"irc_mvm_chips": 0, "irc_mvm": 0,
-                            "ternary_matmul": 0}
+                            "ternary_matmul": 0, "flash_attention": 0,
+                            "xla_fma": 0, "xla_erf_inv": 0, "xla_exp": 0}
 
 
 def reset_launches() -> None:
@@ -130,6 +136,93 @@ def ternary_matmul(x: torch.Tensor, w_t: torch.Tensor) -> torch.Tensor:
                       device=dev)
     kern.launch(x.contiguous(), w_t.contiguous(), out)
     LAUNCHES["ternary_matmul"] += 1
+    return out
+
+
+def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                    causal: bool = True, bq: int = 64, bk: int = 64
+                    ) -> torch.Tensor:
+    """Causal flash attention: q [H,Sq,hd], k/v [H,Sk,hd] (float32 or
+    bfloat16, one dtype) -> [H,Sq,hd] in q's dtype, in ONE kernel launch on
+    the card; `bq`/`bk` pick the kernel's query and key tiles (32 or 64).
+
+    The kernel masks ragged Sq and Sk itself, so nothing is padded.  Like
+    the JAX package's wrapper, it takes the causal case only."""
+    if not causal:
+        raise ValueError("flash_attention supports the causal case only")
+    from repro_torch.kernels import flash_attention_cuda as kern
+    kern.check(q, k, v, bq, bk)
+    if q.device.type == "cpu":
+        return flash_attention_ref(q, k, v, causal=True)
+    if q.device.type != "cuda":
+        raise RuntimeError(f"flash_attention runs on CPU or CUDA, not "
+                           f"{q.device}")
+    q, k, v = q.contiguous(), k.contiguous(), v.contiguous()
+    out = torch.empty_like(q)
+    kern.launch(q, k, v, out, bq, bk)
+    LAUNCHES["flash_attention"] += 1
+    return out
+
+
+def xla_fma(a, b, c) -> torch.Tensor:
+    """float32 a * b + c rounded once, as XLA contracts it: a, b and c are
+    tensors (cast to float32) or Python floats and broadcast; in ONE kernel
+    launch on the card, read through the operands' strides."""
+    tensors = [v for v in (a, b, c) if torch.is_tensor(v)]
+    devs = {t.device for t in tensors}
+    if len(devs) > 1:
+        raise ValueError(f"xla_fma: operands on several devices {devs}")
+    dev = devs.pop() if devs else torch.device("cpu")
+    if dev.type == "cpu":
+        return xo.fma_plain(a, b, c)
+    if dev.type != "cuda":
+        raise RuntimeError(f"xla_fma runs on CPU or CUDA, not {dev}")
+    from repro_torch.kernels import xla_math as kern
+    shape = torch.broadcast_shapes(*(t.shape for t in tensors))
+    if len(shape) > kern.MAX_DIMS:
+        raise ValueError(f"xla_fma takes at most {kern.MAX_DIMS} axes, got "
+                         f"{tuple(shape)}")
+    ops = [v.float() if torch.is_tensor(v) else v for v in (a, b, c)]
+    if 0 in shape:
+        return torch.empty(shape, dtype=torch.float32, device=dev)
+    out = kern.launch_fma(*ops, shape, dev)
+    LAUNCHES["xla_fma"] += 1
+    return out
+
+
+def _unary_device(name: str, x: torch.Tensor) -> torch.device:
+    if not torch.is_tensor(x) or x.dtype != torch.float32:
+        raise ValueError(f"{name} takes a float32 tensor, got "
+                         f"{getattr(x, 'dtype', type(x))}")
+    if x.device.type not in ("cpu", "cuda"):
+        raise RuntimeError(f"{name} runs on CPU or CUDA, not {x.device}")
+    return x.device
+
+
+def xla_erf_inv(x: torch.Tensor, scale: float = 1.0) -> torch.Tensor:
+    """scale * erf_inv(x) in XLA's float32 rounding (what
+    `jax.random.normal` computes from its uniforms), for a float32 tensor;
+    in ONE kernel launch on the card."""
+    if _unary_device("xla_erf_inv", x).type == "cpu":
+        return xo.erf_inv_plain(x, scale)
+    if x.numel() == 0:
+        return torch.empty_like(x)
+    from repro_torch.kernels import xla_math as kern
+    out = kern.launch_erf_inv(x.contiguous(), scale)
+    LAUNCHES["xla_erf_inv"] += 1
+    return out
+
+
+def xla_exp(x: torch.Tensor) -> torch.Tensor:
+    """exp(x) in XLA CPU's float32 rounding, for a float32 tensor; in ONE
+    kernel launch on the card."""
+    if _unary_device("xla_exp", x).type == "cpu":
+        return xo.exp_plain(x)
+    if x.numel() == 0:
+        return torch.empty_like(x)
+    from repro_torch.kernels import xla_math as kern
+    out = kern.launch_exp(x.contiguous())
+    LAUNCHES["xla_exp"] += 1
     return out
 
 

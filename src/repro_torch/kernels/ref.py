@@ -2,6 +2,8 @@
 
 `ternary_matmul_ref` computes what `csrc/ternary_matmul.cu` computes: the
 ideal digital product of float inputs and int8 ternary weights.
+`flash_attention_ref` computes what `csrc/flash_attention.cu` computes:
+causal softmax attention, with the scores materialised.
 `irc_mvm_chips_ref` computes what the CUDA kernel (`csrc/irc_mvm.cu`)
 computes: the proposed design's single-shot crossbar MVM with its fused
 nonideal epilogue.  Conductance planes arrive with device variation and HRS
@@ -12,7 +14,12 @@ card's smoke run holds the kernel against this module.
 
 IR drop follows the kernels' suffix-cumsum chain (block 0 nearest the
 driver); R is zero-padded at the far end to a multiple of the IR block,
-which leaves the drop factors of real blocks unchanged.
+which leaves the drop factors of real blocks unchanged.  The IRC MVM adds
+and rounds in the JAX oracle's float32 order on XLA's CPU backend
+(`repro_torch.xla_order`): two-level scans of 16 for the suffix sums and
+their prefix sums, sequential block sums, and a fused multiply-add exactly
+where XLA contracts one; so it gives the oracle's bits, and the kernel,
+which follows the same order op for op, gives this module's.
 """
 from __future__ import annotations
 
@@ -21,6 +28,8 @@ from typing import Tuple
 
 import torch
 import torch.nn.functional as F
+
+from repro_torch import xla_order as xo
 
 #: Binary SA outputs of two implementations may differ only where the plain
 #: version's decision margin is below this (LRS units).  Line currents reach
@@ -64,14 +73,15 @@ _NL_HI = (1.8063e-11, -3.204e-8, 2.2495e-5, -8.057e-3, 1.707)
 
 
 def nl_ratio(p: torch.Tensor) -> torch.Tensor:
-    """Accumulation nonlinearity ratio at activated-LRS count p."""
+    """Accumulation nonlinearity ratio at activated-LRS count p; each Horner
+    step is one fused multiply-add, as XLA contracts the reference's."""
     p_raw = p.float()
     p = torch.clamp(p_raw, 0.0, 320.0)
 
     def horner(c):
         acc = torch.full_like(p, c[0])
         for x in c[1:]:
-            acc = acc * p + x
+            acc = xo.fma(acc, p, x)
         return acc
 
     ratio = torch.where(p <= 140.0, horner(_NL_LO), horner(_NL_HI))
@@ -92,16 +102,18 @@ def _line_current(x: torch.Tensor, eplane: torch.Tensor,
     xb = x.reshape(x.shape[:-1] + (nb, blk)).transpose(-3, -2)
     pb = eplane.reshape(eplane.shape[:-2] + (nb, blk, N))
     blocks = xb @ pb                                      # [..., nb, B, N]
-    if params.apply_ir:
-        suffix = torch.flip(torch.cumsum(torch.flip(blocks, [-3]), -3), [-3])
-        cum = torch.cumsum(suffix, -3) - suffix[..., 0:1, :, :]
-        factors = torch.clamp(1.0 - params.ir_alpha * cum, 0.0, 1.0)
-        blocks = blocks * factors
-    # near-driver block first, one add at a time: the kernel's order, so
-    # the two agree to the bit wherever their block currents do
-    line = blocks[..., 0, :, :]
-    for k in range(1, nb):
-        line = line + blocks[..., k, :, :]
+    if not params.apply_ir:
+        return xo.seq_sum(blocks, -3)
+    # block by block, so that no temporary is larger than one block's
+    # currents: suffix sums, their prefix sums, factors, weighted sum
+    items = blocks.unbind(-3)
+    suffix = list(xo.scan16_iter(items[::-1]))[::-1]
+    line = None
+    for k, pre in enumerate(xo.scan16_iter(suffix)):
+        factor = torch.clamp(xo.fma(-params.ir_alpha, pre - suffix[0], 1.0),
+                             0.0, 1.0)
+        line = (items[0] * factor if line is None
+                else xo.fma(items[k], factor, line))
     return line
 
 
@@ -113,16 +125,25 @@ def _mvm(x, ep, en, gp, gn, eps_sa, rnd_bits, params: IrcEpilogueParams,
     p_pos = x @ gp.float()
     p_neg = x @ gn.float()
     if params.apply_nonlinearity:
-        i_pos = i_pos * nl_ratio(p_pos)
-        i_neg = i_neg * nl_ratio(p_neg)
-    diff = i_pos - i_neg
+        r_pos, r_neg = nl_ratio(p_pos), nl_ratio(p_neg)
+        i_neg = i_neg * r_neg
+        # XLA contracts i_pos * r_pos - i_neg into one fused multiply-add,
+        # except where the sensing window reads the product i_pos * r_pos
+        if params.apply_range and params.output == "binary":
+            i_pos = i_pos * r_pos
+            diff = i_pos - i_neg
+        else:
+            diff = xo.fma(i_pos, r_pos, -i_neg)
+    else:
+        diff = i_pos - i_neg
     if params.output == "diff":
         return (diff, diff.abs()) if margin else diff
     p_pair = p_pos + p_neg
     if params.apply_sa:
-        sigma = 0.5 * (params.sa_c0 + params.sa_c1 * p_pair
-                       + params.sa_c2 * p_pair * p_pair + params.sa_extra)
-        diff = diff + sigma * eps_sa
+        sigma = 0.5 * (xo.fma(params.sa_c2 * p_pair, p_pair,
+                              xo.fma(params.sa_c1, p_pair, params.sa_c0))
+                       + params.sa_extra)
+        diff = xo.fma(sigma, eps_sa, diff)
     out = (diff > 0).float()
     gap = diff.abs()
     if params.apply_range:
@@ -169,6 +190,23 @@ def ternary_matmul_ref(x: torch.Tensor, w_t: torch.Tensor) -> torch.Tensor:
     """Plain version of the ternary matmul kernel: x [B,K] float32 or
     bfloat16, w_t [K,N] int8 in {-1,0,+1} -> [B,N] float32."""
     return x.float() @ w_t.float()
+
+
+def flash_attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                        causal: bool = True) -> torch.Tensor:
+    """Plain version of the flash-attention kernel: softmax attention with
+    float32 scores.  q [H,Sq,hd], k/v [H,Sk,hd] -> [H,Sq,hd] in q's dtype;
+    scores scaled by hd^-0.5, and with `causal` every key j > query i
+    masked with -1e30, as the JAX package's oracle does."""
+    scale = q.shape[-1] ** -0.5
+    s = torch.einsum("hqd,hkd->hqk", q.float(), k.float()) * scale
+    if causal:
+        Sq, Sk = s.shape[-2:]
+        keep = (torch.arange(Sq, device=s.device)[:, None]
+                >= torch.arange(Sk, device=s.device)[None, :])
+        s = torch.where(keep, s, torch.full_like(s, -1e30))
+    p = torch.softmax(s, dim=-1)
+    return torch.einsum("hqk,hkd->hqd", p, v.float()).to(q.dtype)
 
 
 def near_tie_flips(out_a: torch.Tensor, out_b: torch.Tensor,

@@ -9,11 +9,14 @@
       --accumulation partial_sum --ablation table2      # baseline design
 
   --network detector: whole-network mAP@0.5 per chip of the detector at the
-  smoke geometry `yolo_irc.smoke()` (32x32 images), as in the JAX package's
-  CLI; every group conv goes through the fused IRC MVM kernel on the card.
+  smoke geometry `yolo_irc.smoke(--det-scheme)` (32x32 images), as in the
+  JAX package's CLI.  The proposed design (`--det-scheme ternary`) runs
+  every group conv through the fused IRC MVM kernel on the card; the
+  baseline (`--det-scheme binary`: in-memory BN, partial sums) through the
+  plain batched route, as the reference does.
 
   python -m repro_torch.launch.mc --network detector --chips 16 \\
-      --ablation table2
+      --ablation table2 [--det-scheme binary]
 
 Random weights from the seed (the layer's through the port's threefry, as
 the reference draws them; the detector's from a seeded `torch.Generator`),
@@ -150,7 +153,7 @@ def run_detector(args) -> dict:
     from repro_torch.runtime import resolve_device
 
     dev = resolve_device(args.device)
-    cfg = yolo_irc.smoke()
+    cfg = yolo_irc.smoke(args.det_scheme)
     det = IRCDetector(cfg)
     data = SyntheticDetectionData(img_hw=cfg.img_hw, stride=cfg.strides,
                                   n_classes=cfg.n_classes,
@@ -164,7 +167,7 @@ def run_detector(args) -> dict:
     mc = McConfig(n_chips=args.chips, chunk_size=args.chunk)
     columns = _ablation_columns(args.ablation, TABLE2_ABLATION)
 
-    print(f"# detector smoke {cfg.img_hw[0]}x{cfg.img_hw[1]} "
+    print(f"# detector {args.det_scheme} {cfg.img_hw[0]}x{cfg.img_hw[1]} "
           f"batch={args.det_batch} chips={args.chips} chunk={args.chunk} "
           f"device={dev} pipeline={not args.no_pipeline}")
     ops.reset_launches()
@@ -186,6 +189,10 @@ def main(argv=None) -> None:
                     choices=["layer", "detector"],
                     help="layer: one IRC layer, bit-agreement proxy; "
                          "detector: whole-network mAP@0.5 population sweep")
+    ap.add_argument("--det-scheme", default="ternary",
+                    choices=["ternary", "binary"],
+                    help="detector design: proposed ternary | baseline "
+                         "binary (in-memory BN, partial sums)")
     ap.add_argument("--det-batch", type=int, default=2,
                     help="detector eval batch size")
     ap.add_argument("--det-steps", type=int, default=0,
@@ -226,7 +233,7 @@ def main(argv=None) -> None:
     other = (("scheme", "fan_in", "n_out", "density", "bias_rows",
               "accumulation", "backend", "calibrate", "batch")
              if args.network == "detector"
-             else ("det_batch", "det_steps", "no_pipeline"))
+             else ("det_scheme", "det_batch", "det_steps", "no_pipeline"))
     misused = [f"--{n.replace('_', '-')}" for n in other
                if getattr(args, n) != ap.get_default(n)]
     if misused:

@@ -1,16 +1,20 @@
 """The paper's object detector (Fig. 11): a YOLOv2-style backbone of binary
 GROUP convolutions (group size 60) mapped onto IRC macros, in PyTorch.
 
-This slice runs the proposed design (ternary weights, no BN, single-shot
-accumulation, extra bias rows) in two modes:
+Both Table II designs run: the proposed one (ternary weights, no BN,
+single-shot accumulation, extra bias rows) and the baseline (binary weights
+against a shared reference line, in-memory BN folded into bias cells,
+partial-sum accumulation), in two modes:
   * mode="eval": single-chip structural crossbar sim per group (chip
     identity = `key`), through `crossbar_forward`;
-  * mode="ensemble": every chip of a pre-sampled `DetectorEnsemble` at once,
-    each group conv as one launch of the fused IRC MVM kernel.
+  * mode="ensemble": every chip of a pre-sampled `DetectorEnsemble` at once.
+    A single-shot group conv is one launch of the fused IRC MVM kernel; a
+    partial-sum group conv goes through the plain batched `ensemble_apply`,
+    as in the reference, whose kernel fuses single-shot accumulation only.
 The stem and head are digital (`F.conv2d` / `matmul`, TF32 off).  Every
 public function keeps the reference's NHWC layout; params keep its layout
-too (stem HWIO, block weights [540, group, n_groups]).  QAT modes and the
-baseline design come in later slices.
+too (stem HWIO, block weights [540, group, n_groups], the baseline's block
+BN as `bn` {gamma, beta, mean, var}).  QAT modes come in a later slice.
 """
 from __future__ import annotations
 
@@ -22,11 +26,14 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch import prng
+from repro_torch import xla_order as xo
 from repro_torch.core import nonideal as ni
 from repro_torch.core.crossbar import crossbar_forward
 from repro_torch.core.macro import MacroSpec, DEFAULT_MACRO
-from repro_torch.core.mapping import MappedLayer, ternary_planes
-from repro_torch.core.ternary import ternary_quantize, binary_activation
+from repro_torch.core.mapping import (MappedLayer, binary_planes,
+                                     fold_bn_to_bias_units, ternary_planes)
+from repro_torch.core.ternary import (binary_activation, binary_quantize,
+                                     ternary_quantize)
 from repro_torch.runtime import DeviceLike, resolve_device
 
 Params = Dict[str, object]
@@ -66,14 +73,6 @@ class DetectorConfig:
         return 2 ** (len(self.stage_channels) + 1)
 
 
-def _require_proposed(cfg: DetectorConfig) -> None:
-    if (cfg.scheme != "ternary" or cfg.use_bn
-            or cfg.accumulation != "single_shot"):
-        raise NotImplementedError(
-            "this slice runs the proposed design (ternary, no BN, "
-            "single-shot); the baseline design comes with its own slice")
-
-
 def _same_pads(size: int, k: int, s: int) -> Tuple[int, int]:
     out = -(-size // s)
     total = max((out - 1) * s + k - size, 0)
@@ -98,6 +97,15 @@ def _max_pool_same(x: torch.Tensor) -> torch.Tensor:
     y = x.reshape((-1, H, W, C)).permute(0, 3, 1, 2)
     y = F.max_pool2d(y, 2, 2, ceil_mode=True)
     return y.permute(0, 2, 3, 1).reshape(lead + y.shape[2:] + (C,))
+
+
+def _grouped_conv(x: torch.Tensor, wq: torch.Tensor) -> torch.Tensor:
+    """Ideal 3x3 stride-1 "SAME" group conv, NHWC: x [B,H,W,ng*g] and
+    quantized weights [3,3,g,g,ng] (HWIO per group) -> [B,H,W,ng*g]."""
+    g, ng = wq.shape[2], wq.shape[4]
+    w = wq.permute(4, 3, 2, 0, 1).reshape(ng * g, g, 3, 3)
+    y = F.conv2d(x.permute(0, 3, 1, 2), w, padding=1, groups=ng)
+    return y.permute(0, 2, 3, 1)
 
 
 class IRCDetector:
@@ -141,6 +149,11 @@ class IRCDetector:
         for name, _, _, cin, ch in self.blocks():
             out[name] = {"w": ((9 * cfg.group, cfg.group,
                                 max(cin, ch) // cfg.group), "normal")}
+            if cfg.use_bn:
+                out[name]["bn"] = {"gamma": ((ch,), "ones"),
+                                   "beta": ((ch,), "zeros"),
+                                   "mean": ((ch,), "zeros"),
+                                   "var": ((ch,), "ones")}
         head_out = cfg.n_anchors * (5 + cfg.n_classes)
         out["head"] = ((cfg.stage_channels[-1], head_out), "normal")
         out["head_b"] = ((head_out,), "zeros")
@@ -172,22 +185,41 @@ class IRCDetector:
 
     # ------------------------------------------------------------ blocks
     def _gconv_weights(self, blk, cin: int, cout: int) -> torch.Tensor:
-        """Latent [540, group, n_groups] -> quantized [3, 3, g, g, ng]."""
+        """Latent [540, group, n_groups] -> quantized [3, 3, g, g, ng]:
+        ternary per group (proposed) or sign-binary (baseline)."""
         cfg = self.cfg
-        _require_proposed(cfg)
-        wq = ternary_quantize(blk["w"], axis=(0, 1))
+        if cfg.scheme == "ternary":
+            wq = ternary_quantize(blk["w"], axis=(0, 1))
+        else:
+            wq = binary_quantize(blk["w"])
         return wq.reshape(3, 3, cfg.group, cfg.group, cout // cfg.group)
 
     def group_mappings(self, blk, cin: int, cout: int) -> List[MappedLayer]:
         """Per-group `MappedLayer`s of one block: im2col rows are
-        spatial-major (9, group), then the bias rows."""
+        spatial-major (9, group), after the scheme's leading rows (the
+        proposed design's bias rows; the baseline's in-memory BN rows, its
+        block BN folded into bias units with |gamma|, the sign-preserving
+        fold)."""
         cfg = self.cfg
         n_groups = cout // cfg.group
         wq = self._gconv_weights(blk, cin, cout).reshape(
             9, cfg.group, cfg.group, n_groups)
-        return [ternary_planes(wq[..., g].reshape(9 * cfg.group, cfg.group),
-                               bias_rows=cfg.bias_rows)
-                for g in range(n_groups)]
+        maps = []
+        for g in range(n_groups):
+            w_flat = wq[..., g].reshape(9 * cfg.group, cfg.group)
+            if cfg.scheme == "ternary":
+                maps.append(ternary_planes(w_flat, bias_rows=cfg.bias_rows))
+                continue
+            units = None
+            if cfg.use_bn:
+                bn = blk["bn"]
+                sl = slice(g * cfg.group, (g + 1) * cfg.group)
+                units = fold_bn_to_bias_units(
+                    bn["gamma"][sl].abs(), bn["beta"][sl], bn["mean"][sl],
+                    bn["var"][sl])
+            maps.append(binary_planes(w_flat, bn_bias_units=units,
+                                      spec=self.spec))
+        return maps
 
     def _im2col_groups(self, x: torch.Tensor, cin: int, n_groups: int
                        ) -> torch.Tensor:
@@ -229,15 +261,21 @@ class IRCDetector:
                         *, cfg_ni: ni.NonidealConfig, sa_extra: float = 0.0,
                         output: str = "binary", kernel_impl: str = "kernel",
                         device=None) -> torch.Tensor:
-        """Ensemble group conv: each group is ONE launch of the fused IRC
-        MVM over every chip (`ensemble_apply_kernel`).
+        """Ensemble group conv over every chip.  Single-shot accumulation:
+        each group is ONE launch of the fused IRC MVM
+        (`ensemble_apply_kernel`; `kernel_impl="ref"` routes through the
+        kernel's plain version instead, on any device).  Partial sums: the
+        plain batched `ensemble_apply`, as the reference routes them; the
+        kernel fuses single-shot accumulation only, so `kernel_impl` does
+        not apply there and the baseline launches no kernel.
 
         x is [B,H,W,cin] (chip-shared: the first IRC layer) or
-        [chips,B,H,W,cin]; returns [chips,B,H,W,cout].  `kernel_impl="ref"`
-        routes through the kernel's plain version instead, on any device."""
-        from repro_torch.mc.engine import ensemble_apply_kernel
+        [chips,B,H,W,cin]; returns [chips,B,H,W,cout]."""
+        from repro_torch.mc.engine import ensemble_apply, ensemble_apply_kernel
         cfg = self.cfg
-        _require_proposed(cfg)
+        if kernel_impl not in ("kernel", "ref"):
+            raise ValueError(f"kernel_impl must be 'kernel' or 'ref', got "
+                             f"{kernel_impl!r}")
         n_groups = cout // cfg.group
         per_chip = x.ndim == 5
         B, H, W = x.shape[-4], x.shape[-3], x.shape[-2]
@@ -248,11 +286,19 @@ class IRCDetector:
             x_bits = xg[..., g, :].reshape(
                 (xg.shape[0], -1, 9 * cfg.group) if per_chip
                 else (-1, 9 * cfg.group))
-            out = ensemble_apply_kernel(ens, x_bits, cfg=cfg_ni,
-                                        spec=self.spec,
-                                        sa_extra_units=sa_extra,
-                                        output=output, per_chip_x=per_chip,
-                                        impl=kernel_impl, device=device)
+            if cfg.accumulation == "single_shot":
+                out = ensemble_apply_kernel(ens, x_bits, cfg=cfg_ni,
+                                            spec=self.spec,
+                                            sa_extra_units=sa_extra,
+                                            output=output,
+                                            per_chip_x=per_chip,
+                                            impl=kernel_impl, device=device)
+            else:
+                out = ensemble_apply(ens, x_bits, cfg=cfg_ni, spec=self.spec,
+                                     accumulation=cfg.accumulation,
+                                     partial_rows=cfg.partial_rows,
+                                     sa_extra_units=sa_extra, output=output,
+                                     per_chip_x=per_chip, device=device)
             del x_bits
             outs.append(out.reshape(out.shape[0], B, H, W, cfg.group))
         del xg
@@ -260,15 +306,41 @@ class IRCDetector:
 
     # ------------------------------------------------------------ BN calib
     def calibrate_bn(self, params: Params, images: torch.Tensor) -> Params:
-        """Stem BN running stats (population mean/var) from a calibration
-        batch; eval and ensemble modes normalize with them."""
-        _require_proposed(self.cfg)
+        """BN running stats (population mean/var) from a calibration batch.
+        Both designs: the digital stem's, with which eval and ensemble modes
+        normalize.  The baseline also: each block's in-memory BN stats, from
+        its ideal grouped conv on the propagated {0,1} activations (normalized
+        with |gamma|, the fold `group_mappings` uses), which the mapping
+        folds into bias cells."""
+        cfg = self.cfg
         params = dict(params)
         x = _stem_conv(images, params["stem"])
         bn = dict(params["stem_bn"])
         bn["mean"] = torch.mean(x, dim=(0, 1, 2))
         bn["var"] = torch.var(x, dim=(0, 1, 2), unbiased=False)
         params["stem_bn"] = bn
+        if not cfg.use_bn:
+            return params
+        x = binary_activation(bn["gamma"] * (x - bn["mean"])
+                              / xo.sqrt(bn["var"] + 1e-5) + bn["beta"])
+        last_stage = 0
+        for name, _, s, cin, ch in self.blocks():
+            if s != last_stage:
+                x = _max_pool_same(x)
+                last_stage = s
+            if cin < ch:
+                x = torch.cat([x] * (ch // cin), dim=-1)
+                cin = ch
+            blk = dict(params[name])
+            pre = _grouped_conv(x, self._gconv_weights(blk, cin, ch))
+            bnp = dict(blk["bn"])
+            bnp["mean"] = torch.mean(pre, dim=(0, 1, 2))
+            bnp["var"] = torch.var(pre, dim=(0, 1, 2), unbiased=False)
+            blk["bn"] = bnp
+            params[name] = blk
+            x = binary_activation(bnp["gamma"].abs() * (pre - bnp["mean"])
+                                  / xo.sqrt(bnp["var"] + 1e-5)
+                                  + bnp["beta"])
         return params
 
     # ------------------------------------------------------------ forward
@@ -285,7 +357,6 @@ class IRCDetector:
         matching mode="eval" with key fold_in(base_key, c) up to float32
         near-ties.  `device` is the device model (None: analytic)."""
         cfg = self.cfg
-        _require_proposed(cfg)
         if mode not in ("eval", "ensemble"):
             raise NotImplementedError(
                 f"mode={mode!r} comes with the QAT slice")
@@ -293,7 +364,7 @@ class IRCDetector:
             key = prng.PRNGKey(0, device=images.device)
         x = _stem_conv(images, params["stem"])
         bn = params["stem_bn"]
-        x = bn["gamma"] * (x - bn["mean"]) / torch.sqrt(bn["var"] + 1e-5) \
+        x = bn["gamma"] * (x - bn["mean"]) / xo.sqrt(bn["var"] + 1e-5) \
             + bn["beta"]
         x = binary_activation(x)
         last_stage = 0

@@ -27,6 +27,7 @@ from typing import Sequence, Tuple, Union
 import numpy as np
 import torch
 
+from repro_torch import xla_order as xo
 from repro_torch.runtime import resolve_device
 
 MASK32 = 0xFFFFFFFF
@@ -127,40 +128,20 @@ def uniform(key: torch.Tensor, shape: Sequence[int], minval: float = 0.0,
     return torch.maximum(lo, floats * (hi - lo) + lo)
 
 
-_ERFINV_LT5 = (2.81022636e-08, 3.43273939e-07, -3.5233877e-06,
-               -4.39150654e-06, 0.00021858087, -0.00125372503,
-               -0.00417768164, 0.246640727, 1.50140941)
-_ERFINV_GT5 = (-0.000200214257, 0.000100950558, 0.00134934322,
-               -0.00367342844, 0.00573950773, -0.0076224613,
-               0.00943887047, 1.00167406, 2.83297682)
-
-
-def erf_inv(x: torch.Tensor) -> torch.Tensor:
-    """XLA's float32 `erf_inv` polynomial (the one `jax.random.normal`
-    lowers to).  XLA evaluates each Horner step as one fused multiply-add;
-    the float64 step below rounds once to float32 the same way.  The only
-    remaining difference is `log1p`, whose float32 implementations differ
-    in the last bit on about one input in ten."""
-    w = -torch.log1p(x * -x)
-    small = w < 5.0
-    w = torch.where(small, w - 2.5, torch.sqrt(w) - 3.0).double()
-    f64 = lambda v: torch.tensor(float(np.float32(v)), dtype=torch.float64,
-                                 device=x.device)
-    p = torch.where(small, f64(_ERFINV_LT5[0]), f64(_ERFINV_GT5[0]))
-    for lo_c, hi_c in zip(_ERFINV_LT5[1:], _ERFINV_GT5[1:]):
-        p = (torch.where(small, f64(lo_c), f64(hi_c)) + p * w).float().double()
-    return torch.where(torch.abs(x) == 1.0, x * float("inf"), p.float() * x)
-
-
 _NORMAL_LO = float(np.nextafter(np.float32(-1.0), np.float32(0.0)))
 _SQRT2_F32 = float(np.float32(np.sqrt(2)))
 
 
-def normal(key: torch.Tensor, shape: Sequence[int]) -> torch.Tensor:
-    """`jax.random.normal(key, shape, float32)`: sqrt(2) * erf_inv(u) with u
-    uniform on (nextafter(-1, 0), 1)."""
+def normal(key: torch.Tensor, shape: Sequence[int],
+           scale: float = 1.0) -> torch.Tensor:
+    """`scale * jax.random.normal(key, shape, float32)` as one jit computes
+    it: sqrt(2) * erf_inv(u) with u uniform on (nextafter(-1, 0), 1), and a
+    constant `scale` folded into the constant sqrt(2) (XLA's algebraic
+    simplifier multiplies the two float32 constants first).  XLA's
+    erf_inv is `xla_order.erf_inv`, one kernel launch on the card."""
     u = uniform(key, shape, _NORMAL_LO, 1.0)
-    return _SQRT2_F32 * erf_inv(u)
+    factor = float(np.float32(np.float32(scale) * np.float32(_SQRT2_F32)))
+    return xo.erf_inv(u, factor)
 
 
 def bernoulli(key: torch.Tensor, p: float, shape: Sequence[int]

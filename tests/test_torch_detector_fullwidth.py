@@ -2,24 +2,23 @@
 576x1024 images), on the CPU: 1 chip x 1 image, all effects, the same
 params (the reference's, carried over) and the same key.
 
-It reports:
-  * the elementwise agreement of the head predictions end to end (the bar:
-    99% within 1e-4), port against the reference's kernel-oracle route
-    (`use_kernel=True, kernel_impl="ref"`); the same reading between the
-    reference's own two routes (that one and the jnp `ensemble_apply`
-    route, which share XLA's order for the 32-row block sums), and between
-    the port's own two routes (ensemble and single-chip eval, which sum in
-    different float32 orders);
+It reports and asserts:
+  * the elementwise agreement of the head predictions end to end, port
+    against the reference's kernel-oracle route (`use_kernel=True,
+    kernel_impl="ref"`): at least 99% within 1e-4.  It prints the same
+    reading between the reference's own two routes (that one and the jnp
+    `ensemble_apply` route) and between the port's own two routes
+    (ensemble and single-chip eval, whose IR-drop formulations differ);
   * the per-chip mAP@0.5 of each (1.0 on every route at random init with
     one image, so it cannot tell the port from a wrong one);
-  * layer by layer, each of the six IRC layers run on both sides from the
-    reference's own input bits: the SA decisions that differ, and whether
-    every one is a near-tie; then the head on the reference's last bits.
-The port is held to near-tie-only flips at every IRC layer and to the
-elementwise bar on the head where its input bits are the reference's.  End
-to end the bar is reported, not asserted: a near-tie flip changes one input
-bit of the next layer, and six layers spread a few such flips over about
-2% of the head elements.
+  * layer by layer, each from the reference's own input: the stem's bits
+    (the port's conv, BN and sign against the reference's), each pool, and
+    each of the six IRC layers: the outputs that differ (SA decisions for
+    the IRC layers), zero at every one; then the head on the reference's
+    last bits.
+The port's kernel-oracle route adds in the reference's float32 order
+(`repro_torch.xla_order`), so a layer fed the reference's bits gives its
+bits exactly.
 
 Too heavy for tier-1 (several GiB and minutes): it runs only with
 REPRO_TORCH_FULLWIDTH=1,
@@ -48,7 +47,9 @@ from repro_torch.kernels.ref import (IrcEpilogueParams,  # noqa: E402
                                      irc_mvm_chips_ref, near_tie_flips)
 from repro_torch.mc import detector_mc as tmc  # noqa: E402
 from repro_torch.mc.engine import periphery_noise  # noqa: E402
-from repro_torch.models.detector import IRCDetector  # noqa: E402
+from repro_torch.core.ternary import binary_activation  # noqa: E402
+from repro_torch.models.detector import (IRCDetector,  # noqa: E402
+                                         _max_pool_same, _stem_conv)
 from repro_torch.train.det_loss import evaluate_map_per_chip  # noqa: E402
 
 KEY, CHIP = 5, 0
@@ -115,10 +116,19 @@ def _margin(det, groups, xt, ch, like):
                      dim=-1)
 
 
+def _bits_row(name, port, ref):
+    """(name, differing outputs, True, outputs) of a layer whose outputs
+    must agree exactly."""
+    ref = torch.from_numpy(np.array(ref))
+    assert port.shape == ref.shape, (name, port.shape, ref.shape)
+    return name, int((port != ref).sum()), True, port.numel()
+
+
 def _layer_by_layer(jdet, jp, det, tp, ev):
-    """Each IRC layer on both sides from the reference's input bits, then
-    the head on its last bits: ([(layer, differing SA decisions, all
-    near-ties, outputs)], fraction of head elements within 1e-4)."""
+    """The stem, each pool and each IRC layer on both sides from the
+    reference's input, then the head on its last bits: ([(layer, differing
+    outputs, all near-ties, outputs)], fraction of head elements within
+    1e-4)."""
     from repro.core import NonidealConfig as JNI
     from repro.mc.detector_mc import build_detector_ensemble as jbuild
     cfg = jdet.cfg
@@ -129,16 +139,26 @@ def _layer_by_layer(jdet, jp, det, tp, ev):
     x = bn["gamma"] * (x - bn["mean"]) / jnp.sqrt(bn["var"] + 1e-5) \
         + bn["beta"]
     x = (x > 0).astype(jnp.float32)
+    tbn = tp["stem_bn"]
+    ts = _stem_conv(torch.from_numpy(ev.images), tp["stem"])
+    ts = binary_activation(tbn["gamma"] * (ts - tbn["mean"])
+                           / torch.sqrt(tbn["var"] + 1e-5) + tbn["beta"])
+    rows = [_bits_row("stem", ts, x)]
     ids = jnp.asarray([CHIP], dtype=jnp.uint32)
-    jens = jbuild(jax.random.PRNGKey(KEY), jdet, jp, chip_ids=ids,
-                  cfg=JNI.all())
+    # jitted, as the reference's sweeps sample (XLA folds the variation
+    # sigma into the normal's sqrt(2) there)
+    jens = jax.jit(lambda k, p: jbuild(k, jdet, p, chip_ids=ids,
+                                       cfg=JNI.all()))(
+        jax.random.PRNGKey(KEY), jp)
     cfg_t = NonidealConfig.all()
     tens = tmc.build_detector_ensemble(
         prng.PRNGKey(KEY, device="cpu"), det, tp,
         chip_ids=torch.tensor([CHIP]), cfg=cfg_t)
-    rows, last_stage = [], 0
+    last_stage = 0
     for name, _, s, cin, ch in det.blocks():
         if s != last_stage:
+            rows.append(_bits_row(f"pool{s}", _max_pool_same(
+                torch.from_numpy(np.array(x))), _jax_pool(x)))
             x = _jax_pool(x)
             last_stage = s
         if cin < ch:
@@ -152,6 +172,8 @@ def _layer_by_layer(jdet, jp, det, tp, ev):
         n, ok = near_tie_flips(t, torch.from_numpy(np.asarray(j)), margin)
         rows.append((name, n, ok, t.numel()))
         x = j
+    rows.append(_bits_row("pool_last", _max_pool_same(
+        torch.from_numpy(np.array(x))), _jax_pool(x)))
     x = _jax_pool(x)
     head_j = np.asarray(x @ jp["head"] + jp["head_b"])
     head_t = (torch.from_numpy(np.array(x)) @ tp["head"]
@@ -184,7 +206,7 @@ def test_port_against_reference_at_full_width(fullwidth):
     map_port = evaluate_map_per_chip(single, **kw)
     rows, frac_head = _layer_by_layer(jdet, jp, det, tp, ev)
     layers = "\n".join(
-        f"  {name}: {n} of {total} SA decisions differ, all near-ties: {ok}"
+        f"  {name}: {n} of {total} outputs differ, all near-ties: {ok}"
         for name, n, ok, total in rows)
     print(f"\nfull width 576x1024, chip {CHIP}, 1 image, all effects:\n"
           f"  port vs reference (kernel-oracle route): {frac:.6f} of head "
@@ -199,6 +221,8 @@ def test_port_against_reference_at_full_width(fullwidth):
           f"elements within 1e-4")
     assert np.isfinite(out).all()
     np.testing.assert_allclose(map_t, map_j, atol=0.02)
-    assert [name for name, *_ in rows] == [b[0] for b in det.blocks()]
-    assert all(ok for _, _, ok, _ in rows), rows
+    assert [name for name, *_ in rows if name[0] == "s" and name != "stem"
+            ] == [b[0] for b in det.blocks()]
+    assert all(n == 0 for _, n, _, _ in rows), rows
     assert frac_head >= 0.99
+    assert frac >= 0.99

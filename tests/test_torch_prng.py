@@ -96,11 +96,11 @@ def test_normals_within_tolerance_and_report_mismatches():
     assert np.all(err <= 1e-6 * np.maximum(1.0, np.abs(z)))
     n_diff = int(np.sum(z != tz))
     print(f"normals not bit-identical: {n_diff} of {z.size}")
-    assert n_diff < 0.05 * z.size
+    assert n_diff == 0      # XLA CPU's log1p and a correctly rounded sqrt
     jk = jax.vmap(lambda i: jax.random.fold_in(k, i))(jnp.arange(3))
     jz = np.asarray(jax.vmap(lambda kk: jax.random.normal(kk, (50, 60)))(jk))
     tzb = prng.normal(prng.fold_in(tk, torch.arange(3)), (50, 60)).numpy()
-    assert np.all(np.abs(jz - tzb) <= 1e-6 * np.maximum(1.0, np.abs(jz)))
+    np.testing.assert_array_equal(tzb, jz)
 
 
 def test_prngkey_defaults_to_the_card():
