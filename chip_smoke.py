@@ -11,7 +11,10 @@ Phases, each printing its own lines:
   3. kernels against their plain PyTorch versions: the IRC MVM (K1/K2) at
      the detector's full-width shapes (shared/per-chip word lines and
      placement planes, binary and diff outputs, all effects on and off; the
-     single-chip case too), bit-identical; the ternary matmul (K3) at
+     single-chip case too), at 28 ragged shapes across the kernel's tile
+     edges (R from 32 to 1,024 rows, N from 1 to 100, B from 1 to 1,000)
+     and with word lines that are not all 0 or 1, bit-identical; the
+     ternary matmul (K3) at
      ragged shapes and the layer path's, {0,1} inputs bit-identical, normal
      and bfloat16 inputs within the JAX package's tolerances; causal flash
      attention (K4) at the JAX package's test shapes, a ragged Sq > Sk
@@ -196,16 +199,57 @@ def make_case(C: int, B: int, per_chip_x: bool, per_chip_g: bool, gen):
     return x, ep, en, gp, gn, eps, rnd
 
 
-def check_layout(tag, ops_, C, B, per_chip_x, per_chip_g, gen):
-    """Kernel vs plain version on one layout: counts exact, the diff and
-    binary outputs bit-identical (the kernel adds and rounds in the plain
-    version's float32 order).  Returns (max |diff error|, binary flips)."""
+def ragged_case(C: int, B: int, R: int, N: int, per_chip_x: bool,
+                per_chip_g: bool, gen, x_kind: str = "bits"):
+    """Random operands of any shape: {0,1} placement planes at 20/60/20
+    whose first min(32, R) rows are all ones (the bias rows), log-normal
+    effective planes with the HRS leak, word lines behind all-ones bias
+    rows, and the periphery noise.  The word lines are bits at density 0.5
+    (`x_kind="bits"`), uniform in [0, 1) (`"real"`), or bits with one value
+    of 0.37 in every 7th row at plane row R // 2 (`"mixed"`: {0,1} IR
+    blocks, then one that is not)."""
+    import torch
+    dev = gen.device
+    u = torch.rand(((C,) if per_chip_g else ()) + (R, N), generator=gen,
+                   device=dev)
+    gp, gn = (u > 0.8).float(), (u < 0.2).float()
+    gp[..., :BIAS_ROWS, :] = 1.0
+    gn[..., :BIAS_ROWS, :] = 1.0
+
+    def eff(g):
+        mask = torch.exp(0.4245 * torch.randn((C, R, N), generator=gen,
+                                              device=dev))
+        return (g * mask + (1.0 - g) * 1e-4).contiguous()
+
+    lead = (C,) if per_chip_x else ()
+    x = torch.rand(lead + (B, R), generator=gen, device=dev)
+    if x_kind != "real":
+        x = (x < 0.5).float()
+    if x_kind == "mixed":
+        x[..., ::7, R // 2] = 0.37
+    x[..., :BIAS_ROWS] = 1.0
+    eps = torch.randn((C, B, N), generator=gen, device=dev)
+    rnd = (torch.rand((C, B, N), generator=gen, device=dev) < 0.5).float()
+    return x, eff(gp), eff(gn), gp, gn, eps, rnd
+
+
+def check_layout(tag, ops_, C, B, per_chip_x, per_chip_g, gen, shape=None,
+                 x_kind="bits"):
+    """Kernel vs plain version on one layout, at full width or at `shape`
+    (R, N) with word lines of `x_kind` (`ragged_case`): counts exact, the
+    diff and binary outputs bit-identical (the kernel adds and rounds in the
+    plain version's float32 order).  Returns (max |diff error|, binary
+    flips)."""
     import torch
     from repro_torch.kernels.ref import (IrcEpilogueParams,
                                          irc_mvm_chips_ref, near_tie_flips)
     from repro_torch.core.macro import DEFAULT_MACRO
-    x, ep, en, gp, gn, eps, rnd = make_case(C, B, per_chip_x, per_chip_g,
-                                            gen)
+    if shape is None:
+        x, ep, en, gp, gn, eps, rnd = make_case(C, B, per_chip_x,
+                                                per_chip_g, gen)
+    else:
+        x, ep, en, gp, gn, eps, rnd = ragged_case(C, B, *shape, per_chip_x,
+                                                  per_chip_g, gen, x_kind)
     single = C == 1 and not per_chip_x and not per_chip_g
 
     def run(params, a, b, c, d):
@@ -222,7 +266,10 @@ def check_layout(tag, ops_, C, B, per_chip_x, per_chip_g, gen):
     zeros = torch.zeros_like(ep)
     gpc = gp.expand(ep.shape).contiguous()
     gnc = gn.expand(en.shape).contiguous()
-    for a, b, sign, g in ((gpc, zeros, 1.0, gp), (zeros, gnc, -1.0, gn)):
+    # (with other word lines the block-by-block sum differs from x @ g in
+    # rounding; their counts reach the outputs checked below)
+    counted = ((gpc, zeros, 1.0, gp), (zeros, gnc, -1.0, gn))
+    for a, b, sign, g in counted if x_kind == "bits" else ():
         got = run(p_diff, a, b, gp, gn)
         want = sign * (x @ g).expand(got.shape)
         check(torch.equal(got, want), f"{tag}: counts differ")
@@ -240,8 +287,9 @@ def check_layout(tag, ops_, C, B, per_chip_x, per_chip_g, gen):
                 err = float((got - want).abs().max())
                 worst = max(worst, err)
                 same = float((got == want).float().mean())
-                log("3 kernels", f"{tag} {effects}: diff bit-identical to "
-                    f"the plain version on {same:.6f} of outputs")
+                if shape is None:
+                    log("3 kernels", f"{tag} {effects}: diff bit-identical "
+                        f"to the plain version on {same:.6f} of outputs")
                 check(torch.equal(got, want),
                       f"{tag} {effects}: diff not bit-identical, max|err| "
                       f"{err}")
@@ -275,6 +323,68 @@ def phase_kernels(ops_):
             f"({time.perf_counter() - t0:.1f}s)")
         torch.cuda.empty_cache()
     return report
+
+
+# K1/K2 ragged shapes across the kernel's tile edges: R gives 1, 3, 10, 18,
+# 19 and 32 IR blocks (the kernel's two instantiations split at 18/19; R =
+# 77 is not a multiple of 4, so x takes the 4-byte copies), B falls around
+# the 32-row tile, N = 1 (odd: 4-byte plane copies), 60, 64 and 100 around
+# the 32-column tile; C and the layouts rotate through {1, 3} x
+# shared/per-chip x and g (C = 1 with both shared goes through K2)
+K1_RAGGED_R = (32, 77, 300, 572, 600, 1000, 1024)
+K1_RAGGED_N = (1, 60, 64, 100)
+K1_RAGGED_B = (1, 31, 33, 1000)
+
+
+def k1_ragged_cases():
+    """(C, B, R, N, per-chip x, per-chip g) of the ragged checks."""
+    cases = []
+    for i, r in enumerate(K1_RAGGED_R):
+        for j, b in enumerate(K1_RAGGED_B):
+            layout = (i + 2 * j) % 4
+            cases.append((3 if (i + j) % 2 else 1, b, r,
+                          K1_RAGGED_N[(i + j) % 4], bool(layout & 1),
+                          bool(layout & 2)))
+    return cases
+
+
+# word lines that are not all 0 or 1, which take the kernel's FFMA counts:
+# (C, B, R, N, per-chip x, per-chip g, x kind); "mixed" switches from
+# popcounts to the FFMA chain at the middle IR block
+K1_NON_BINARY = ((3, 1000, 572, 60, True, True, "real"),
+                 (3, 1000, 572, 60, True, False, "mixed"),
+                 (1, 33, 1000, 100, False, False, "mixed"))
+
+
+def phase_k1_ragged(ops_):
+    """Phase 3, K1/K2 at the ragged shapes (`k1_ragged_cases`) and with
+    word lines that are not all 0 or 1 (`K1_NON_BINARY`): counts exact,
+    diff bit-identical, 0 binary flips.  Returns the flips."""
+    import torch
+    gen = torch.Generator(device="cuda").manual_seed(4321)
+    flips, t0 = 0, time.perf_counter()
+    for C, B, R, N, pcx, pcg in k1_ragged_cases():
+        tag = (f"ragged C={C} B={B} R={R} N={N} x "
+               f"{'per-chip' if pcx else 'shared'}, g "
+               f"{'per-chip' if pcg else 'shared'}")
+        err, n = check_layout(tag, ops_, C, B, pcx, pcg, gen, shape=(R, N))
+        check(err == 0.0, f"{tag}: max|diff err| {err}")
+        flips += n
+    log("3 kernels", f"K1/K2 at {len(k1_ragged_cases())} ragged shapes "
+        f"(R in {K1_RAGGED_R}, N in {K1_RAGGED_N}, B in {K1_RAGGED_B}, C "
+        f"in (1, 3), shared and per-chip x and g): counts "
+        f"exact, diff bit-identical, binary flips={flips} "
+        f"({time.perf_counter() - t0:.1f}s)")
+    for C, B, R, N, pcx, pcg, kind in K1_NON_BINARY:
+        tag = f"{kind} x C={C} B={B} R={R} N={N}"
+        err, n = check_layout(tag, ops_, C, B, pcx, pcg, gen, shape=(R, N),
+                              x_kind=kind)
+        check(err == 0.0, f"{tag}: max|diff err| {err}")
+        flips += n
+        log("3 kernels", f"K1 {tag}: diff and binary outputs (all effects "
+            f"on and off) bit-identical to the plain version")
+    torch.cuda.empty_cache()
+    return flips
 
 
 # K3 shapes: ragged edges, then the layer path's 256x540x60
@@ -1210,7 +1320,9 @@ def main(argv=None) -> int:
         log("2 build", f"nvcc sm_90a build of {src.name}: "
             f"{build.BUILD_S[src.name]:.1f}s into {build.build_dir()}")
         for line in build.BUILD_LOG.get(src.name, "").splitlines():
-            if "registers" in line or "spill" in line:
+            if "Function properties for" in line:
+                log("2 build", "ptxas: " + line.split(" for ")[-1][:90])
+            elif "registers" in line or "spill" in line:
                 log("2 build", "ptxas: " + line.strip())
     for mod in mods:
         mod.load()
@@ -1218,6 +1330,7 @@ def main(argv=None) -> int:
     checks, k4_err = {}, None
     if "kernels" in only:
         checks = phase_kernels(ops)
+        checks["ragged"] = (0.0, phase_k1_ragged(ops))
         phase_k3_checks(ops)
         k4_err = phase_k4_checks(ops)
         phase_xla_checks(ops)

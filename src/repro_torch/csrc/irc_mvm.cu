@@ -22,48 +22,75 @@
 // Layouts: x is [B,R] shared by every chip or [C,B,R] per chip; e± are
 // [C,R,N]; g± are [R,N] shared or [C,R,N]; eps/rnd/out are [C,B,N].  A shared
 // operand is passed with chip stride 0, so one code path serves all four.
-// Ragged edges (R not a multiple of 32, N not of 64, B not of the row tile)
-// are masked here; the caller pads nothing.
+// Ragged edges (R not a multiple of 32, N not of the column tile, B not of
+// the row tile) are masked here; the caller pads nothing.  R <= 1024.
 //
-// What bounds it on the H100: four products of x against the planes, each
-// 2*C*B*R*N floating-point operations, against reading x once (4*C*B*R
-// bytes for per-chip x).  The two block-current products need true f32
-// (IEEE FFMA, not TF32); the two counts have {0,1} operands, which tensor
-// cores sum exactly.  At the detector's s0b1 shape (C=4, B=294,912, R=572,
-// N=60) that is 162 GFLOP at the 67 TFLOP/s FFMA peak (2.42 ms) plus
-// 162 GFLOP at the 495 TFLOP/s TF32 peak (0.33 ms), against 1.06 ms of
-// memory traffic (3.55 GB, 2.7 GB of it x), so the FFMA rate bounds it.
-// This first design computes all four products on the FFMA pipes:
-//   * a thread block owns one chip, a tile of BM = 4*TM word-line rows and
-//     64 columns; 256 threads, thread (ty, tx) owns column tx and rows
-//     ty + 4*i, i < TM;
-//   * it walks R in 32-row IR blocks, staging the x tile and the four
-//     32x64 plane slices (32 KB) in shared memory, so each plane value read
-//     from shared memory feeds TM rows and each x value (a warp broadcast)
-//     feeds four products;
-//   * each thread keeps its rows' NB block currents per plane in registers
-//     (the IR-drop weights need every block before any is weighted) and runs
-//     the epilogue in registers, writing one f32 per output.
-// The counts are exact in any order ({0,1} products, sums < 2^24).  The
-// epilogue follows the plain version's float32 order op for op, which is the
-// JAX reference's order on XLA's CPU backend (repro_torch/xla_order.py):
-// two-level scans of 16 for the IR-drop suffix sums and their prefix sums,
-// a sequential weighted block sum, and a fused multiply-add exactly where
-// XLA contracts one (the IR factor, the Horner steps, i+ * r+ - i- unless
-// the sensing window reads i+ * r+, sigma, diff + sigma * eps).  Every
-// multiply and add is an explicit __fmul_rn/__fadd_rn/__fmaf_rn, so nvcc
-// contracts nothing on its own.  Faster designs (tensor cores
-// for the {0,1} counts, TMA, a persistent grid, all groups of a layer in one
-// launch, periphery noise drawn in the epilogue) are later work.
+// Bit-identity rules (the plain version's float32 order, which is the JAX
+// reference's on XLA's CPU backend, repro_torch/xla_order.py):
+//   * a block current is one chain of f32 fused multiply-adds over the 32
+//     rows of its IR block in ascending order, starting from +0 (rows past R
+//     are zeros and run through the chain, as the plain version pads them);
+//     no tensor cores, no split of a block across threads, no reassociation;
+//   * a count is one such chain over all R rows in ascending order.  Where
+//     every x and g value of an IR block, and of every block before it, is
+//     0 or 1, the chain's value is an exact integer (< 2^24), so the kernel
+//     adds the block's popcount instead and gets the same bits; it checks
+//     the staged values of every block for that;
+//   * the epilogue: two-level scans of 16 for the IR-drop suffix sums and
+//     their prefix sums, a sequential weighted block sum, and a fused
+//     multiply-add exactly where XLA contracts one (the IR factor, the Horner
+//     steps, i+ * r+ - i- unless the sensing window reads i+ * r+, sigma,
+//     diff + sigma * eps).  Every multiply and add there is an explicit
+//     __fmul_rn/__fadd_rn/__fmaf_rn, so nvcc contracts nothing on its own.
+//
+// What bounds it on the H100, at the detector's s0b1 shape (C=4,
+// B=294,912, R=572, N=60): the two block-current products need 8.1e10 f32
+// FFMAs, 2.4 ms at the 67 TFLOP/s FFMA peak, against 1.06 ms of device
+// memory traffic (3.55 GB, 2.7 GB of it x).  The design:
+//   * a thread block owns one chip, 32 word-line rows and 32 columns, with
+//     256 threads; thread (ty, tx) owns rows ty and ty + 16 and columns 2tx
+//     and 2tx + 1, a 2x2 micro-tile of FFMA chains;
+//   * it walks R in 32-row IR blocks, double-buffered: cp.async stages the
+//     next block's x tile (16-byte copies; rows padded to 36 floats, so the
+//     float4 reads of four word-line rows hit distinct banks) and its four
+//     plane slices (8-byte copies, interleaved per column pair as
+//     {e+ e+ e- e-} and {g+ g+ g- g-}) while the current block computes;
+//     one __syncthreads() per IR block.  Operands that are not 16/8-byte
+//     aligned, or R or N not a multiple of 4/2, take 4-byte copies;
+//   * per 4 plane rows a thread reads 2 float4 of x and 4 float4 of the e
+//     planes for 32 FFMAs; a warp spans 4 word-line rows x 8 column pairs,
+//     so no read has a bank conflict.  A float4 read delivers 16 bytes to
+//     each lane, at the SM's 128 bytes per clock, so these 3 bytes per FFMA
+//     hold the loop near a third of the FFMA peak;
+//   * the counts come from bit masks, built once per IR block and thread
+//     block by ballots (one per x row, eight per warp for the g columns),
+//     in the same pass that checks the block for values other than 0 and 1;
+//     each thread adds popcount(x mask & g mask) one IR block later, after
+//     the barrier that publishes the masks.  A block that fails the check,
+//     and every block after it, takes the FFMA chain over its still-staged
+//     values instead, with one more barrier;
+//   * each thread parks its block currents (8 floats per IR block) in a
+//     local array, which lives in L1 and L2: in shared memory they take
+//     8 KB per IR block of a thread block, so at nb = 18 only one thread
+//     block of 8 warps fits on an SM, and the kernel runs slower with one
+//     than with the two or three that fit without them.  The epilogue reads
+//     them back in block order and runs in registers, writing one f32 per
+//     output.
+// Later work: thread-block clusters with TMA multicast of the plane slices
+// (every row tile of a chip stages the same slices from L2), all groups of
+// a layer in one launch, a persistent grid that overlaps one tile's
+// epilogue with the next tile's loads.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
 
 namespace {
 
-constexpr int kBlk = 32;       // rows per IR-drop block
-constexpr int kCols = 64;      // output columns per thread block
-constexpr int kRowLanes = 4;   // 256 threads = 64 columns x 4 row lanes
+constexpr int kBlk = 32;            // rows per IR-drop block
+constexpr int kTileN = 32;          // output columns per thread block
+constexpr int kPairs = kTileN / 2;  // column pairs: the column threads
+constexpr int kXStride = kBlk + 4;  // floats per staged x row
+constexpr int kPlaneTile = kBlk * kTileN * 2;  // floats of {e+,e-} or {g+,g-}
 
 struct Params {
   float ir_alpha, sense_low, sense_high, sa_c0, sa_c1, sa_c2, sa_extra;
@@ -146,146 +173,364 @@ __device__ __forceinline__ float line_current(const float (&I)[NB], int nb,
   return line;
 }
 
-template <int NB, int TM>
-__global__ void __launch_bounds__(kCols * kRowLanes)
+
+__device__ __forceinline__ void cp_async(float* dst, const float* src,
+                                         int bytes, bool ok) {
+  const unsigned d = (unsigned)__cvta_generic_to_shared(dst);
+  const int n = ok ? bytes : 0;      // 0 source bytes: zero fill
+  if (bytes == 16)
+    asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n"
+                 :: "r"(d), "l"(src), "r"(n) : "memory");
+  else if (bytes == 8)
+    asm volatile("cp.async.ca.shared.global [%0], [%1], 8, %2;\n"
+                 :: "r"(d), "l"(src), "r"(n) : "memory");
+  else
+    asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n"
+                 :: "r"(d), "l"(src), "r"(n) : "memory");
+}
+
+enum : int { kVecX = 1, kVecPlanes = 2 };
+
+// A thread block of BM word-line rows x 32 columns; each thread owns TM
+// rows (ty + i * BM / TM) and one column pair.
+template <int BM, int TM>
+struct Tile {
+  static constexpr int kRowThreads = BM / TM;
+  static constexpr int kThreads = kRowThreads * kPairs;
+  static constexpr int kWarps = kThreads / 32;
+  static constexpr int kStage = BM * kXStride + 2 * kPlaneTile;  // floats
+  static constexpr int kPark = 4 * TM;   // parked currents per IR block
+  // bit masks of one IR block: x rows, then g [half][plane][column], then
+  // each warp's "all values were 0 or 1"
+  static constexpr int kGMasks = BM;
+  static constexpr int kOk = BM + 4 * kTileN;
+  static constexpr int kMasks = kOk + kWarps;
+  static_assert(kRowThreads % 4 == 0, "a warp spans 4 row threads");
+};
+
+// Copy IR block k (rows r0..r0+31) of the x tile and the four plane slices
+// into one stage buffer; rows past B or R and columns past N are zeroed.
+template <int BM, int TM>
+__device__ __forceinline__ void stage_block(
+    float* st, int k, int tid, int row0, int col0, int B, int R, int N,
+    const float* xc, const float* const (&pl)[4], int vec) {
+  using T = Tile<BM, TM>;
+  const int r0 = k * kBlk;
+  if (vec & kVecX) {                       // 8 16-byte copies per row
+    for (int e = tid; e < BM * 8; e += T::kThreads) {
+      const int rr = e >> 3, q = e & 7;
+      const int b = row0 + rr, r = r0 + 4 * q;
+      const bool ok = b < B && r < R;
+      cp_async(st + rr * kXStride + 4 * q,
+               ok ? xc + (long long)b * R + r : xc, 16, ok);
+    }
+  } else {
+    for (int e = tid; e < BM * kBlk; e += T::kThreads) {
+      const int rr = e >> 5, kk = e & 31;
+      const int b = row0 + rr, r = r0 + kk;
+      const bool ok = b < B && r < R;
+      cp_async(st + rr * kXStride + kk,
+               ok ? xc + (long long)b * R + r : xc, 4, ok);
+    }
+  }
+#pragma unroll
+  for (int plane = 0; plane < 4; ++plane) {  // e+, e-, g+, g-
+    const float* src = pl[plane];
+    float* dst = st + BM * kXStride + (plane >> 1) * kPlaneTile
+                 + (plane & 1) * 2;
+    if (vec & kVecPlanes) {                // one column pair per copy
+      for (int e = tid; e < kBlk * kPairs; e += T::kThreads) {
+        const int p = e & (kPairs - 1), kk = e >> 4;
+        const int r = r0 + kk, n = col0 + 2 * p;
+        const bool ok = r < R && n < N;
+        cp_async(dst + (kk * kPairs + p) * 4,
+                 ok ? src + (long long)r * N + n : src, 8, ok);
+      }
+    } else {
+      for (int e = tid; e < kBlk * kTileN; e += T::kThreads) {
+        const int nn = e & (kTileN - 1), kk = e >> 5;
+        const int r = r0 + kk, n = col0 + nn;
+        const bool ok = r < R && n < N;
+        cp_async(dst + (kk * kPairs + (nn >> 1)) * 4 + (nn & 1),
+                 ok ? src + (long long)r * N + n : src, 4, ok);
+      }
+    }
+  }
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+
+__device__ __forceinline__ bool is_bit(float v) {
+  return v == 0.0f || v == 1.0f;
+}
+
+// The bit masks of a staged IR block, and whether every x and g value in
+// it is 0 or 1: mk[rr] has bit kk set where x[row0 + rr, r0 + kk] != 0;
+// mk[kGMasks + (h * 2 + s) * 32 + nn] has bit kk set where g+ (s = 0) or g-
+// (s = 1) of column col0 + nn is nonzero at row r0 + kk, for the rows kk of
+// half h (0-15 or 16-31); mk[kOk + warp] is the warp's verdict.  One ballot
+// per x row; a g ballot reads two rows of four column pairs.  12 ballots
+// per warp at 8 warps.
+template <int BM, int TM>
+__device__ __forceinline__ void build_masks(const float* st, unsigned* mk,
+                                            int tid) {
+  using T = Tile<BM, TM>;
+  const int lane = tid & 31, warp = tid >> 5;
+  bool ok = true;
+  for (int rr = warp; rr < BM; rr += T::kWarps) {
+    const float v = st[rr * kXStride + lane];
+    ok = ok && is_bit(v);
+    const unsigned m = __ballot_sync(0xffffffffu, v != 0.0f);
+    if (lane == 0) mk[rr] = m;
+  }
+  const float* sg = st + BM * kXStride + kPlaneTile;
+  const int idx = lane & 15;               // 4 pairs x {g+ g+ g- g-}
+  for (int u = warp; u < 8; u += T::kWarps) {
+    const int pq = u & 3, h = u >> 2;      // 4 column pairs, half of rows
+    unsigned m = 0;
+#pragma unroll
+    for (int kk0 = 0; kk0 < 16; kk0 += 2) {
+      const int kk = 16 * h + kk0 + (lane >> 4);
+      const float v = sg[(kk * kPairs + 4 * pq) * 4 + idx];
+      ok = ok && is_bit(v);
+      const unsigned w = __ballot_sync(0xffffffffu, v != 0.0f);
+      m |= ((w >> idx) & 1u) << kk0 | ((w >> (16 + idx)) & 1u) << (kk0 + 1);
+    }
+    if (lane < 16)
+      mk[T::kGMasks + (h * 2 + ((idx >> 1) & 1)) * kTileN
+         + 2 * (4 * pq + (idx >> 2)) + (idx & 1)] = m << (16 * h);
+  }
+  ok = __all_sync(0xffffffffu, ok);
+  if (lane == 0) mk[T::kOk + warp] = ok;
+}
+
+// One IR block's products for the thread's TM rows x 2 columns, each one
+// FFMA chain over the block's 32 rows in ascending order: with kCurrents
+// the two block currents from +0 into ap/an, with kCounts the two counts
+// continued in cp/cn.
+template <int BM, int TM, bool kCurrents, bool kCounts>
+__device__ __forceinline__ void block_products(
+    const float* st, int ty, int tx, float (&ap)[TM][2], float (&an)[TM][2],
+    float (&cp)[TM][2], float (&cn)[TM][2]) {
+  using T = Tile<BM, TM>;
+  const float* xr = st + ty * kXStride;
+  const float4* sa = reinterpret_cast<const float4*>(st + BM * kXStride) + tx;
+  const float4* sg = sa + kPlaneTile / 4;
+#pragma unroll
+  for (int i = 0; i < TM; ++i)
+#pragma unroll
+    for (int j = 0; j < 2; ++j) { ap[i][j] = 0.0f; an[i][j] = 0.0f; }
+#pragma unroll
+  for (int q = 0; q < kBlk / 4; ++q) {
+    float xs[TM][4];
+#pragma unroll
+    for (int i = 0; i < TM; ++i) {
+      const float4 v = *reinterpret_cast<const float4*>(
+          xr + i * T::kRowThreads * kXStride + 4 * q);
+      xs[i][0] = v.x;
+      xs[i][1] = v.y;
+      xs[i][2] = v.z;
+      xs[i][3] = v.w;
+    }
+#pragma unroll
+    for (int u = 0; u < 4; ++u) {
+      const int kk = 4 * q + u;
+      if (kCurrents) {
+        const float4 a = sa[kk * kPairs];   // e+[n], e+[n+1], e-[n], e-[n+1]
+#pragma unroll
+        for (int i = 0; i < TM; ++i) {
+          const float xv = xs[i][u];
+          ap[i][0] = fmaf(xv, a.x, ap[i][0]);
+          ap[i][1] = fmaf(xv, a.y, ap[i][1]);
+          an[i][0] = fmaf(xv, a.z, an[i][0]);
+          an[i][1] = fmaf(xv, a.w, an[i][1]);
+        }
+      }
+      if (kCounts) {
+        const float4 g = sg[kk * kPairs];   // g+[n], g+[n+1], g-[n], g-[n+1]
+#pragma unroll
+        for (int i = 0; i < TM; ++i) {
+          const float xv = xs[i][u];
+          cp[i][0] = fmaf(xv, g.x, cp[i][0]);
+          cp[i][1] = fmaf(xv, g.y, cp[i][1]);
+          cn[i][0] = fmaf(xv, g.z, cn[i][0]);
+          cn[i][1] = fmaf(xv, g.w, cn[i][1]);
+        }
+      }
+    }
+  }
+}
+
+template <int NB, int BM, int TM>
+__global__ void __launch_bounds__(Tile<BM, TM>::kThreads)
 irc_mvm_chips_kernel(const float* __restrict__ x, const float* __restrict__ ep,
                      const float* __restrict__ en, const float* __restrict__ gp,
                      const float* __restrict__ gn,
                      const float* __restrict__ eps,
                      const float* __restrict__ rnd, float* __restrict__ out,
-                     int B, int R, int N, long long x_chip_stride,
-                     long long g_chip_stride, Params prm) {
-  constexpr int BM = kRowLanes * TM;
-  __shared__ float s_x[BM][kBlk];
-  __shared__ float s_ep[kBlk][kCols];
-  __shared__ float s_en[kBlk][kCols];
-  __shared__ float s_gp[kBlk][kCols];
-  __shared__ float s_gn[kBlk][kCols];
+                     int B, int R, int N, int col_tiles,
+                     long long x_chip_stride, long long g_chip_stride,
+                     Params prm, int vec) {
+  using T = Tile<BM, TM>;
+  extern __shared__ float4 smem4[];
+  float* smem = reinterpret_cast<float*>(smem4);
+  unsigned* masks = reinterpret_cast<unsigned*>(smem + 2 * T::kStage);
+  __align__(16) float park[NB * T::kPark];   // block currents (local)
 
   const int tid = threadIdx.x;
-  const int tx = tid % kCols;
-  const int ty = tid / kCols;
-  const int row0 = blockIdx.x * BM;
-  const int col0 = blockIdx.y * kCols;
-  const int c = blockIdx.z;
+  const int lane = tid & 31, warp = tid >> 5;
+  const int ty = (warp >> 1) * 4 + (lane >> 3);   // row thread
+  const int tx = (warp & 1) * 8 + (lane & 7);     // column pair
+  const int row0 = (blockIdx.x / col_tiles) * BM;
+  const int col0 = (blockIdx.x % col_tiles) * kTileN;
+  const int c = blockIdx.y;
   const int nb = (R + kBlk - 1) / kBlk;
 
   const float* xc = x + c * x_chip_stride;
   const long long plane_chip = (long long)c * R * N;
-  const float* epc = ep + plane_chip;
-  const float* enc = en + plane_chip;
-  const float* gpc = gp + c * g_chip_stride;
-  const float* gnc = gn + c * g_chip_stride;
+  const float* const pl[4] = {ep + plane_chip, en + plane_chip,
+                              gp + c * g_chip_stride, gn + c * g_chip_stride};
 
-  float Ip[TM][NB], In[TM][NB], cp[TM], cn[TM];
+  float cp[TM][2], cn[TM][2];
 #pragma unroll
-  for (int i = 0; i < TM; ++i) {
-    cp[i] = 0.0f;
-    cn[i] = 0.0f;
+  for (int i = 0; i < TM; ++i)
 #pragma unroll
-    for (int k = 0; k < NB; ++k) {
-      Ip[i][k] = 0.0f;
-      In[i][k] = 0.0f;
-    }
-  }
+    for (int j = 0; j < 2; ++j) { cp[i][j] = 0.0f; cn[i][j] = 0.0f; }
 
+  // The counts of IR block k-1 are taken in iteration k, after the barrier
+  // that makes block k-1's masks and verdicts visible: while every block so
+  // far held only 0s and 1s (`exact`), as popcounts of the masks, which are
+  // the FFMA chain's exact integers; otherwise as the FFMA chain itself,
+  // over block k-1's stage buffer before the next copy overwrites it.
+  bool exact = true;
+  auto counts_of = [&](int kb, bool last) {
+    const unsigned* mk = masks + (kb & 1) * T::kMasks;
+    bool bits = exact;
 #pragma unroll
-  for (int k = 0; k < NB; ++k) {
-    if (k < nb) {                       // uniform across the thread block
-      const int r0 = k * kBlk;
-      __syncthreads();
-      for (int e = tid; e < BM * kBlk; e += kCols * kRowLanes) {
-        int rr = e / kBlk, kk = e % kBlk;
-        int b = row0 + rr, r = r0 + kk;
-        s_x[rr][kk] = (b < B && r < R) ? xc[(long long)b * R + r] : 0.0f;
-      }
-      for (int e = tid; e < kBlk * kCols; e += kCols * kRowLanes) {
-        int kk = e / kCols, nn = e % kCols;
-        int r = r0 + kk, n = col0 + nn;
-        bool in = (r < R && n < N);
-        long long off = (long long)r * N + n;
-        s_ep[kk][nn] = in ? epc[off] : 0.0f;
-        s_en[kk][nn] = in ? enc[off] : 0.0f;
-        s_gp[kk][nn] = in ? gpc[off] : 0.0f;
-        s_gn[kk][nn] = in ? gnc[off] : 0.0f;
-      }
-      __syncthreads();
-      float ap[TM], an[TM];
+    for (int w = 0; w < T::kWarps; ++w) bits = bits && mk[T::kOk + w];
+    if (bits) {
 #pragma unroll
-      for (int i = 0; i < TM; ++i) { ap[i] = 0.0f; an[i] = 0.0f; }
-#pragma unroll 8
-      for (int kk = 0; kk < kBlk; ++kk) {
-        const float vp = s_ep[kk][tx], vn = s_en[kk][tx];
-        const float up = s_gp[kk][tx], un = s_gn[kk][tx];
+      for (int i = 0; i < TM; ++i) {
+        const unsigned xm = mk[ty + i * T::kRowThreads];
 #pragma unroll
-        for (int i = 0; i < TM; ++i) {
-          const float xv = s_x[ty + kRowLanes * i][kk];
-          ap[i] = fmaf(xv, vp, ap[i]);
-          an[i] = fmaf(xv, vn, an[i]);
-          cp[i] = fmaf(xv, up, cp[i]);
-          cn[i] = fmaf(xv, un, cn[i]);
+        for (int j = 0; j < 2; ++j) {
+          const int nn = 2 * tx + j;
+          const unsigned* gm = mk + T::kGMasks + nn;
+          cp[i][j] = __fadd_rn(cp[i][j], (float)__popc(
+              xm & (gm[0] | gm[2 * kTileN])));
+          cn[i][j] = __fadd_rn(cn[i][j], (float)__popc(
+              xm & (gm[kTileN] | gm[3 * kTileN])));
         }
       }
-#pragma unroll
-      for (int i = 0; i < TM; ++i) { Ip[i][k] = ap[i]; In[i][k] = an[i]; }
+    } else {
+      exact = false;
+      float ap[TM][2], an[TM][2];
+      block_products<BM, TM, false, true>(smem + (kb & 1) * T::kStage, ty,
+                                          tx, ap, an, cp, cn);
+      if (!last) __syncthreads();          // before the next copy lands
     }
-  }
+  };
 
-  const int n = col0 + tx;
+  stage_block<BM, TM>(smem, 0, tid, row0, col0, B, R, N, xc, pl, vec);
+  for (int k = 0; k < nb; ++k) {
+    const float* st = smem + (k & 1) * T::kStage;
+    asm volatile("cp.async.wait_group 0;\n" ::: "memory");
+    __syncthreads();          // block k staged; every thread done with k-1
+    if (k > 0) counts_of(k - 1, false);
+    if (k + 1 < nb)
+      stage_block<BM, TM>(smem + ((k + 1) & 1) * T::kStage, k + 1, tid, row0,
+                          col0, B, R, N, xc, pl, vec);
+    if (exact) build_masks<BM, TM>(st, masks + (k & 1) * T::kMasks, tid);
+    float ap[TM][2], an[TM][2];
+    block_products<BM, TM, true, false>(st, ty, tx, ap, an, cp, cn);
+    float4* pk = reinterpret_cast<float4*>(park + k * T::kPark);
+#pragma unroll
+    for (int i = 0; i < TM; ++i)
+      pk[i] = make_float4(ap[i][0], an[i][0], ap[i][1], an[i][1]);
+  }
+  __syncthreads();            // the last block's masks and verdicts
+  counts_of(nb - 1, true);
+
   const bool ir = prm.flags & kIrDrop;
+  const bool to_diff = prm.flags & kOutputDiff;
 #pragma unroll
   for (int i = 0; i < TM; ++i) {
-    const int b = row0 + ty + kRowLanes * i;
-    if (b >= B || n >= N) continue;
-    float i_pos = line_current<NB>(Ip[i], nb, prm.ir_alpha, ir);
-    float i_neg = line_current<NB>(In[i], nb, prm.ir_alpha, ir);
-    const bool to_diff = prm.flags & kOutputDiff;
-    float diff;
-    if (prm.flags & kNonlinearity) {
-      const float r_pos = nl_ratio(cp[i]);
-      i_neg = __fmul_rn(i_neg, nl_ratio(cn[i]));
-      if ((prm.flags & kRange) && !to_diff) {
-        i_pos = __fmul_rn(i_pos, r_pos);
-        diff = __fadd_rn(i_pos, -i_neg);
-      } else {
-        diff = __fmaf_rn(i_pos, r_pos, -i_neg);
+#pragma unroll
+    for (int j = 0; j < 2; ++j) {
+      const int b = row0 + ty + T::kRowThreads * i;
+      const int n = col0 + 2 * tx + j;
+      if (b >= B || n >= N) continue;
+      float Ip[NB], In[NB];
+      const float* pk = park + 4 * i + 2 * j;
+#pragma unroll
+      for (int k = 0; k < NB; ++k) {
+        Ip[k] = k < nb ? pk[k * T::kPark] : 0.0f;
+        In[k] = k < nb ? pk[k * T::kPark + 1] : 0.0f;
       }
-    } else {
-      diff = __fadd_rn(i_pos, -i_neg);
+      float i_pos = line_current<NB>(Ip, nb, prm.ir_alpha, ir);
+      float i_neg = line_current<NB>(In, nb, prm.ir_alpha, ir);
+      float diff;
+      if (prm.flags & kNonlinearity) {
+        const float r_pos = nl_ratio(cp[i][j]);
+        i_neg = __fmul_rn(i_neg, nl_ratio(cn[i][j]));
+        if ((prm.flags & kRange) && !to_diff) {
+          i_pos = __fmul_rn(i_pos, r_pos);
+          diff = __fadd_rn(i_pos, -i_neg);
+        } else {
+          diff = __fmaf_rn(i_pos, r_pos, -i_neg);
+        }
+      } else {
+        diff = __fadd_rn(i_pos, -i_neg);
+      }
+      const long long o = ((long long)c * B + b) * N + n;
+      if (to_diff) {
+        out[o] = diff;
+        continue;
+      }
+      if (prm.flags & kSa) {
+        const float pp = __fadd_rn(cp[i][j], cn[i][j]);
+        float s = __fmaf_rn(__fmul_rn(prm.sa_c2, pp), pp,
+                            __fmaf_rn(prm.sa_c1, pp, prm.sa_c0));
+        s = __fmul_rn(0.5f, __fadd_rn(s, prm.sa_extra));
+        diff = __fmaf_rn(s, eps[o], diff);
+      }
+      float res = diff > 0.0f ? 1.0f : 0.0f;
+      if (prm.flags & kRange) {
+        const bool fail = fminf(i_pos, i_neg) < prm.sense_low ||
+                          fmaxf(i_pos, i_neg) > prm.sense_high;
+        if (fail) res = rnd[o];
+      }
+      out[o] = res;
     }
-    const long long o = ((long long)c * B + b) * N + n;
-    if (to_diff) {
-      out[o] = diff;
-      continue;
-    }
-    if (prm.flags & kSa) {
-      const float pp = __fadd_rn(cp[i], cn[i]);
-      float s = __fmaf_rn(__fmul_rn(prm.sa_c2, pp), pp,
-                          __fmaf_rn(prm.sa_c1, pp, prm.sa_c0));
-      s = __fmul_rn(0.5f, __fadd_rn(s, prm.sa_extra));
-      diff = __fmaf_rn(s, eps[o], diff);
-    }
-    float res = diff > 0.0f ? 1.0f : 0.0f;
-    if (prm.flags & kRange) {
-      const bool fail = fminf(i_pos, i_neg) < prm.sense_low ||
-                        fmaxf(i_pos, i_neg) > prm.sense_high;
-      if (fail) res = rnd[o];
-    }
-    out[o] = res;
   }
 }
 
-template <int NB, int TM>
+bool aligned(const void* p, uintptr_t bytes) {
+  return (reinterpret_cast<uintptr_t>(p) & (bytes - 1)) == 0;
+}
+
+template <int NB, int BM, int TM>
 cudaError_t launch(const float* x, const float* ep, const float* en,
                    const float* gp, const float* gn, const float* eps,
                    const float* rnd, float* out, int C, int B, int R, int N,
                    long long x_chip_stride, long long g_chip_stride,
                    Params prm, cudaStream_t stream) {
-  constexpr int BM = kRowLanes * TM;
-  dim3 grid((B + BM - 1) / BM, (N + kCols - 1) / kCols, C);
-  irc_mvm_chips_kernel<NB, TM><<<grid, kCols * kRowLanes, 0, stream>>>(
-      x, ep, en, gp, gn, eps, rnd, out, B, R, N, x_chip_stride,
-      g_chip_stride, prm);
+  using T = Tile<BM, TM>;
+  const size_t smem = sizeof(float) * 2 * (T::kStage + T::kMasks);
+  auto kern = irc_mvm_chips_kernel<NB, BM, TM>;
+  cudaError_t err = cudaFuncSetAttribute(
+      kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (err != cudaSuccess) return err;
+  const int vec =
+      (R % 4 == 0 && aligned(x, 16) ? kVecX : 0) |
+      (N % 2 == 0 && aligned(ep, 8) && aligned(en, 8) && aligned(gp, 8) &&
+       aligned(gn, 8) ? kVecPlanes : 0);
+  const int col_tiles = (N + kTileN - 1) / kTileN;
+  const long long blocks = (long long)((B + BM - 1) / BM) * col_tiles;
+  if (blocks > 2147483647LL) return cudaErrorInvalidValue;
+  dim3 grid((unsigned)blocks, C);
+  kern<<<grid, T::kThreads, smem, stream>>>(
+      x, ep, en, gp, gn, eps, rnd, out, B, R, N, col_tiles, x_chip_stride,
+      g_chip_stride, prm, vec);
   return cudaGetLastError();
 }
 
@@ -297,8 +542,7 @@ extern "C" int irc_mvm_chips_launch(
     int B, int R, int N, long long x_chip_stride, long long g_chip_stride,
     float ir_alpha, float sense_low, float sense_high, float sa_c0,
     float sa_c1, float sa_c2, float sa_extra, int flags, void* stream) {
-  if (C <= 0 || B <= 0 || R <= 0 || N <= 0) return (int)cudaErrorInvalidValue;
-  if (C > 65535 || (long long)B > 4LL * 2147483647LL)
+  if (C <= 0 || B <= 0 || R <= 0 || N <= 0 || C > 65535)
     return (int)cudaErrorInvalidValue;
   Params prm{ir_alpha, sense_low, sense_high, sa_c0, sa_c1, sa_c2, sa_extra,
              flags};
@@ -313,10 +557,12 @@ extern "C" int irc_mvm_chips_launch(
   auto frnd = static_cast<const float*>(rnd);
   auto fout = static_cast<float*>(out);
   if (nb <= 18)
-    return (int)launch<18, 2>(fx, fep, fen, fgp, fgn, feps, frnd, fout, C, B,
-                              R, N, x_chip_stride, g_chip_stride, prm, st);
+    return (int)launch<18, 32, 2>(fx, fep, fen, fgp, fgn, feps, frnd, fout,
+                                  C, B, R, N, x_chip_stride, g_chip_stride,
+                                  prm, st);
   if (nb <= 32)
-    return (int)launch<32, 1>(fx, fep, fen, fgp, fgn, feps, frnd, fout, C, B,
-                              R, N, x_chip_stride, g_chip_stride, prm, st);
+    return (int)launch<32, 32, 2>(fx, fep, fen, fgp, fgn, feps, frnd, fout,
+                                  C, B, R, N, x_chip_stride, g_chip_stride,
+                                  prm, st);
   return (int)cudaErrorInvalidValue;   // more rows than one 1024-row macro
 }

@@ -101,7 +101,14 @@ def _line_current(x: torch.Tensor, eplane: torch.Tensor,
     nb = R // blk
     xb = x.reshape(x.shape[:-1] + (nb, blk)).transpose(-3, -2)
     pb = eplane.reshape(eplane.shape[:-2] + (nb, blk, N))
-    blocks = xb @ pb                                      # [..., nb, B, N]
+    if xb.shape[-2] == 1 or N == 1:
+        # one word-line row or one column takes a matrix-vector path (torch
+        # on the CPU, cuBLAS on the card) that sums the block in another
+        # order; the explicit chain keeps the ascending order of XLA's dot
+        # and of the CUDA kernel
+        blocks = xo.seq_fma_sum(xb.unsqueeze(-1), pb.unsqueeze(-3), -2)
+    else:
+        blocks = xb @ pb                                  # [..., nb, B, N]
     if not params.apply_ir:
         return xo.seq_sum(blocks, -3)
     # block by block, so that no temporary is larger than one block's
@@ -117,13 +124,33 @@ def _line_current(x: torch.Tensor, eplane: torch.Tensor,
     return line
 
 
+def _is_bits(t: torch.Tensor) -> bool:
+    return bool(((t == 0) | (t == 1)).all())
+
+
+def _counts(x: torch.Tensor, g: torch.Tensor) -> torch.Tensor:
+    """Activated-LRS counts x [..., B, R] @ g [..., R, N] as one fused
+    multiply-add chain from +0 over R in ascending order, the CUDA kernel's
+    order.  With x and g all 0 or 1 every partial sum is an exact integer,
+    so a matmul gives the same bits in whatever order the backend sums;
+    other values take the chain row by row."""
+    if _is_bits(x) and _is_bits(g):
+        return x @ g
+    shape = torch.broadcast_shapes(x.shape[:-2], g.shape[:-2]) + (
+        x.shape[-2], g.shape[-1])
+    acc = torch.zeros(shape, dtype=torch.float32, device=x.device)
+    for r in range(x.shape[-1]):
+        acc = xo.fma(x[..., r:r + 1], g[..., r:r + 1, :], acc)
+    return acc
+
+
 def _mvm(x, ep, en, gp, gn, eps_sa, rnd_bits, params: IrcEpilogueParams,
          margin: bool):
     x = x.float()
     i_pos = _line_current(x, ep.float(), params)
     i_neg = _line_current(x, en.float(), params)
-    p_pos = x @ gp.float()
-    p_neg = x @ gn.float()
+    p_pos = _counts(x, gp.float())
+    p_neg = _counts(x, gn.float())
     if params.apply_nonlinearity:
         r_pos, r_neg = nl_ratio(p_pos), nl_ratio(p_neg)
         i_neg = i_neg * r_neg

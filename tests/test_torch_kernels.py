@@ -6,12 +6,14 @@ Same numpy inputs on both sides, for every layout (shared / per-chip word
 lines x shared / per-chip placement planes) and both outputs.  Counts are
 exact; `output="diff"` agrees within 1e-4 (the two sides sum the 32-row
 blocks and the 18 IR blocks in different float32 orders); binary outputs are
-equal except at near-ties, which are counted."""
+equal except at near-ties, which are counted.  Ragged shapes (`RAGGED`) hold
+the same contract where R, B and N are off the CUDA kernel's tiles."""
 import numpy as np
 import pytest
 
 torch = pytest.importorskip("torch")
 
+import jax  # noqa: E402
 import jax.numpy as jnp  # noqa: E402
 
 from repro.kernels import ref as jref  # noqa: E402
@@ -27,9 +29,11 @@ OFF = dict(apply_nonlinearity=False, apply_ir=False, apply_sa=False,
            apply_range=False)
 
 
-def _case(seed, per_chip_x, per_chip_g):
+def _case(seed, per_chip_x, per_chip_g, shape=(C, B, R, N)):
     """Detector-like operands: 32 bias rows, ternary 20/60/20 placement,
-    log-normal effective planes with the HRS leak, word lines at 0.5."""
+    log-normal effective planes with the HRS leak, word lines at 0.5;
+    `shape` is (chips, word-line rows, planes' rows, columns)."""
+    C, B, R, N = shape
     rng = np.random.default_rng(seed)
     n_g = C if per_chip_g else 1
     u = rng.random((n_g, R, N))
@@ -58,10 +62,12 @@ def _params(mod, output, effects):
                                  **({} if effects == "all" else OFF))
 
 
-def _both(arrs, params_kw):
+def _both(arrs, params_kw, jit=False):
     output, effects = params_kw
-    j = np.asarray(jref.irc_mvm_chips_ref(*map(jnp.asarray, arrs),
-                                          _params(jref, output, effects)))
+    p = _params(jref, output, effects)
+    oracle = (jax.jit(lambda *a: jref.irc_mvm_chips_ref(*a, p)) if jit
+              else lambda *a: jref.irc_mvm_chips_ref(*a, p))
+    j = np.asarray(oracle(*map(jnp.asarray, arrs)))
     t, margin = tref.irc_mvm_chips_ref(*map(torch.from_numpy, arrs),
                                        _params(tref, output, effects),
                                        margin=True)
@@ -69,6 +75,12 @@ def _both(arrs, params_kw):
 
 
 LAYOUTS = [(False, False), (True, False), (False, True), (True, True)]
+# (C, B, R, N, per-chip x, per-chip g) across the CUDA kernel's tile edges:
+# 10, 19 and 32 IR blocks (the 18/19 step between its two instantiations,
+# the 1,024-row limit), word-line rows off its 32-row tile, and column
+# counts off its 32-column tile
+RAGGED = [(2, 33, 300, 100, True, False), (3, 17, 600, 60, False, True),
+          (1, 15, 1000, 100, True, True), (2, 31, 1024, 64, False, False)]
 
 
 @pytest.mark.parametrize("per_chip_x,per_chip_g", LAYOUTS)
@@ -96,6 +108,79 @@ def test_diff_and_binary_match_reference(per_chip_x, per_chip_g, effects):
                                 margin)
     print(f"near-tie binary flips: {n} of {tb.size}")
     assert ok and n <= 0.001 * tb.size
+
+
+@pytest.mark.parametrize("c,b,r,n,per_chip_x,per_chip_g", RAGGED)
+def test_ragged_counts_exact(c, b, r, n, per_chip_x, per_chip_g):
+    """The counts at the ragged shapes: exact integers on both sides."""
+    x, ep, en, gp, gn, eps, rnd = _case(9, per_chip_x, per_chip_g,
+                                        (c, b, r, n))
+    zeros = np.zeros_like(ep)
+    for a, z in ((np.broadcast_to(gp, ep.shape).copy(), zeros),
+                 (zeros, np.broadcast_to(gn, en.shape).copy())):
+        j, t, _ = _both((x, a, z, gp, gn, eps, rnd), ("diff", "none"))
+        np.testing.assert_array_equal(j, t)
+        assert np.all(t == np.round(t))
+
+
+@pytest.mark.parametrize("effects", ["all", "none"])
+@pytest.mark.parametrize("c,b,r,n,per_chip_x,per_chip_g", RAGGED)
+def test_ragged_diff_and_binary_match_reference(c, b, r, n, per_chip_x,
+                                                per_chip_g, effects):
+    """The plain version against the JAX oracle, jitted as the reference's
+    sweeps run it, where R is not a multiple of the IR block and B and N
+    are off every tile.  (Eager and jitted JAX differ from each other by
+    up to 2e-4 at R = 1,000 with the nonlinearity on: eager JAX sums the
+    32-row blocks in another order.)"""
+    arrs = _case(10, per_chip_x, per_chip_g, (c, b, r, n))
+    j, t, _ = _both(arrs, ("diff", effects), jit=True)
+    assert t.shape == (c, b, n)
+    np.testing.assert_allclose(t, j, atol=1e-4, rtol=0)
+    jb, tb, margin = _both(arrs, ("binary", effects), jit=True)
+    n_flips, ok = tref.near_tie_flips(torch.tensor(jb), torch.tensor(tb),
+                                      margin)
+    assert ok and n_flips <= 0.001 * tb.size
+
+
+@pytest.mark.parametrize("r", [77, 572, 1000])
+def test_one_row_or_column_sums_as_in_a_batch(r):
+    """An output does not depend on how many word-line rows or columns
+    share the call: one row or one column (the matrix-vector paths of
+    torch and cuBLAS) gives the bits it gets among 3 rows or 60 columns,
+    the ascending block order that XLA's dot and the CUDA kernel keep."""
+    x, ep, en, gp, gn, eps, rnd = map(torch.from_numpy,
+                                      _case(11, True, False, (2, 3, r, 60)))
+    row = (slice(None), slice(0, 1))
+    col = (slice(None), slice(None), slice(0, 1))
+    for output in ("diff", "binary"):
+        p = _params(tref, output, "all")
+        three = tref.irc_mvm_chips_ref(x, ep, en, gp, gn, eps, rnd, p)
+        one_row = tref.irc_mvm_chips_ref(
+            x[row].contiguous(), ep, en, gp, gn, eps[row].contiguous(),
+            rnd[row].contiguous(), p)
+        assert torch.equal(one_row, three[row])
+        one_col = tref.irc_mvm_chips_ref(
+            x, ep[col].contiguous(), en[col].contiguous(),
+            gp[:, :1].contiguous(), gn[:, :1].contiguous(),
+            eps[col].contiguous(), rnd[col].contiguous(), p)
+        assert torch.equal(one_col, three[col])
+
+
+def test_counts_of_any_word_lines_are_one_ascending_chain():
+    """Counts of word lines that are not all 0 or 1: the plain version takes
+    them as one fused multiply-add chain from +0 over R in ascending order,
+    the CUDA kernel's order, whatever order the backend's matmul sums in;
+    {0,1} word lines keep the matmul, exact in any order."""
+    from repro_torch import xla_order as xo
+    rng = np.random.default_rng(12)
+    g = torch.from_numpy((rng.random((300, 7)) < 0.3).astype(np.float32))
+    for x in (torch.from_numpy(rng.random((2, 9, 300)).astype(np.float32)),
+              torch.from_numpy((rng.random((2, 9, 300)) < 0.5)
+                               .astype(np.float32))):
+        want = torch.zeros((2, 9, 7))
+        for r in range(300):
+            want = xo.fma_plain(x[..., r:r + 1], g[r:r + 1], want)
+        assert torch.equal(tref._counts(x, g), want)
 
 
 def test_single_chip_matches_reference():
@@ -216,19 +301,46 @@ def cuda_device():
 
 
 @pytest.mark.gpu
+@pytest.mark.parametrize("per_chip_g", [False, True])
+def test_cuda_kernel_matches_plain_version_off_bits(cuda_device,
+                                                    per_chip_g):
+    """Word lines in [0, 1): the kernel's FFMA counts and the plain
+    version's chain give the same bits."""
+    x, ep, en, gp, gn, eps, rnd = [
+        torch.from_numpy(a).to(cuda_device)
+        for a in _case(13, True, per_chip_g)]
+    x = torch.rand(x.shape, device=cuda_device,
+                   generator=torch.Generator(cuda_device).manual_seed(13))
+    for output in ("diff", "binary"):
+        p = _params(tref, output, "all")
+        got = ops.irc_mvm_chips(x, ep, en, gp, gn, eps, rnd, p)
+        want = tref.irc_mvm_chips_ref(x, ep, en, gp, gn, eps, rnd, p)
+        torch.testing.assert_close(got, want, atol=0, rtol=0)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("shape", [(C, B, R, N)]
+                         + [tuple(case[:4]) for case in RAGGED])
 @pytest.mark.parametrize("per_chip_x,per_chip_g", LAYOUTS)
 def test_cuda_kernel_matches_plain_version(cuda_device, per_chip_x,
-                                           per_chip_g):
+                                           per_chip_g, shape):
+    """On the card the kernel adds and rounds in the plain version's order:
+    counts and diff bit-identical, binary outputs equal."""
     arrs = [torch.from_numpy(a).to(cuda_device)
-            for a in _case(8, per_chip_x, per_chip_g)]
+            for a in _case(8, per_chip_x, per_chip_g, shape)]
+    x, ep, en, gp, gn, eps, rnd = arrs
+    counts = _params(tref, "diff", "none")
+    zeros = torch.zeros_like(ep)
+    for a, z, g, sign in ((gp.expand(ep.shape).contiguous(), zeros, gp, 1.0),
+                          (zeros, gn.expand(en.shape).contiguous(), gn,
+                           -1.0)):
+        got = ops.irc_mvm_chips(x, a, z, gp, gn, eps, rnd, counts)
+        assert torch.equal(got, sign * (x @ g).expand(got.shape))
     for output in ("diff", "binary"):
         p = _params(tref, output, "all")
         ops.reset_launches()
         got = ops.irc_mvm_chips(*arrs, p)
         torch.cuda.synchronize()
         assert ops.LAUNCHES["irc_mvm_chips"] == 1
-        want, margin = tref.irc_mvm_chips_ref(*arrs, p, margin=True)
-        if output == "diff":
-            torch.testing.assert_close(got, want, atol=1e-4, rtol=0)
-        else:
-            assert tref.near_tie_flips(got, want, margin)[1]
+        want = tref.irc_mvm_chips_ref(*arrs, p)
+        torch.testing.assert_close(got, want, atol=0, rtol=0)
