@@ -836,7 +836,7 @@ def phase_main_path(ops_):
     data = SyntheticDetectionData(img_hw=cfg.img_hw, stride=cfg.strides,
                                   n_classes=cfg.n_classes,
                                   n_anchors=cfg.n_anchors)
-    params = det.init(torch.Generator().manual_seed(0), device="cuda")
+    params = det.init(prng.PRNGKey(0, device="cuda"), device="cuda")
     calib = data.batch_for_step(999, 8)
     params = det.calibrate_bn(params,
                               torch.from_numpy(calib.images).cuda())
@@ -950,7 +950,7 @@ def phase_baseline_detector(ops_):
     data = SyntheticDetectionData(img_hw=cfg.img_hw, stride=cfg.strides,
                                   n_classes=cfg.n_classes,
                                   n_anchors=cfg.n_anchors)
-    params = det.init(torch.Generator().manual_seed(0), device="cuda")
+    params = det.init(prng.PRNGKey(0, device="cuda"), device="cuda")
     params = det.calibrate_bn(
         params, torch.from_numpy(data.batch_for_step(999, 8).images).cuda())
     ev = data.batch_for_step(1000, 2)
@@ -1155,7 +1155,7 @@ def phase_network(ops_):
     cfg = yolo_irc.proposed()
     det = IRCDetector(cfg)
     data = SyntheticDetectionData(img_hw=cfg.img_hw, stride=cfg.strides)
-    params = det.init(torch.Generator().manual_seed(1), device="cuda")
+    params = det.init(prng.PRNGKey(1, device="cuda"), device="cuda")
     params = det.calibrate_bn(
         params, torch.from_numpy(data.batch_for_step(7, 4).images).cuda())
     ev = data.batch_for_step(8, 1)
@@ -1200,7 +1200,7 @@ def phase_profile():
     cfg = yolo_irc.proposed()
     det = IRCDetector(cfg)
     data = SyntheticDetectionData(img_hw=cfg.img_hw, stride=cfg.strides)
-    params = det.init(torch.Generator().manual_seed(0), device="cuda")
+    params = det.init(prng.PRNGKey(0, device="cuda"), device="cuda")
     params = det.calibrate_bn(
         params, torch.from_numpy(data.batch_for_step(999, 8).images).cuda())
     images = torch.from_numpy(data.batch_for_step(1000, 2).images).cuda()

@@ -50,9 +50,10 @@ def sample_variation_mask(key: torch.Tensor, shape, sigma: float
                           ) -> torch.Tensor:
     """Per-cell log-normal current mask exp(sigma * z), median 1 (Fig. 3).
     Key batch axes lead the result.  Rounded as the reference's jitted
-    sampling rounds it: sigma folded into the normal's constant sqrt(2)
-    (`prng.normal(scale=)`), XLA's exp."""
-    return xo.exp(prng.normal(key, shape, scale=sigma))
+    sampling rounds it: sigma folded into the normal's constant sqrt(2),
+    XLA's exp (`prng.lognormal`: one launch of the threefry kernel on the
+    card)."""
+    return prng.lognormal(key, shape, sigma)
 
 
 # ------------------------------------------------------------------ nonlinearity
@@ -152,6 +153,6 @@ def resolve_sa(key: torch.Tensor, i_pos: torch.Tensor, i_neg: torch.Tensor,
     out = (diff > 0).float()
     if cfg.sensing_range:
         fail = sensing_failure(i_pos, i_neg, spec)
-        rnd = prng.bernoulli(k_rng, 0.5, shape).float()
+        rnd = prng.bernoulli(k_rng, 0.5, shape)
         out = torch.where(fail, rnd, out)
     return out

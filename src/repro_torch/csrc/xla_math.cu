@@ -35,151 +35,129 @@
 #include <math.h>
 #include <stdint.h>
 
+#include "xla_math.cuh"
+
 namespace {
+
+using namespace xla_math;
 
 constexpr int kThreads = 256;
 constexpr int kMaxDims = 8;
 constexpr int kMaxBlocks = 132 * 16;
 
-// operand modes of xla_fma
-constexpr int kScalar = 0;
-constexpr int kContiguous = 1;
-constexpr int kStrided = 2;
-
+// xla_fma's general path: 64-bit offsets, one % and / per axis
 struct FmaArgs {
-  const float* ptr[3];
+  const float* ptr[3];  // null for the scalar of the same slot
   float scalar[3];
-  int mode[3];
   int ndim;
   long long size[kMaxDims];
   long long stride[3][kMaxDims];
 };
 
 __global__ void __launch_bounds__(kThreads)
-xla_fma_kernel(FmaArgs a, float* __restrict__ out, long long n) {
+xla_fma64_kernel(FmaArgs a, float* __restrict__ out, long long n) {
   for (long long i = blockIdx.x * (long long)kThreads + threadIdx.x; i < n;
        i += (long long)gridDim.x * kThreads) {
-    long long off[3] = {i, i, i};
-    if (a.mode[0] == kStrided || a.mode[1] == kStrided ||
-        a.mode[2] == kStrided) {
-      long long rem = i;
-      off[0] = off[1] = off[2] = 0;
-      for (int d = a.ndim - 1; d >= 0; --d) {
-        const long long idx = rem % a.size[d];
-        rem /= a.size[d];
+    long long rem = i, off[3] = {0, 0, 0};
+    for (int d = a.ndim - 1; d >= 0; --d) {
+      const long long idx = rem % a.size[d];
+      rem /= a.size[d];
 #pragma unroll
-        for (int k = 0; k < 3; ++k) off[k] += idx * a.stride[k][d];
-      }
-#pragma unroll
-      for (int k = 0; k < 3; ++k)
-        if (a.mode[k] == kContiguous) off[k] = i;
+      for (int k = 0; k < 3; ++k) off[k] += idx * a.stride[k][d];
     }
     float v[3];
 #pragma unroll
     for (int k = 0; k < 3; ++k)
-      v[k] = a.mode[k] == kScalar ? a.scalar[k] : a.ptr[k][off[k]];
+      v[k] = a.ptr[k] ? a.ptr[k][off[k]] : a.scalar[k];
     out[i] = __fmaf_rn(v[0], v[1], v[2]);
   }
 }
 
-constexpr float kFltMin = 0x1p-126f;
+// Division by a fixed divisor d in [1, 2^31) of a dividend below 2^31: one
+// high multiply, an add and a shift (Granlund and Montgomery's magic
+// number, as PyTorch's IntDivider computes it).
+struct DivMod {
+  unsigned d, magic, shift;
+};
 
-// XLA CPU's float32 log: log(m * 2^e), m in [sqrt(1/2), sqrt(2)), as a
-// degree-9 polynomial in z = m - 1 in three interleaved Horner chains
-__device__ __forceinline__ float xla_log(float y) {
-  constexpr float kP[9] = {
-      0x1.204376p-4f,  -0x1.d7a37p-4f,  -0x1.fcba9ep-4f,
-      0x1.23d37ep-3f,  0x1.999d58p-3f,  -0x1.fffff8p-3f,
-      0x1.de4a34p-4f,  -0x1.555ca0p-3f, 0x1.555554p-2f};
-  constexpr float kSqrtHalf = 0x1.6a09e6p-1f;
-  constexpr float kLn2Lo = -0x1.bd0106p-13f;
-  constexpr float kLn2Hi = 0x1.63p-1f;
-  const float ym = y > kFltMin ? y : kFltMin;
-  const int bits = __float_as_int(ym);
-  float e = (float)((bits >> 23) - 127);
-  const float m = __int_as_float((bits & 0x7FFFFF) | 0x3F000000);
-  const bool low = m < kSqrtHalf;
-  e = __fsub_rn(__fadd_rn(e, 1.0f), low ? 1.0f : 0.0f);
-  const float z = __fadd_rn(__fsub_rn(m, 1.0f), low ? m : 0.0f);
-  const float z2 = __fmul_rn(z, z);
-  const float z3 = __fmul_rn(z2, z);
-  const float a = __fmaf_rn(__fmaf_rn(z, kP[0], kP[1]), z, kP[6]);
-  const float b = __fmaf_rn(__fmaf_rn(z, kP[2], kP[3]), z, kP[7]);
-  const float c = __fmaf_rn(__fmaf_rn(z, kP[4], kP[5]), z, kP[8]);
-  const float t = __fmaf_rn(__fmaf_rn(__fmaf_rn(a, z3, b), z3, c), z3,
-                            __fmul_rn(e, kLn2Lo));
-  float r = __fmaf_rn(e, kLn2Hi, __fadd_rn(__fmaf_rn(-z2, 0.5f, z), t));
-  if (y <= 0.0f) r = __int_as_float(0x7FC00000);
-  if (y == 0.0f) r = -INFINITY;
-  if (y == INFINITY) r = y;
-  return r;
+__device__ __forceinline__ unsigned fast_div(unsigned n, const DivMod& m) {
+  return (__umulhi(n, m.magic) + n) >> m.shift;
 }
 
-// XLA CPU's float32 log1p: x - x^2/2 + x^3 P(x)/Q(x) below
-// |x| = sqrt(2) - 1, log(1 + x) above; subnormal x flushed to zero
-__device__ __forceinline__ float xla_log1p(float x) {
-  constexpr float kQ[7] = {1.0f,           0x1.e2035ap+3f, 0x1.4c30b6p+6f,
-                           0x1.bb865ap+7f, 0x1.351946p+8f, 0x1.b0db14p+7f,
-                           0x1.e0f304p+5f};
-  constexpr float kPp[7] = {0x1.7bc096p-15f, 0x1.fe818ap-2f, 0x1.a509f4p+2f,
-                            0x1.de9738p+4f,  0x1.e798ecp+5f, 0x1.c8e75ap+5f,
-                            0x1.40a202p+4f};
-  constexpr float kSmall = 0x1.a8279ap-2f;
-  if (fabsf(x) < kFltMin) x = __fmul_rn(x, 0.0f);
-  const float zero = __fmul_rn(x, 0.0f);
-  float q = __fadd_rn(zero, kQ[0]);
+// xla_fma's 32-bit paths: at most kDims32 axes left after coalescing, every
+// offset below 2^31
+constexpr int kDims32 = 4;
+
+struct Fma32Args {
+  const float* ptr[3];  // null for the scalar of the same slot
+  float scalar[3];
+  DivMod size[kDims32];
+  unsigned stride[3][kDims32];
+};
+
+// Offsets of element i in the three operands; axis 0 needs no division.
+template <int kDims>
+__device__ __forceinline__ void offsets32(const Fma32Args& a, unsigned i,
+                                          unsigned off[3]) {
 #pragma unroll
-  for (int i = 1; i < 7; ++i) q = __fmaf_rn(q, x, kQ[i]);
-  float p = __fadd_rn(zero, kPp[0]);
+  for (int k = 0; k < 3; ++k) off[k] = 0;
 #pragma unroll
-  for (int i = 1; i < 7; ++i) p = __fmaf_rn(p, x, kPp[i]);
-  const float x2 = __fmul_rn(x, x);
-  const float small = __fadd_rn(
-      x, __fmaf_rn(x2, -0.5f, __fmul_rn(__fmul_rn(x, x2), __fdiv_rn(p, q))));
-  return fabsf(x) < kSmall ? small : xla_log(__fadd_rn(x, 1.0f));
+  for (int d = kDims - 1; d > 0; --d) {
+    const unsigned q = fast_div(i, a.size[d]);
+    const unsigned idx = i - q * a.size[d].d;
+#pragma unroll
+    for (int k = 0; k < 3; ++k) off[k] += idx * a.stride[k][d];
+    i = q;
+  }
+#pragma unroll
+  for (int k = 0; k < 3; ++k) off[k] += i * a.stride[k][0];
 }
 
-// XLA's float32 erf_inv (Giles' single-precision polynomial), each Horner
-// step one fused multiply-add
-__device__ __forceinline__ float xla_erf_inv(float x) {
-  constexpr float kLt5[9] = {
-      0x1.e2cb1p-26f,  0x1.70966cp-22f,  -0x1.d8e6aep-19f,
-      -0x1.26b582p-18f, 0x1.ca65b6p-13f, -0x1.48a81p-10f,
-      -0x1.11c9dep-8f, 0x1.f91ec6p-3f,   0x1.805c5ep+0f};
-  constexpr float kGt5[9] = {
-      -0x1.a3e136p-13f, 0x1.a76ad6p-14f, 0x1.61b8e4p-10f,
-      -0x1.e17bcep-9f,  0x1.7824f6p-8f,  -0x1.f38baep-8f,
-      0x1.354afcp-7f,   0x1.006db6p+0f,  0x1.6a9efcp+1f};
-  float w = -xla_log1p(__fmul_rn(x, -x));
-  const bool small = w < 5.0f;
-  w = small ? __fsub_rn(w, 2.5f) : __fsub_rn(__fsqrt_rn(w), 3.0f);
-  float p = small ? kLt5[0] : kGt5[0];
+// One element per thread and step (kVec false), or four (kVec true: the
+// innermost axis is a multiple of 4 long and every tensor operand is
+// contiguous along it, 16-byte aligned, or broadcast along it), read and
+// written as float4.
+template <int kDims, bool kVec>
+__global__ void __launch_bounds__(kThreads)
+xla_fma32_kernel(Fma32Args a, float* __restrict__ out, unsigned items) {
+  for (unsigned t = blockIdx.x * kThreads + threadIdx.x; t < items;
+       t += gridDim.x * kThreads) {
+    unsigned off[3];
+    if constexpr (kVec) {
+      offsets32<kDims>(a, 4 * t, off);
+      float4 v[3];
 #pragma unroll
-  for (int i = 1; i < 9; ++i) p = __fmaf_rn(p, w, small ? kLt5[i] : kGt5[i]);
-  return fabsf(x) == 1.0f ? __fmul_rn(x, INFINITY) : __fmul_rn(p, x);
+      for (int k = 0; k < 3; ++k) {
+        if (a.ptr[k] == nullptr) {
+          v[k] = make_float4(a.scalar[k], a.scalar[k], a.scalar[k],
+                             a.scalar[k]);
+        } else if (a.stride[k][kDims - 1] == 1) {
+          v[k] = *reinterpret_cast<const float4*>(a.ptr[k] + off[k]);
+        } else {
+          const float s = a.ptr[k][off[k]];
+          v[k] = make_float4(s, s, s, s);
+        }
+      }
+      reinterpret_cast<float4*>(out)[t] = make_float4(
+          __fmaf_rn(v[0].x, v[1].x, v[2].x), __fmaf_rn(v[0].y, v[1].y, v[2].y),
+          __fmaf_rn(v[0].z, v[1].z, v[2].z), __fmaf_rn(v[0].w, v[1].w, v[2].w));
+    } else {
+      offsets32<kDims>(a, t, off);
+      float v[3];
+#pragma unroll
+      for (int k = 0; k < 3; ++k)
+        v[k] = a.ptr[k] ? a.ptr[k][off[k]] : a.scalar[k];
+      out[t] = __fmaf_rn(v[0], v[1], v[2]);
+    }
+  }
 }
 
-// XLA CPU's float32 exp (Cephes' expf): x = n ln2 + r, e^r a degree-7
-// polynomial, results below FLT_MIN flushed to zero
-__device__ __forceinline__ float xla_exp(float x) {
-  constexpr float kLo = -0x1.5f3334p+6f;
-  constexpr float kHi = 0x1.633334p+6f;
-  constexpr float kLog2e = 0x1.715476p+0f;
-  constexpr float kLn2Lo = -0x1.bd0106p-13f;
-  constexpr float kLn2Hi = 0x1.63p-1f;
-  constexpr float kP[6] = {0x1.a0d2cep-13f, 0x1.6e879cp-10f, 0x1.111210p-7f,
-                           0x1.555382p-5f,  0x1.555554p-3f,  0.5f};
-  if (x == x) x = fminf(fmaxf(x, kLo), kHi);  // NaN passes, as torch.clamp
-  float n = floorf(__fmaf_rn(x, kLog2e, 0.5f));
-  if (n == n) n = fminf(fmaxf(n, -127.0f), 127.0f);
-  const float r = __fmaf_rn(-kLn2Lo, n, __fmaf_rn(-kLn2Hi, n, x));
-  float y = kP[0];
-#pragma unroll
-  for (int i = 1; i < 6; ++i) y = __fmaf_rn(y, r, kP[i]);
-  y = __fadd_rn(1.0f, __fmaf_rn(y, __fmul_rn(r, r), r));
-  const float scale = __int_as_float(((int)n + 127) << 23);
-  y = __fmul_rn(y, scale);
-  return y < kFltMin ? 0.0f : y;
+DivMod make_divmod(unsigned d) {
+  unsigned shift = 0;
+  while (shift < 32 && (1ull << shift) < d) ++shift;
+  const unsigned long long magic =
+      ((1ull << 32) * ((1ull << shift) - d)) / d + 1;
+  return DivMod{d, (unsigned)magic, shift};
 }
 
 __global__ void __launch_bounds__(kThreads)
@@ -203,32 +181,77 @@ unsigned grid_for(long long n) {
   return (unsigned)(blocks < kMaxBlocks ? blocks : kMaxBlocks);
 }
 
+template <int kDims, bool kVec>
+void launch_fma32(const Fma32Args& args, float* out, long long n,
+                  cudaStream_t stream) {
+  const unsigned items = (unsigned)(kVec ? n / 4 : n);
+  xla_fma32_kernel<kDims, kVec><<<grid_for(items), kThreads, 0, stream>>>(
+      args, out, items);
+}
+
+template <bool kVec>
+void launch_fma32_dims(const Fma32Args& args, int ndim, float* out,
+                       long long n, cudaStream_t stream) {
+  switch (ndim) {
+    case 1: launch_fma32<1, kVec>(args, out, n, stream); break;
+    case 2: launch_fma32<2, kVec>(args, out, n, stream); break;
+    case 3: launch_fma32<3, kVec>(args, out, n, stream); break;
+    default: launch_fma32<4, kVec>(args, out, n, stream); break;
+  }
+}
+
 }  // namespace
 
 // a, b, c: device pointers, or null for the scalar of the same slot;
-// geom: ndim sizes, then ndim strides (in elements) for each of a, b, c;
-// contiguous[k] != 0 when operand k is laid out as the output.
+// geom: ndim sizes, then ndim strides (in elements) for each of a, b, c,
+// axes coalesced by the caller (repro_torch/kernels/xla_math.py); path:
+// kPath64, or kPath32 / kPathVec4, which the caller picks only when n and
+// every offset are below 2^31 and ndim <= kDims32 (kPathVec4 also needs the
+// innermost axis a multiple of 4 long, each tensor operand's stride along
+// it 0 or 1, and, where it is 1, a 16-byte aligned pointer and other
+// strides that are multiples of 4).
+constexpr int kPath64 = 0;
+constexpr int kPath32 = 1;
+constexpr int kPathVec4 = 2;
+
 extern "C" int xla_fma_launch(const void* a, const void* b, const void* c,
-                              float sa, float sb, float sc,
-                              const int* contiguous, void* out, long long n,
-                              int ndim, const long long* geom, void* stream) {
-  if (n <= 0 || ndim < 0 || ndim > kMaxDims) return (int)cudaErrorInvalidValue;
-  FmaArgs args;
+                              float sa, float sb, float sc, void* out,
+                              long long n, int ndim, const long long* geom,
+                              int path, void* stream) {
+  if (n <= 0 || ndim < 1 || ndim > kMaxDims ||
+      (path != kPath64 && (ndim > kDims32 || n >= (1ll << 31))))
+    return (int)cudaErrorInvalidValue;
   const void* ptrs[3] = {a, b, c};
   const float scalars[3] = {sa, sb, sc};
-  args.ndim = ndim;
-  for (int d = 0; d < ndim; ++d) args.size[d] = geom[d];
+  auto* dst = static_cast<float*>(out);
+  auto* st = static_cast<cudaStream_t>(stream);
+  if (path == kPath64) {
+    FmaArgs args;
+    args.ndim = ndim;
+    for (int k = 0; k < 3; ++k) {
+      args.ptr[k] = static_cast<const float*>(ptrs[k]);
+      args.scalar[k] = scalars[k];
+      for (int d = 0; d < ndim; ++d) {
+        args.size[d] = geom[d];
+        args.stride[k][d] = geom[(k + 1) * ndim + d];
+      }
+    }
+    xla_fma64_kernel<<<grid_for(n), kThreads, 0, st>>>(args, dst, n);
+    return (int)cudaGetLastError();
+  }
+  Fma32Args args;
   for (int k = 0; k < 3; ++k) {
     args.ptr[k] = static_cast<const float*>(ptrs[k]);
     args.scalar[k] = scalars[k];
-    args.mode[k] = ptrs[k] == nullptr ? kScalar
-                   : contiguous[k]    ? kContiguous
-                                      : kStrided;
-    for (int d = 0; d < ndim; ++d) args.stride[k][d] = geom[(k + 1) * ndim + d];
+    for (int d = 0; d < kDims32; ++d) {
+      args.size[d] = make_divmod(d < ndim ? (unsigned)geom[d] : 1u);
+      args.stride[k][d] = d < ndim ? (unsigned)geom[(k + 1) * ndim + d] : 0u;
+    }
   }
-  xla_fma_kernel<<<grid_for(n), kThreads, 0,
-                   static_cast<cudaStream_t>(stream)>>>(
-      args, static_cast<float*>(out), n);
+  if (path == kPathVec4)
+    launch_fma32_dims<true>(args, ndim, dst, n, st);
+  else
+    launch_fma32_dims<false>(args, ndim, dst, n, st);
   return (int)cudaGetLastError();
 }
 

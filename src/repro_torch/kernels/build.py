@@ -3,8 +3,8 @@
 Each source compiles at first use with `nvcc -gencode
 arch=compute_90a,code=sm_90a` into its own library,
 `build/repro_torch/lib<source stem>.so` under the repository root, with a
-plain C interface that ctypes loads.  A library is rebuilt when its source
-is newer.  `build` starts one nvcc process per stale source, all at once.
+plain C interface that ctypes loads.  A library is rebuilt when its source,
+or a header beside it (`csrc/*.cuh`), is newer.  `build` starts one nvcc process per stale source, all at once.
 Nothing here runs when the module is imported: the CPU tests import it on
 machines without nvcc or a card.
 """
@@ -59,7 +59,9 @@ def nvcc_path() -> str:
 
 def _up_to_date(source: Path) -> bool:
     out = library_path(source)
-    return out.exists() and out.stat().st_mtime >= source.stat().st_mtime
+    newest = max(p.stat().st_mtime
+                 for p in (source, *source.parent.glob("*.cuh")))
+    return out.exists() and out.stat().st_mtime >= newest
 
 
 def build(*sources: Path) -> List[Path]:

@@ -5,8 +5,10 @@ A CPU tensor goes to the plain PyTorch version (`repro_torch.kernels.ref`;
 hand-written Hopper kernel (`csrc/irc_mvm.cu` for the IRC MVM,
 `csrc/ternary_matmul.cu` for the ternary matmul, `csrc/flash_attention.cu`
 for causal attention, `csrc/xla_math.cu` for the fused multiply-add,
-erf_inv and exp in XLA's float32 rounding), or the call raises — there is
-no fallback from the card to the plain version.
+erf_inv and exp in XLA's float32 rounding, `csrc/threefry.cu` for the
+die sampling's threefry draws, `repro_torch.prng`'s plain versions on the
+CPU), or the call raises — there is no fallback from the card to the
+plain version.
 Each kernel wrapper counts its launches in a plain integer (`LAUNCHES`), so a
 run can show that its main path went through the kernel; calls served by the
 plain version do not count.
@@ -15,10 +17,12 @@ Nothing needs padding: the kernels mask their ragged edges themselves.
 """
 from __future__ import annotations
 
-from typing import Dict
+import math
+from typing import Dict, Sequence
 
 import torch
 
+from repro_torch import prng
 from repro_torch import xla_order as xo
 from repro_torch.kernels.ref import (IrcEpilogueParams,
                                      flash_attention_ref, irc_mvm_chips_ref,
@@ -27,7 +31,8 @@ from repro_torch.kernels.ref import (IrcEpilogueParams,
 #: kernel launches per wrapper since the last `reset_launches()`
 LAUNCHES: Dict[str, int] = {"irc_mvm_chips": 0, "irc_mvm": 0,
                             "ternary_matmul": 0, "flash_attention": 0,
-                            "xla_fma": 0, "xla_erf_inv": 0, "xla_exp": 0}
+                            "xla_fma": 0, "xla_erf_inv": 0, "xla_exp": 0,
+                            "threefry": 0}
 
 
 def reset_launches() -> None:
@@ -226,13 +231,116 @@ def xla_exp(x: torch.Tensor) -> torch.Tensor:
     return out
 
 
+def _key_device(name: str, key: torch.Tensor) -> torch.device:
+    if not (torch.is_tensor(key) and key.dtype == torch.int64
+            and key.ndim >= 1 and key.shape[-1] == 2):
+        raise ValueError(f"{name}: a key is an int64 tensor [..., 2], got "
+                         f"{getattr(key, 'dtype', type(key))} "
+                         f"{tuple(getattr(key, 'shape', ()))}")
+    if key.device.type not in ("cpu", "cuda"):
+        raise RuntimeError(f"{name} runs on CPU or CUDA, not {key.device}")
+    return key.device
+
+
+def _key_rows(key: torch.Tensor, lead) -> torch.Tensor:
+    """Keys broadcast to `lead` as [L, 2] rows with adjacent words (a view
+    where one exists: an expanded single key has row stride 0)."""
+    rows = key.expand(tuple(lead) + (2,)).reshape(-1, 2)
+    return rows if rows.stride(1) == 1 else rows.contiguous()
+
+
+def threefry_fold_in(key: torch.Tensor, data) -> torch.Tensor:
+    """`prng.fold_in`: key [..., 2] and data (an int or an integer tensor)
+    broadcast; ONE launch of the threefry kernel on the card."""
+    dev = _key_device("fold_in", key)
+    if dev.type == "cpu":
+        return prng.fold_in_plain(key, data)
+    from repro_torch.kernels import threefry as kern
+    lead, d, scalar = key.shape[:-1], None, 0
+    if torch.is_tensor(data):
+        d = data.to(device=dev, dtype=torch.int64)
+        lead = torch.broadcast_shapes(lead, d.shape)
+        d = d.expand(lead).reshape(-1).contiguous()
+    else:
+        scalar = int(data) & prng.MASK32
+    if math.prod(lead) == 0:
+        return torch.empty(tuple(lead) + (2,), dtype=torch.int64, device=dev)
+    out = kern.launch_pairs(_key_rows(key, lead), d, scalar, 1)
+    LAUNCHES["threefry"] += 1
+    return out.reshape(tuple(lead) + (2,))
+
+
+def threefry_split(key: torch.Tensor, num: int = 2) -> torch.Tensor:
+    """`prng.split` under the scheme in force: [..., 2] -> [..., num, 2];
+    ONE launch of the threefry kernel on the card."""
+    dev = _key_device("split", key)
+    if dev.type == "cpu":
+        return prng.split_plain(key, num)
+    from repro_torch.kernels import threefry as kern
+    num, lead = int(num), key.shape[:-1]
+    partitionable = prng.is_partitionable()
+    prng.check_words(num if partitionable else 2 * num)
+    if num == 0 or math.prod(lead) == 0:
+        return torch.empty(tuple(lead) + (num, 2), dtype=torch.int64,
+                           device=dev)
+    rows = _key_rows(key, lead)
+    out = (kern.launch_pairs(rows, None, 0, num) if partitionable
+           else kern.launch_draw(rows, 2 * num, True, "bits"))
+    LAUNCHES["threefry"] += 1
+    return out.reshape(tuple(lead) + (num, 2))
+
+
+def threefry_draw(key: torch.Tensor, shape: Sequence[int], tail: str, *,
+                  minval: float = 0.0, maxval: float = 1.0,
+                  scale: float = 1.0, p: float = 0.5) -> torch.Tensor:
+    """`prng.random_bits` (tail "bits"), `uniform`, `normal`, `lognormal`
+    (scale = sigma) or `bernoulli` under the scheme in force: key batch
+    axes lead `shape`; ONE launch of the threefry kernel on the card."""
+    dev = _key_device(tail, key)
+    shape = tuple(int(s) for s in shape)
+    if dev.type == "cpu":
+        return _draw_plain(key, shape, tail, minval, maxval, scale, p)
+    from repro_torch.kernels import threefry as kern
+    if tail not in kern.TAILS:
+        raise ValueError(f"unknown draw {tail!r}, not one of "
+                         f"{sorted(kern.TAILS)}")
+    n, lead = math.prod(shape), key.shape[:-1]
+    prng.check_words(n)
+    if n == 0 or math.prod(lead) == 0:
+        return torch.empty(tuple(lead) + shape, dtype=kern.TAILS[tail][1],
+                           device=dev)
+    lo, span = prng.uniform_consts(minval, maxval)
+    if tail in ("normal", "lognormal"):
+        lo, span = prng.uniform_consts(prng.NORMAL_LO, 1.0)
+    elif tail == "bernoulli":
+        lo, span = prng.uniform_consts(0.0, 1.0)
+    out = kern.launch_draw(_key_rows(key, lead), n,
+                           not prng.is_partitionable(), tail, lo, span,
+                           prng.normal_factor(scale), p)
+    LAUNCHES["threefry"] += 1
+    return out.reshape(tuple(lead) + shape)
+
+
+def _draw_plain(key, shape, tail, minval, maxval, scale, p):
+    if tail == "bits":
+        return prng.random_bits_plain(key, shape)
+    if tail == "uniform":
+        return prng.uniform_plain(key, shape, minval, maxval)
+    if tail == "normal":
+        return prng.normal_plain(key, shape, scale)
+    if tail == "lognormal":
+        return prng.lognormal_plain(key, shape, scale)
+    if tail == "bernoulli":
+        return prng.bernoulli_plain(key, p, shape)
+    raise ValueError(f"unknown draw {tail!r}")
+
+
 def irc_mvm_from_mapped(key: torch.Tensor, x_bits: torch.Tensor, mapped,
                         cfg, spec, *, sa_extra_units: float = 0.0,
                         output: str = "binary") -> torch.Tensor:
     """Kernel-backed single-chip `crossbar_forward` (single-shot): samples
     the chip's planes and periphery noise with the same key discipline,
     then calls `irc_mvm`.  Runs where `x_bits` lives."""
-    from repro_torch import prng
     from repro_torch.core.crossbar import sample_chip_planes
     from repro_torch.core.mapping import extend_inputs
     gp, gn = mapped.g_pos, mapped.g_neg
@@ -241,7 +349,7 @@ def irc_mvm_from_mapped(key: torch.Tensor, x_bits: torch.Tensor, mapped,
     x_ext = extend_inputs(x_bits, mapped)
     B, N = x_ext.shape[0], gp.shape[1]
     eps_sa = prng.normal(k_off, (B, N))
-    rnd = prng.bernoulli(k_rng, 0.5, (B, N)).float()
+    rnd = prng.bernoulli(k_rng, 0.5, (B, N))
     params = IrcEpilogueParams.from_macro(
         spec, sa_extra=sa_extra_units, output=output,
         apply_nonlinearity=cfg.nonlinearity, apply_ir=cfg.ir_drop,

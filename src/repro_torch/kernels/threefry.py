@@ -1,0 +1,76 @@
+"""Load and launch the die-sampling kernel (`csrc/threefry.cu`): JAX's
+threefry-2x32 draws under either scheme, one launch per draw.
+
+The source compiles at first use into `build/repro_torch/libthreefry.so`
+(`repro_torch.kernels.build`).  Nothing here runs when the module is
+imported.  The launchers take keys that `repro_torch.kernels.ops` has
+checked and viewed as [L, 2] int64 on the card (words adjacent, keys
+`keys.stride(0)` elements apart: 0 for one key expanded), allocate the
+output and enqueue one launch on the current CUDA stream; they raise if the
+launch is refused and never fall back to the plain versions
+(`repro_torch.prng`).
+"""
+from __future__ import annotations
+
+import ctypes
+from typing import Optional
+
+import torch
+
+from repro_torch.kernels import build
+
+SOURCE = build.CSRC / "threefry.cu"
+#: a draw's tail -> its code in the kernel and its output type
+TAILS = {"bits": (0, torch.int64), "uniform": (1, torch.float32),
+         "normal": (2, torch.float32), "lognormal": (3, torch.float32),
+         "bernoulli": (4, torch.float32)}
+
+
+def _bind(lib: ctypes.CDLL) -> None:
+    p, f, i, ll, u = (ctypes.c_void_p, ctypes.c_float, ctypes.c_int,
+                      ctypes.c_longlong, ctypes.c_uint)
+    lib.threefry_draw_launch.argtypes = [p, ll, p, ll, ll, i, i, f, f, f, f,
+                                         p]
+    lib.threefry_pairs_launch.argtypes = [p, ll, p, u, p, ll, ll, p]
+    for fn in (lib.threefry_draw_launch, lib.threefry_pairs_launch):
+        fn.restype = ctypes.c_int
+
+
+def load() -> ctypes.CDLL:
+    """Build (if needed) and load the kernel library once per process."""
+    return build.load(SOURCE, _bind)
+
+
+def _raise(name: str, err: int) -> None:
+    if err != 0:
+        raise RuntimeError(f"threefry {name} launch failed: cudaError {err}")
+
+
+def _stream(dev: torch.device) -> int:
+    return torch.cuda.current_stream(dev).cuda_stream
+
+
+def launch_draw(keys: torch.Tensor, n: int, original: bool, tail: str,
+                lo: float = 0.0, span: float = 1.0, factor: float = 1.0,
+                p: float = 0.5) -> torch.Tensor:
+    """n words under each of the keys [L, 2] through `tail` -> [L, n]."""
+    code, dtype = TAILS[tail]
+    out = torch.empty((keys.shape[0], n), dtype=dtype, device=keys.device)
+    _raise("draw", load().threefry_draw_launch(
+        keys.data_ptr(), keys.stride(0), out.data_ptr(), keys.shape[0], n,
+        int(original), code, lo, span, factor, p, _stream(keys.device)))
+    return out
+
+
+def launch_pairs(keys: torch.Tensor, data: Optional[torch.Tensor],
+                 scalar: int, num: int) -> torch.Tensor:
+    """fold_in (num = 1; data [L] int64, or None for `scalar`) or the
+    partitionable split (data None, scalar 0) of keys [L, 2] ->
+    [L * num, 2] int64."""
+    out = torch.empty((keys.shape[0] * num, 2), dtype=torch.int64,
+                      device=keys.device)
+    _raise("pairs", load().threefry_pairs_launch(
+        keys.data_ptr(), keys.stride(0),
+        None if data is None else data.data_ptr(),
+        scalar, out.data_ptr(), keys.shape[0], num, _stream(keys.device)))
+    return out

@@ -18,9 +18,10 @@
   python -m repro_torch.launch.mc --network detector --chips 16 \\
       --ablation table2 [--det-scheme binary]
 
-Random weights from the seed (the layer's through the port's threefry, as
-the reference draws them; the detector's from a seeded `torch.Generator`),
-the analytic device model.  The layer's ideal reference bits go through the
+Random weights from the seed, drawn through the port's threefry as the
+reference's CLI draws them (the detector's by `IRCDetector.init(PRNGKey(
+seed))`, the reference's `materialize`), so both CLIs sweep the same
+network at the same seed; the analytic device model.  The layer's ideal reference bits go through the
 ternary matmul kernel on the card.  `--device cpu` runs the plain PyTorch
 path on the CPU.  QAT (`--det-steps`), the measured and aged device models,
 and run directories come in later slices.
@@ -158,12 +159,12 @@ def run_detector(args) -> dict:
     data = SyntheticDetectionData(img_hw=cfg.img_hw, stride=cfg.strides,
                                   n_classes=cfg.n_classes,
                                   n_anchors=cfg.n_anchors)
-    params = det.init(torch.Generator().manual_seed(args.seed), device=dev)
+    key = prng.PRNGKey(args.seed, device=dev)
+    params = det.init(key, device=dev)
     calib = data.batch_for_step(999, args.det_batch * 4)
     ev = data.batch_for_step(1000, args.det_batch)
     params = det.calibrate_bn(params, torch.from_numpy(calib.images).to(dev))
     images = torch.from_numpy(ev.images).to(dev)
-    key = prng.PRNGKey(args.seed, device=dev)
     mc = McConfig(n_chips=args.chips, chunk_size=args.chunk)
     columns = _ablation_columns(args.ablation, TABLE2_ABLATION)
 

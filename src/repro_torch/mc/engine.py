@@ -41,7 +41,7 @@ def periphery_noise(sa_keys: torch.Tensor, B: int, N: int
     from the chips' SA keys [C, 2] (split once: offsets, then bits)."""
     ks = prng.split(sa_keys)
     eps_sa = prng.normal(ks[..., 0, :], (B, N))
-    rnd = prng.bernoulli(ks[..., 1, :], 0.5, (B, N)).float()
+    rnd = prng.bernoulli(ks[..., 1, :], 0.5, (B, N))
     return eps_sa, rnd
 
 

@@ -22,6 +22,7 @@ import dataclasses
 import math
 from typing import Dict, List, Optional, Tuple
 
+import numpy as np
 import torch
 import torch.nn.functional as F
 
@@ -159,29 +160,43 @@ class IRCDetector:
         out["head_b"] = ((head_out,), "zeros")
         return out
 
-    def init(self, generator: torch.Generator, device: DeviceLike = "cuda"
+    def init(self, key: torch.Tensor, device: DeviceLike = "cuda"
              ) -> Params:
-        """Random parameters from a seeded CPU `torch.Generator`: Gaussian
-        weights scaled by 1/sqrt(shape[-2]) (the reference's fan-in rule),
-        unit/zero BN; leaves are drawn in sorted-key order, then moved to
-        `device`."""
+        """The reference's `init(key)` (`materialize`) from a port PRNG key
+        ([2] int64), bit for bit: one key per leaf from `split(key,
+        n_leaves)` in `jax.tree.flatten` order (sorted keys, depth first);
+        zeros and ones as the leaf says; otherwise `normal(k, shape)` times
+        float32(1 / sqrt(fan_in)) as its own rounding (the reference
+        multiplies eagerly, after the jitted normal), fan_in being
+        shape[-2], or shape[-1] for a vector.  Drawn on `device`."""
         dev = resolve_device(device)
+        leaves: List[Tuple[Tuple[str, ...], Tuple[int, ...], str]] = []
 
-        def make(tree):
+        def walk(tree, path):
             if isinstance(tree, dict):
-                return {k: make(tree[k]) for k in sorted(tree)}
-            shape, kind = tree
+                for k in sorted(tree):
+                    walk(tree[k], path + (k,))
+            else:
+                leaves.append((path,) + tuple(tree))
+
+        walk(self.param_shapes(), ())
+        keys = prng.split(key.to(dev), len(leaves))
+        out: Params = {}
+        for i, (path, shape, kind) in enumerate(leaves):
             if kind == "zeros":
-                t = torch.zeros(shape)
+                t = torch.zeros(shape, device=dev)
             elif kind == "ones":
-                t = torch.ones(shape)
+                t = torch.ones(shape, device=dev)
             else:
                 fan_in = shape[-2] if len(shape) >= 2 else shape[-1]
-                t = torch.randn(shape, generator=generator) / math.sqrt(
-                    max(fan_in, 1))
-            return t.float().to(dev)
-
-        return make(self.param_shapes())
+                std = np.float32(1.0 / math.sqrt(max(fan_in, 1)))
+                t = prng.normal(keys[i], shape) * torch.tensor(
+                    std, device=dev)
+            node = out
+            for k in path[:-1]:
+                node = node.setdefault(k, {})
+            node[path[-1]] = t
+        return out
 
     # ------------------------------------------------------------ blocks
     def _gconv_weights(self, blk, cin: int, cout: int) -> torch.Tensor:

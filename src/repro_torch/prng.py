@@ -1,5 +1,5 @@
 """Threefry-2x32 counter-based PRNG in PyTorch, bit-compatible with
-`jax.random` under `jax_threefry_partitionable=True` (the default of jax >= 0.5).
+`jax.random` under either threefry scheme.
 
 The whole system's reproducibility rests on JAX's stateless key discipline:
 chip `c`, layer `s*10+b`, group `g` of a population is keyed by
@@ -10,19 +10,37 @@ package.
 
 Representation: a key is an int64 tensor whose last axis holds the two
 32-bit key words; leading axes batch keys (a `[chips, 2]` tensor is what
-`jax.vmap` over chip ids produces).  All 32-bit arithmetic runs in int64
-with `& 0xFFFFFFFF` masks, because torch's uint32 support is thin.  Every
-function is plain elementwise torch and runs on whatever device the key lives
-on; nothing here holds global RNG state.
+`jax.vmap` over chip ids produces).  Nothing here holds RNG state.
 
-Only the partitionable scheme is implemented: with
-`jax_threefry_partitionable=False` JAX draws different bits from `split` and
-`random_bits`, and this module would not match it.
+The scheme: JAX lays out threefry's counters in one of two ways, chosen by
+its flag `jax_threefry_partitionable` (True by default from jax 0.5).  This
+module follows one process-wide setting of its own, with the same default,
+read at import from the environment variable `JAX_THREEFRY_PARTITIONABLE`
+when that is set (so one environment puts both packages on one scheme), and
+changed by `set_threefry_partitionable` or, for a block, the context manager
+`threefry_partitionable`, as `jax.config.update(...)` and
+`jax.threefry_partitionable(...)` change JAX's.  For `n` words under one key:
+  * partitionable: word i is o0 ^ o1 of the block at counters (i >> 32,
+    i & mask); `split(key, num)` gives key i = (o0, o1) at counters (0, i);
+  * original: the counters iota(n), padded with one 0 when n is odd, are
+    cut into halves x0 and x1; the blocks at (x0[j], x1[j]) give o0 and o1,
+    and the words are concat(o0, o1)[:n]; `split(key, num)` is those words
+    for n = 2 * num, read as [num, 2];
+  * `fold_in(key, d)` is the block at (0, d) in both.
+Batched keys use the same counters for every key.
+
+Each draw is one entry point of `repro_torch.kernels.ops`: a key on the CPU
+takes the plain versions here (`*_plain`: the block function in int64 torch
+ops with `& 0xFFFFFFFF` masks, about 170 elementwise ops per call, on any
+device), a key on the card one launch of a hand-written kernel
+(`csrc/threefry.cu`) that gives the same bits.
 """
 from __future__ import annotations
 
+import contextlib
 import math
-from typing import Sequence, Tuple, Union
+import os
+from typing import Iterator, Sequence, Tuple, Union
 
 import numpy as np
 import torch
@@ -34,8 +52,48 @@ MASK32 = 0xFFFFFFFF
 _ROT_A = (13, 15, 26, 6)
 _ROT_B = (17, 29, 16, 24)
 _PARITY = 0x1BD11BDA
+#: the environment variable JAX reads its flag from, read here too
+SCHEME_ENV = "JAX_THREEFRY_PARTITIONABLE"
 
 IntLike = Union[int, torch.Tensor]
+
+
+def _env_flag(default: bool = True) -> bool:
+    """The scheme named by `SCHEME_ENV`, parsed as JAX parses it."""
+    val = os.environ.get(SCHEME_ENV, str(default)).lower()
+    if val in ("y", "yes", "t", "true", "on", "1"):
+        return True
+    if val in ("n", "no", "f", "false", "off", "0"):
+        return False
+    raise ValueError(f"invalid truth value {val!r} for environment "
+                     f"{SCHEME_ENV!r}")
+
+
+_PARTITIONABLE = _env_flag()
+
+
+def is_partitionable() -> bool:
+    """The scheme in force: True for partitionable, False for original."""
+    return _PARTITIONABLE
+
+
+def set_threefry_partitionable(flag: bool) -> None:
+    """Put the whole process on one scheme (jax's
+    `config.update("jax_threefry_partitionable", flag)`)."""
+    global _PARTITIONABLE
+    _PARTITIONABLE = bool(flag)
+
+
+@contextlib.contextmanager
+def threefry_partitionable(flag: bool) -> Iterator[None]:
+    """The scheme `flag` for the block, the earlier one restored after it
+    (jax's `threefry_partitionable(flag)`)."""
+    before = _PARTITIONABLE
+    set_threefry_partitionable(flag)
+    try:
+        yield
+    finally:
+        set_threefry_partitionable(before)
 
 
 def _rotl(x: torch.Tensor, d: int) -> torch.Tensor:
@@ -74,28 +132,23 @@ def PRNGKey(seed: int, device: Union[str, torch.device] = "cuda"
                         dtype=torch.int64, device=resolve_device(device))
 
 
-def _as_words(data: IntLike, device) -> torch.Tensor:
-    if isinstance(data, torch.Tensor):
-        return data.to(device=device, dtype=torch.int64) & MASK32
-    return torch.tensor(int(data) & MASK32, dtype=torch.int64, device=device)
+def _ops():
+    from repro_torch.kernels import ops
+    return ops
 
+
+# ------------------------------------------------------------------ entry points
 
 def fold_in(key: torch.Tensor, data: IntLike) -> torch.Tensor:
     """`jax.random.fold_in(key, data)`.  `data` may be an int or an integer
     tensor; key batch axes and data axes broadcast (a `[2]` key folded with
     `[chips]` ids gives `[chips, 2]`, as `vmap` over the ids would)."""
-    d = _as_words(data, key.device)
-    o0, o1 = threefry2x32(key[..., 0], key[..., 1], torch.zeros_like(d), d)
-    return torch.stack(torch.broadcast_tensors(o0, o1), dim=-1)
+    return _ops().threefry_fold_in(key, data)
 
 
 def split(key: torch.Tensor, num: int = 2) -> torch.Tensor:
     """`jax.random.split(key, num)`: `[..., 2]` -> `[..., num, 2]`."""
-    lo = torch.arange(num, dtype=torch.int64, device=key.device)
-    k1 = key[..., 0, None]
-    k2 = key[..., 1, None]
-    o0, o1 = threefry2x32(k1, k2, torch.zeros_like(lo), lo)
-    return torch.stack(torch.broadcast_tensors(o0, o1), dim=-1)
+    return _ops().threefry_split(key, num)
 
 
 def random_bits(key: torch.Tensor, shape: Sequence[int]) -> torch.Tensor:
@@ -103,10 +156,104 @@ def random_bits(key: torch.Tensor, shape: Sequence[int]) -> torch.Tensor:
 
     Key batch axes lead the result: keys `[chips, 2]` and shape `(B, N)`
     give `[chips, B, N]`, bit-identical to `vmap(bits)` over the keys."""
+    return _ops().threefry_draw(key, shape, "bits")
+
+
+def uniform(key: torch.Tensor, shape: Sequence[int], minval: float = 0.0,
+            maxval: float = 1.0) -> torch.Tensor:
+    """`jax.random.uniform(key, shape, float32, minval, maxval)`."""
+    return _ops().threefry_draw(key, shape, "uniform", minval=minval,
+                                maxval=maxval)
+
+
+def normal(key: torch.Tensor, shape: Sequence[int],
+           scale: float = 1.0) -> torch.Tensor:
+    """`scale * jax.random.normal(key, shape, float32)` as one jit computes
+    it: sqrt(2) * erf_inv(u) with u uniform on (nextafter(-1, 0), 1), and a
+    constant `scale` folded into the constant sqrt(2) (XLA's algebraic
+    simplifier multiplies the two float32 constants first); XLA's float32
+    erf_inv (`xla_order.erf_inv_plain`)."""
+    return _ops().threefry_draw(key, shape, "normal", scale=scale)
+
+
+def lognormal(key: torch.Tensor, shape: Sequence[int],
+              sigma: float) -> torch.Tensor:
+    """`jnp.exp(sigma * jax.random.normal(key, shape))` under one jit: the
+    device-variation mask, `normal(key, shape, scale=sigma)` through XLA's
+    float32 exp (`xla_order.exp_plain`)."""
+    return _ops().threefry_draw(key, shape, "lognormal", scale=sigma)
+
+
+def bernoulli(key: torch.Tensor, p: float, shape: Sequence[int]
+              ) -> torch.Tensor:
+    """`jax.random.bernoulli(key, p, shape)` as float32 {0, 1}."""
+    return _ops().threefry_draw(key, shape, "bernoulli", p=p)
+
+
+# ------------------------------------------------------------------ plain versions
+
+def _as_words(data: IntLike, device) -> torch.Tensor:
+    if isinstance(data, torch.Tensor):
+        return data.to(device=device, dtype=torch.int64) & MASK32
+    return torch.tensor(int(data) & MASK32, dtype=torch.int64, device=device)
+
+
+def check_words(n: int) -> None:
+    """Raise for a draw of `n` words under one key that the port does not
+    take: the original scheme switches to split keys from 2**32 - 1 words
+    on, and the kernel's counters are 32-bit."""
+    limit = MASK32 if not _PARTITIONABLE else MASK32 + 1
+    if n >= limit:
+        raise NotImplementedError(
+            f"{n} words under one key: the port draws fewer than {limit}")
+
+
+def _halves(n: int, device) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The original scheme's counters for n words: iota(n), padded with one
+    0 when n is odd, cut into halves."""
+    h = (n + 1) // 2
+    x0 = torch.arange(h, dtype=torch.int64, device=device)
+    x1 = x0 + h
+    return x0, torch.where(x1 < n, x1, torch.zeros_like(x1))
+
+
+def _original_words(key: torch.Tensor, n: int) -> torch.Tensor:
+    """`n` words per key, [..., n], under the original scheme."""
+    x0, x1 = _halves(n, key.device)
+    o0, o1 = threefry2x32(key[..., 0, None], key[..., 1, None], x0, x1)
+    return torch.cat([o0, o1], dim=-1)[..., :n]
+
+
+def fold_in_plain(key: torch.Tensor, data: IntLike) -> torch.Tensor:
+    """Plain version of `fold_in`, on any device (both schemes)."""
+    d = _as_words(data, key.device)
+    o0, o1 = threefry2x32(key[..., 0], key[..., 1], torch.zeros_like(d), d)
+    return torch.stack(torch.broadcast_tensors(o0, o1), dim=-1)
+
+
+def split_plain(key: torch.Tensor, num: int = 2) -> torch.Tensor:
+    """Plain version of `split`, on any device."""
+    check_words(num if _PARTITIONABLE else 2 * num)
+    if not _PARTITIONABLE:
+        words = _original_words(key, 2 * num)
+        return words.reshape(key.shape[:-1] + (num, 2))
+    lo = torch.arange(num, dtype=torch.int64, device=key.device)
+    k1 = key[..., 0, None]
+    k2 = key[..., 1, None]
+    o0, o1 = threefry2x32(k1, k2, torch.zeros_like(lo), lo)
+    return torch.stack(torch.broadcast_tensors(o0, o1), dim=-1)
+
+
+def random_bits_plain(key: torch.Tensor, shape: Sequence[int]
+                      ) -> torch.Tensor:
+    """Plain version of `random_bits`, on any device."""
     shape = tuple(int(s) for s in shape)
     n = math.prod(shape)
-    idx = torch.arange(n, dtype=torch.int64, device=key.device)
     lead = key.shape[:-1]
+    check_words(n)
+    if not _PARTITIONABLE:
+        return _original_words(key, n).reshape(lead + shape)
+    idx = torch.arange(n, dtype=torch.int64, device=key.device)
     k1 = key[..., 0].reshape(lead + (1,))
     k2 = key[..., 1].reshape(lead + (1,))
     o0, o1 = threefry2x32(k1, k2, idx >> 32, idx & MASK32)
@@ -119,33 +266,53 @@ def _bits_to_unit_float(bits: torch.Tensor) -> torch.Tensor:
     return fb.to(torch.int32).view(torch.float32) - 1.0
 
 
-def uniform(key: torch.Tensor, shape: Sequence[int], minval: float = 0.0,
-            maxval: float = 1.0) -> torch.Tensor:
-    """`jax.random.uniform(key, shape, float32, minval, maxval)`."""
-    floats = _bits_to_unit_float(random_bits(key, shape))
-    lo = torch.tensor(minval, dtype=torch.float32, device=key.device)
-    hi = torch.tensor(maxval, dtype=torch.float32, device=key.device)
-    return torch.maximum(lo, floats * (hi - lo) + lo)
+def uniform_consts(minval: float, maxval: float) -> Tuple[float, float]:
+    """(float32 minval, float32 maxval - minval): the constants of the
+    uniform's f * (hi - lo) + lo, subtracted in float32 as jax does."""
+    lo, hi = np.float32(minval), np.float32(maxval)
+    return float(lo), float(np.float32(hi - lo))
 
 
-_NORMAL_LO = float(np.nextafter(np.float32(-1.0), np.float32(0.0)))
+#: the normal's uniforms start here, above -1
+NORMAL_LO = float(np.nextafter(np.float32(-1.0), np.float32(0.0)))
 _SQRT2_F32 = float(np.float32(np.sqrt(2)))
 
 
-def normal(key: torch.Tensor, shape: Sequence[int],
-           scale: float = 1.0) -> torch.Tensor:
-    """`scale * jax.random.normal(key, shape, float32)` as one jit computes
-    it: sqrt(2) * erf_inv(u) with u uniform on (nextafter(-1, 0), 1), and a
-    constant `scale` folded into the constant sqrt(2) (XLA's algebraic
-    simplifier multiplies the two float32 constants first).  XLA's
-    erf_inv is `xla_order.erf_inv`, one kernel launch on the card."""
-    u = uniform(key, shape, _NORMAL_LO, 1.0)
-    factor = float(np.float32(np.float32(scale) * np.float32(_SQRT2_F32)))
-    return xo.erf_inv(u, factor)
+def normal_factor(scale: float) -> float:
+    """float32(scale * float32(sqrt 2)): XLA folds a constant scale into
+    the normal's constant sqrt(2) before it multiplies erf_inv(u)."""
+    return float(np.float32(np.float32(scale) * np.float32(_SQRT2_F32)))
 
 
-def bernoulli(key: torch.Tensor, p: float, shape: Sequence[int]
-              ) -> torch.Tensor:
-    """`jax.random.bernoulli(key, p, shape)` as a bool tensor."""
-    return uniform(key, shape) < torch.tensor(p, dtype=torch.float32,
-                                              device=key.device)
+def uniform_plain(key: torch.Tensor, shape: Sequence[int],
+                  minval: float = 0.0, maxval: float = 1.0) -> torch.Tensor:
+    """Plain version of `uniform`, on any device: f * (hi - lo) + lo as one
+    fused multiply-add (XLA contracts it inside `jax.random.uniform`'s
+    jit; with lo = 0 that is the product's own rounding), clamped below at
+    lo."""
+    floats = _bits_to_unit_float(random_bits_plain(key, shape))
+    lo, span = uniform_consts(minval, maxval)
+    lo_t = torch.tensor(lo, dtype=torch.float32, device=key.device)
+    u = floats * span if lo == 0.0 else xo.fma_plain(floats, span, lo)
+    return torch.maximum(lo_t, u)
+
+
+def normal_plain(key: torch.Tensor, shape: Sequence[int],
+                 scale: float = 1.0) -> torch.Tensor:
+    """Plain version of `normal`, on any device."""
+    u = uniform_plain(key, shape, NORMAL_LO, 1.0)
+    return xo.erf_inv_plain(u, normal_factor(scale))
+
+
+def lognormal_plain(key: torch.Tensor, shape: Sequence[int],
+                    sigma: float) -> torch.Tensor:
+    """Plain version of `lognormal`, on any device."""
+    return xo.exp_plain(normal_plain(key, shape, scale=sigma))
+
+
+def bernoulli_plain(key: torch.Tensor, p: float, shape: Sequence[int]
+                    ) -> torch.Tensor:
+    """Plain version of `bernoulli`, on any device."""
+    u = uniform_plain(key, shape)
+    return (u < torch.tensor(p, dtype=torch.float32, device=key.device)
+            ).float()

@@ -219,7 +219,7 @@ def test_entry_points_default_to_the_card(setup):
     if torch.cuda.is_available():
         pytest.skip("a card is present: the default device is usable")
     with pytest.raises(RuntimeError, match="no CUDA device"):
-        det.init(torch.Generator().manual_seed(0))
+        det.init(prng.PRNGKey(0, device="cpu"))
     with pytest.raises(RuntimeError, match="no CUDA device"):
         params_from_jax({"w": np.zeros(3)})
 

@@ -441,8 +441,8 @@ def test_layer_cli_is_the_default_and_runs_on_the_cpu(tmp_path, capsys):
     assert report["kernel_launches"] == {"irc_mvm_chips": 0, "irc_mvm": 0,
                                          "ternary_matmul": 0,
                                          "flash_attention": 0, "xla_fma": 0,
-                                         "xla_erf_inv": 0,
-                                         "xla_exp": 0}  # CPU: plain
+                                         "xla_erf_inv": 0, "xla_exp": 0,
+                                         "threefry": 0}  # CPU: plain
     assert len(report["results"]["all"]["per_chip_bit_agreement"]) == 4
     cli.main(SMALL + ["--scheme", "binary", "--bias-rows", "0",
                       "--accumulation", "partial_sum", "--json", str(out)])
