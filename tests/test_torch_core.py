@@ -23,13 +23,16 @@ from repro_torch.core import ternary as tter  # noqa: E402
 torch.set_num_threads(2)
 
 
-@pytest.fixture
+@pytest.fixture(scope="module", autouse=True)
 def partitionable():
-    """Tests that feed the same key to both sides need the port's threefry
-    scheme to be JAX's."""
-    if not jax.config.jax_threefry_partitionable:
-        pytest.skip("jax_threefry_partitionable is False: the port "
-                    "implements the partitionable threefry scheme only")
+    """Both packages on the partitionable threefry scheme for this module's
+    tests, the earlier settings restored after them: the same key gives
+    the same dies on both sides, and the suite runs once, not once per
+    scheme (`tests/test_torch_prng.py` and `test_torch_layer_mc.py` hold
+    both schemes)."""
+    with jax.threefry_partitionable(True), \
+            prng.threefry_partitionable(True):
+        yield
 
 
 def _rng(seed=0):

@@ -34,10 +34,16 @@ from repro_torch.models.detector import IRCDetector  # noqa: E402
 torch.set_num_threads(2)
 
 
-def _need_partitionable():
-    if not jax.config.jax_threefry_partitionable:
-        pytest.skip("jax_threefry_partitionable is False: the port "
-                    "implements the partitionable threefry scheme only")
+@pytest.fixture(scope="module", autouse=True)
+def _partitionable():
+    """Both packages on the partitionable threefry scheme for this module's
+    tests, the earlier settings restored after them: the same key gives
+    the same dies on both sides, and the suite runs once, not once per
+    scheme (`tests/test_torch_prng.py` and `test_torch_layer_mc.py` hold
+    both schemes)."""
+    with jax.threefry_partitionable(True), \
+            prng.threefry_partitionable(True):
+        yield
 
 
 @pytest.fixture(scope="module")
@@ -133,7 +139,6 @@ def test_group_planes_and_bn_units_match_reference(setup):
 def test_chunk_matches_reference(setup):
     """4 chips x 2 images, all effects: the head against the reference's
     plain ensemble route, and no kernel launch on the way."""
-    _need_partitionable()
     from repro.core import NonidealConfig as JNI
     from repro.mc.detector_mc import (_sampled_chunk_forward,
                                       detector_planes as jplanes)
@@ -174,7 +179,6 @@ def test_chip_c_is_single_chip_eval(setup):
 
 
 def test_run_ablation_matches_reference_per_chip(setup):
-    _need_partitionable()
     from repro.mc.detector_mc import run_ablation_detector as jrun
     from repro.mc.engine import McConfig as JMc
     jdet, _, _, jp, det, tp, ev = setup

@@ -55,6 +55,18 @@ from repro_torch.train.det_loss import evaluate_map_per_chip  # noqa: E402
 KEY, CHIP = 5, 0
 
 
+@pytest.fixture(scope="module", autouse=True)
+def _partitionable():
+    """Both packages on the partitionable threefry scheme for this module's
+    tests, the earlier settings restored after them: the same key gives
+    the same dies on both sides, and the suite runs once, not once per
+    scheme (`tests/test_torch_prng.py` and `test_torch_layer_mc.py` hold
+    both schemes)."""
+    with jax.threefry_partitionable(True), \
+            prng.threefry_partitionable(True):
+        yield
+
+
 @pytest.fixture(scope="module")
 def fullwidth():
     """The reference's full-width detector, its params in both packages
@@ -62,9 +74,6 @@ def fullwidth():
     if os.environ.get("REPRO_TORCH_FULLWIDTH") != "1":
         pytest.skip("full width needs several GiB and minutes on the CPU; "
                     "set REPRO_TORCH_FULLWIDTH=1 to run it")
-    if not jax.config.jax_threefry_partitionable:
-        pytest.skip("jax_threefry_partitionable is False: the port "
-                    "implements the partitionable threefry scheme only")
     from repro.configs import yolo_irc as jcfg
     from repro.models import IRCDetector as JDet
     torch.set_num_threads(4)

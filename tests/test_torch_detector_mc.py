@@ -28,6 +28,18 @@ from repro_torch.train.det_loss import evaluate_map_per_chip  # noqa: E402
 torch.set_num_threads(2)
 
 
+@pytest.fixture(scope="module", autouse=True)
+def _partitionable():
+    """Both packages on the partitionable threefry scheme for this module's
+    tests, the earlier settings restored after them: the same key gives
+    the same dies on both sides, and the suite runs once, not once per
+    scheme (`tests/test_torch_prng.py` and `test_torch_layer_mc.py` hold
+    both schemes)."""
+    with jax.threefry_partitionable(True), \
+            prng.threefry_partitionable(True):
+        yield
+
+
 @pytest.fixture(scope="module")
 def setup():
     """Reference params (init + calibrate_bn, as the reference's kernel
@@ -48,14 +60,7 @@ def setup():
     return jdet, jp, det, tp, ev
 
 
-def _need_partitionable():
-    if not jax.config.jax_threefry_partitionable:
-        pytest.skip("jax_threefry_partitionable is False: the port "
-                    "implements the partitionable threefry scheme only")
-
-
 def test_chunk_matches_reference(setup):
-    _need_partitionable()
     from repro.core import NonidealConfig as JNI
     from repro.mc.detector_mc import (_sampled_chunk_forward,
                                       detector_planes as jplanes)
@@ -101,7 +106,6 @@ def test_data_and_map_match_reference():
 def test_ensemble_build_matches_reference_planes(setup):
     """`build_detector_ensemble` draws the reference's dies: every layer/group
     ensemble's effective planes and SA keys at the same chip ids."""
-    _need_partitionable()
     from repro.core import NonidealConfig as JNI
     from repro.mc.detector_mc import build_detector_ensemble as jbuild
     jdet, jp, det, tp, _ = setup

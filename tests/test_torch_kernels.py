@@ -234,7 +234,8 @@ def test_cpu_tensor_uses_plain_version_without_counting():
     assert single.shape == (B, N)
     assert ops.LAUNCHES == {"irc_mvm_chips": 0, "irc_mvm": 0,
                             "ternary_matmul": 0, "flash_attention": 0,
-                            "xla_fma": 0, "xla_erf_inv": 0, "xla_exp": 0}
+                            "xla_fma": 0, "xla_erf_inv": 0, "xla_exp": 0,
+                            "threefry": 0}
 
 
 def test_shape_checks_raise():

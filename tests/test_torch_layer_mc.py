@@ -47,13 +47,14 @@ DESIGNS = {"proposed": ("ternary", 8, "single_shot", 256),
            "baseline": ("binary", 0, "partial_sum", 64)}
 
 
-@pytest.fixture
-def partitionable():
-    """Tests that feed the same key to both sides need the port's threefry
-    scheme to be JAX's."""
-    if not jax.config.jax_threefry_partitionable:
-        pytest.skip("jax_threefry_partitionable is False: the port "
-                    "implements the partitionable threefry scheme only")
+@pytest.fixture(params=[True, False], ids=["partitionable", "original"])
+def threefry_scheme(request):
+    """Tests that feed the same key to both sides run once per threefry
+    scheme, both packages set to it (the original scheme is jax 0.4.x's
+    default)."""
+    with jax.threefry_partitionable(request.param), \
+            prng.threefry_partitionable(request.param):
+        yield request.param
 
 
 def _rng(seed):
@@ -111,7 +112,7 @@ def test_binary_planes_match(with_bn):
     assert tm.bias_rows == (DEFAULT_MACRO.bn_rows if with_bn else 0)
 
 
-def test_binary_sample_chip_planes_match(partitionable):
+def test_binary_sample_chip_planes_match(threefry_scheme):
     """The baseline's one reference line: a [rows, 1] mask from the same
     split key, common to every column, single key or a batch of them."""
     jm, tm, _ = _layer("baseline")
@@ -178,7 +179,7 @@ def test_calibrate_bias_matches(scale):
 
 @pytest.mark.parametrize("fan_in,density", [(128, 0.3), (256, 0.3),
                                             (256, 0.6)])
-def test_calibrate_ensemble_bias_matches(partitionable, fan_in, density):
+def test_calibrate_ensemble_bias_matches(threefry_scheme, fan_in, density):
     """Per-die bias counts equal the reference's, including layers where
     the dies choose different counts."""
     jm, tm, x = _layer("proposed", seed=5, density=density, bias_rows=32,
@@ -233,7 +234,7 @@ def _near_ties(a, b, margin):
 
 @pytest.mark.parametrize("output", ["binary", "diff"])
 @pytest.mark.parametrize("design", list(DESIGNS))
-def test_ensemble_apply_matches_reference(partitionable, design, output):
+def test_ensemble_apply_matches_reference(threefry_scheme, design, output):
     _, _, acc, prows = DESIGNS[design]
     jm, tm, x = _layer(design, seed=2)
     cfg = tni.NonidealConfig.all()
@@ -259,7 +260,7 @@ def test_ensemble_apply_matches_reference(partitionable, design, output):
 
 
 @pytest.mark.parametrize("design", list(DESIGNS))
-def test_ensemble_apply_per_chip_inputs_match_reference(partitionable,
+def test_ensemble_apply_per_chip_inputs_match_reference(threefry_scheme,
                                                         design):
     """Chip-diverged word lines [chips, B, fan_in] (`per_chip_x`), as a
     network feeds them to the layers after its first."""
@@ -281,7 +282,7 @@ def test_ensemble_apply_per_chip_inputs_match_reference(partitionable,
 
 
 @pytest.mark.parametrize("design", list(DESIGNS))
-def test_run_ablation_matches_reference(partitionable, design):
+def test_run_ablation_matches_reference(threefry_scheme, design):
     """Table II at the same chip ids: per-chip bit agreement equal to the
     reference's up to the chip's near-tie decisions."""
     scheme, _, acc, prows = DESIGNS[design]
@@ -318,7 +319,7 @@ def _weights(tm):
     return (tm.g_pos - tm.g_neg).numpy()[tm.rows - tm.fan_in:]
 
 
-def test_calibrated_run_matches_reference(partitionable):
+def test_calibrated_run_matches_reference(threefry_scheme):
     jm, tm, x = _layer("proposed", seed=4, density=0.2)
     mc_kw = dict(n_chips=5, chunk_size=3, calibrate=True,
                  cfg=tni.NonidealConfig.all())

@@ -29,7 +29,7 @@ torch.set_num_threads(2)
 
 
 @pytest.fixture(params=[True, False], ids=["partitionable", "original"])
-def scheme(request):
+def threefry_scheme(request):
     """Both packages on one threefry scheme for the test."""
     with jax.threefry_partitionable(request.param), \
             prng.threefry_partitionable(request.param):
@@ -45,7 +45,7 @@ def _tkey(seed):
 
 
 @pytest.mark.parametrize("seed", [0, 1, 42, 2**31 - 1])
-def test_key_words_match(scheme, seed):
+def test_key_words_match(threefry_scheme, seed):
     k, tk = jax.random.PRNGKey(seed), _tkey(seed)
     assert np.array_equal(_words(k), tk.numpy())
     for d in (0, 1, 7, 123456, 2**32 - 1):
@@ -56,7 +56,7 @@ def test_key_words_match(scheme, seed):
                               prng.split(tk, num).numpy())
 
 
-def test_vmapped_chip_ids_and_detector_lattice(scheme):
+def test_vmapped_chip_ids_and_detector_lattice(threefry_scheme):
     """fold_in over chip ids, then the detector's (layer, group) lattice
     fold_in(fold_in(fold_in(key, c), s*10+b), g), then the 3-way split of
     `sample_chip_planes` and the SA split — all on batched keys."""
@@ -75,7 +75,7 @@ def test_vmapped_chip_ids_and_detector_lattice(scheme):
 
 @pytest.mark.parametrize("shape", [(1,), (2,), (7,), (3, 5), (2, 3, 4),
                                    (128, 60)])
-def test_bits_uniform_bernoulli_exact(scheme, shape):
+def test_bits_uniform_bernoulli_exact(threefry_scheme, shape):
     """Odd and even word counts, and one word: the original scheme pads an
     odd count with one counter."""
     k = jax.random.fold_in(jax.random.PRNGKey(3), 9)
@@ -94,7 +94,7 @@ def test_bits_uniform_bernoulli_exact(scheme, shape):
 
 
 @pytest.mark.parametrize("n_keys", [1, 4])
-def test_batched_keys_match_vmap(scheme, n_keys):
+def test_batched_keys_match_vmap(threefry_scheme, n_keys):
     k, tk = jax.random.PRNGKey(5), _tkey(5)
     jk = jax.vmap(lambda i: jax.random.fold_in(k, i))(jnp.arange(n_keys))
     tks = prng.fold_in(tk, torch.arange(n_keys))
@@ -108,7 +108,7 @@ def test_batched_keys_match_vmap(scheme, n_keys):
                           prng.random_bits(tks, (5, 3)).numpy())
 
 
-def test_normals_within_tolerance_and_report_mismatches(scheme):
+def test_normals_within_tolerance_and_report_mismatches(threefry_scheme):
     k, tk = jax.random.PRNGKey(17), _tkey(17)
     z = np.asarray(jax.random.normal(k, (200_001,)))
     tz = prng.normal(tk, (200_001,)).numpy()
@@ -123,7 +123,7 @@ def test_normals_within_tolerance_and_report_mismatches(scheme):
     np.testing.assert_array_equal(tzb, jz)
 
 
-def test_lognormal_is_the_jitted_variation_mask(scheme):
+def test_lognormal_is_the_jitted_variation_mask(threefry_scheme):
     """`lognormal(key, shape, sigma)` is the reference's jitted
     exp(sigma * normal): sigma folded into the normal's sqrt(2)."""
     from repro.core import nonideal as jni
@@ -135,7 +135,7 @@ def test_lognormal_is_the_jitted_variation_mask(scheme):
     np.testing.assert_array_equal(got.view(np.int32), want.view(np.int32))
 
 
-def test_cpu_draws_take_the_plain_path_and_count_no_launch(scheme):
+def test_cpu_draws_take_the_plain_path_and_count_no_launch(threefry_scheme):
     tk = _tkey(6)
     ops.reset_launches()
     draws = [prng.fold_in(tk, 3), prng.fold_in(tk, torch.arange(2)),

@@ -23,6 +23,7 @@ torch = pytest.importorskip("torch")
 import jax  # noqa: E402
 import jax.numpy as jnp  # noqa: E402
 
+from repro_torch import prng  # noqa: E402
 from repro_torch import xla_order as xo  # noqa: E402
 from repro_torch.core import crossbar as tcb  # noqa: E402
 from repro_torch.core import nonideal as tni  # noqa: E402
@@ -32,6 +33,18 @@ from repro_torch.kernels import ref as tref  # noqa: E402
 BLOCKS = (16, 17, 18)
 B, N = 96, 60
 ALPHA = 1.5e-5
+
+
+@pytest.fixture(scope="module", autouse=True)
+def _partitionable():
+    """Both packages on the partitionable threefry scheme for this module's
+    tests, the earlier settings restored after them: the same key gives
+    the same dies on both sides, and the suite runs once, not once per
+    scheme (`tests/test_torch_prng.py` and `test_torch_layer_mc.py` hold
+    both schemes)."""
+    with jax.threefry_partitionable(True), \
+            prng.threefry_partitionable(True):
+        yield
 
 
 def _rng(*salt):
@@ -366,15 +379,11 @@ def test_smoke_detector_at_572_rows_matches_reference():
     from the normals (`tests/test_torch_prng.py`), so the bar is 1e-6 on
     every element, not identical bits; it holds while no SA decision
     flips."""
-    if not jax.config.jax_threefry_partitionable:
-        pytest.skip("jax_threefry_partitionable is False: the port "
-                    "implements the partitionable threefry scheme only")
     from repro.configs import yolo_irc as jcfg
     from repro.core import NonidealConfig as JNI
     from repro.mc.detector_mc import (_sampled_chunk_forward,
                                       detector_planes as jplanes)
     from repro.models import IRCDetector as JDet
-    from repro_torch import prng
     from repro_torch.configs import yolo_irc as tcfg
     from repro_torch.convert import params_from_jax
     from repro_torch.data.detection import SyntheticDetectionData
