@@ -6,8 +6,8 @@
 Phases, each printing its own lines:
   1. environment: torch/CUDA versions, the card's name and power limit;
   2. build: compiles src/repro_torch/csrc/{irc_mvm,ternary_matmul,
-     flash_attention,xla_math}.cu for sm_90a, one nvcc process each, all
-     started together;
+     flash_attention,xla_math,threefry}.cu for sm_90a, one nvcc process
+     each, all started together;
   3. kernels against their plain PyTorch versions: the IRC MVM (K1/K2) at
      the detector's full-width shapes (shared/per-chip word lines and
      placement planes, binary and diff outputs, all effects on and off; the
@@ -22,12 +22,19 @@ Phases, each printing its own lines:
      float32 and bfloat16, within the JAX package's tolerances (bfloat16
      also row by row within one bf16 rounding); the elementwise kernels of
      XLA's float32 math (fused multiply-add, erf_inv, exp) at the main
-     paths' shapes, bit-identical;
+     paths' shapes, the fused multiply-add on each of its paths (float4,
+     32-bit, 64-bit; broadcast, strided, scalar, 0-dim, misaligned),
+     bit-identical; the die-sampling kernel (threefry) in every mode
+     (fold_in, split, bits, uniform, normal, log-normal mask, bernoulli)
+     under both threefry schemes at the first layer's periphery draw
+     [4, 294912, 60], the variation masks, odd and single-word draws, one
+     and several keys, bit-identical to the int64 plain version;
   4. times with CUDA events: each kernel, its plain version, a library
      yardstick (torch.bmm of the IRC MVM's four products; torch.matmul in
      true f32 for K3; scaled_dot_product_attention, TF32 off, for K4;
-     torch.addcmul, erfinv and exp for the elementwise kernels) and the
-     card's bound for the same work; the calls of all but K1/K2 are queued
+     torch.addcmul, erfinv and exp for the elementwise kernels; torch.randn
+     with a CUDA generator for the die sampling) and the card's bound for
+     the same work; the calls of all but K1/K2 are queued
      behind a sleep kernel so that the events hold device time only, and
      the host's enqueue time per call is printed on its own line;
   5. the main paths: `run_ablation_detector` on `yolo_irc.proposed()` at
@@ -42,8 +49,8 @@ Phases, each printing its own lines:
      baseline design `yolo_irc.baseline()` at full width through
      `run_ablation_detector`, all five Table II columns, on the plain
      route (no K1 launch, as in the reference); every path that samples
-     dies must launch the erf_inv and exp kernels, and the plain route's
-     paths the fused multiply-add too;
+     dies must launch the threefry kernel (and no longer the erf_inv and
+     exp kernels), and the plain route's paths the fused multiply-add too;
   6. one whole-network chunk through the kernel and through the plain
      route; 512-die layer chunks through both routes (proposed, calibrated
      per-chip planes, binary single-shot), flips only at near-ties;
@@ -54,7 +61,9 @@ Phases, each printing its own lines:
   8. a JSON line of every ported kernel, the card's name and power limit,
      and the final `{"ok": true, ...}` line.
 `--only profile` instead breaks one full-width chunk's device time down by
-kernel (torch.profiler); it is a measurement, not part of the smoke run.
+kernel (torch.profiler), with the threefry kernel's share beside what is
+left of int64 elementwise ops; it is a measurement, not part of the smoke
+run.
 It exits non-zero, printing no result, when no CUDA device is visible or
 when the repository's sources are missing beside it.
 """
@@ -76,6 +85,10 @@ PEAK_BYTES_PER_S = 3.35e12
 PEAK_F32_FLOPS = 67e12          # FFMA, outside the tensor cores
 PEAK_TF32_FLOPS = 495e12        # tensor cores, f32 operands
 PEAK_BF16_FLOPS = 989e12        # tensor cores, bf16 operands
+# int32 instructions (add, xor, funnel shift): at most one per FP32 lane
+# (128 per SM) and clock, integer adds issuing as IMAD on the FMA pipe
+# beside the ALU's; the FFMA rate counts two flops per lane: 67e12 / 2
+PEAK_INT32_OPS = PEAK_F32_FLOPS / 2
 
 # full-width geometry of yolo_irc.proposed(): 576x1024 images, stem /2
 S0_ROWS_PER_IMAGE = 288 * 512
@@ -663,10 +676,11 @@ def same_bits(a, b) -> bool:
 def phase_xla_checks(ops_):
     """Phase 3, the elementwise kernels of XLA's float32 math against their
     plain versions (float64-emulated fused multiply-adds) at the main
-    paths' shapes and on broadcast, strided and scalar operands of the fused
-    multiply-add: bit-identical."""
+    paths' shapes, and the fused multiply-add on the operand layouts of
+    `fma_layouts`, which reach each of its paths: bit-identical."""
     import torch
     from repro_torch import xla_order as xo
+    from repro_torch.kernels import xla_math
     gen = torch.Generator(device="cuda").manual_seed(55)
     for name, (kern, plain, _, _, n) in xla_cases(gen).items():
         got, want = kern(), plain()
@@ -676,16 +690,205 @@ def phase_xla_checks(ops_):
         log("3 kernels", f"{name} {tuple(got.shape)}: bit-identical to the "
             f"plain version")
         del got, want
-    a = torch.randn((4, 1, N_COLS), generator=gen, device="cuda")
-    b = torch.randn((1, 4096, N_COLS), generator=gen, device="cuda")
-    c = torch.randn((N_COLS, 4096, 4), generator=gen, device="cuda")
-    for args in ((a, b, c.transpose(0, 2)), (-1.5e-5, c, 1.0),
-                 (a, 2.2e-5, b), (torch.tensor(3.0, device="cuda"), b, a)):
+    paths = {}
+    for args in fma_layouts(gen):
+        shape = torch.broadcast_shapes(*(v.shape for v in args
+                                         if torch.is_tensor(v)))
+        path = xla_math.fma_geometry(shape, [
+            v.expand(shape) if torch.is_tensor(v) else v for v in args])[2]
         check(same_bits(ops_.xla_fma(*args), xo.fma_plain(*args)),
-              "xla_fma: broadcast/strided/scalar operands differ")
-    log("3 kernels", "xla_fma broadcast, strided, scalar and 0-dim "
-        "operands: bit-identical")
+              f"xla_fma {tuple(shape)} ({path} path): differs from plain")
+        paths[path] = paths.get(path, 0) + 1
+    check(set(paths) == set(xla_math.FMA_PATHS),
+          f"xla_fma: layouts reached paths {paths}")
+    log("3 kernels", f"xla_fma broadcast, strided, scalar, 0-dim and "
+        f"misaligned operands on every path (cases per path: {paths}): "
+        f"bit-identical")
     torch.cuda.empty_cache()
+
+
+def fma_layouts(gen):
+    """xla_fma operand triples that reach each of its paths: float4 (the SA
+    epilogue's broadcast sigma, contiguous operands, a broadcast column),
+    32-bit (odd inner axes, strided, scalar and 0-dim operands, a
+    misaligned view) and 64-bit (more than 4 axes left after
+    coalescing)."""
+    import torch
+
+    def r(*shape):
+        return torch.randn(shape, generator=gen, device="cuda")
+
+    a, b, c = r(4, 1, N_COLS), r(1, 4096, N_COLS), r(N_COLS, 4096, 4)
+    sig, eps, diff = 1 + r(4096, N_COLS).abs(), r(4, 4096, N_COLS), \
+        r(4, 4096, N_COLS)
+    big = r(100_001)
+    return [(a, b, c.transpose(0, 2)), (-1.5e-5, c, 1.0), (a, 2.2e-5, b),
+            (torch.tensor(3.0, device="cuda"), b, a), (sig, eps, diff),
+            (eps, sig, diff), (diff, eps, sig), (r(7), r(7), r(7)),
+            (r(33, 5)[:, 1:], 2.0, r(33, 4)), (r(50, 8)[:, ::2], r(4), 0.5),
+            (r(1), r(1), r(1)), (r(640, 3)[:, :1], r(640, 16), 0.0),
+            (r(16, 640).t(), r(640, 16), r(16)),
+            (big[1:], big[:-1], 1.0), (torch.tensor(2.0, device="cuda"),
+                                       torch.tensor(0.5, device="cuda"),
+                                       torch.tensor(-1.0, device="cuda")),
+            (r(2, 3, 4, 5, 6), r(6), r(2, 1, 4, 1, 6)),
+            (r(2, 3, 4, 5, 6, 7).permute(5, 4, 3, 2, 1, 0), 1.5, r(1))]
+
+
+# the die-sampling kernel (csrc/threefry.cu): the first layer's periphery
+# draw, 4 chips x (2 images of s0) x 60 columns, its largest
+THREEFRY_KEYS = 4
+THREEFRY_SHAPE = (2 * S0_ROWS_PER_IMAGE, N_COLS)
+# int32 operations of one threefry block: 20 rounds of add, rotate and
+# xor, and 12 key additions
+THREEFRY_BLOCK_OPS = 72
+# float32 operations per word of each tail (fused multiply-adds counted
+# once, erf_inv on its cheaper branch, as XLA_OPS)
+THREEFRY_TAIL_OPS = {"bits": 0, "uniform": 2, "normal": 36,
+                     "lognormal": 49, "bernoulli": 3}
+SIGMA_LRS = 0.4245
+
+
+def threefry_calls(key, shape):
+    """{mode: (kernel call, plain call)} for every draw of a shape: raw
+    bits, a uniform on [-0.3, 2.5), the normal, the variation mask and
+    bernoulli(0.5)."""
+    from repro_torch import prng
+    return {
+        "bits": (lambda: prng.random_bits(key, shape),
+                 lambda: prng.random_bits_plain(key, shape)),
+        "uniform": (lambda: prng.uniform(key, shape, -0.3, 2.5),
+                    lambda: prng.uniform_plain(key, shape, -0.3, 2.5)),
+        "normal": (lambda: prng.normal(key, shape),
+                   lambda: prng.normal_plain(key, shape)),
+        "lognormal": (lambda: prng.lognormal(key, shape, SIGMA_LRS),
+                      lambda: prng.lognormal_plain(key, shape, SIGMA_LRS)),
+        "bernoulli": (lambda: prng.bernoulli(key, 0.5, shape),
+                      lambda: prng.bernoulli_plain(key, 0.5, shape))}
+
+
+def same_values(a, b) -> bool:
+    """Bit-identical: float32 bit patterns, or equal integers."""
+    import torch
+    if a.dtype == torch.float32:
+        return same_bits(a, b)
+    return a.dtype == b.dtype and a.shape == b.shape and torch.equal(a, b)
+
+
+def phase_threefry_checks(ops_):
+    """Phase 3, the die-sampling kernel against its int64 plain version
+    (`prng.*_plain`) under both threefry schemes: fold_in with broadcast
+    keys and data, split into 2, 3 and 5, and every draw at the periphery
+    shape [4, 294912, 60], the proposed variation mask [4, 572, 60], the
+    baseline's reference-line mask [4, 636, 1], odd and single-word draws,
+    one key and several (contiguous and strided): bit-identical, one
+    launch per call."""
+    import torch
+    from repro_torch import prng
+    root = prng.PRNGKey(2024, device="cuda")
+    ids = torch.arange(THREEFRY_KEYS, device="cuda")
+    chips = prng.fold_in(root, ids)
+    strided = prng.split(chips, 3)[:, 2, :]
+    one = prng.fold_in(root, 7)
+    draws = ((chips, THREEFRY_SHAPE), (chips, (R_ROWS, N_COLS)),
+             (chips, (636, 1)), (one, (7,)), (one, (1,)), (one, (2,)),
+             (strided, (1001,)), (one, (R_ROWS, N_COLS)))
+    t0 = time.perf_counter()
+    for flag in (True, False):
+        with prng.threefry_partitionable(flag):
+            ops_.reset_launches()
+            calls = 0
+            for k, d in ((one, 11), (one, ids), (chips, 21),
+                         (chips[:, None, :], torch.arange(3, device="cuda")),
+                         (strided, ids)):
+                check(same_values(prng.fold_in(k, d),
+                                  prng.fold_in_plain(k, d)),
+                      f"threefry fold_in {tuple(k.shape)}: differs")
+                calls += 1
+            for num in (2, 3, 5):
+                for k in (one, chips, strided):
+                    check(same_values(prng.split(k, num),
+                                      prng.split_plain(k, num)),
+                          f"threefry split {num} {tuple(k.shape)}: differs")
+                    calls += 1
+            for k, shape in draws:
+                for mode, (kern, plain) in threefry_calls(k, shape).items():
+                    got, want = kern(), plain()
+                    torch.cuda.synchronize()
+                    check(same_values(got, want),
+                          f"threefry {mode} keys {tuple(k.shape)} shape "
+                          f"{shape}, partitionable={flag}: "
+                          f"{int((got != want).sum())} of {want.numel()} "
+                          f"differ")
+                    calls += 1
+                    del got, want
+            check(ops_.LAUNCHES["threefry"] == calls,
+                  f"threefry launches {ops_.LAUNCHES['threefry']} for "
+                  f"{calls} calls")
+            scheme = "partitionable" if flag else "original"
+            shapes = [tuple(k.shape[:-1]) + s for k, s in draws]
+            log("3 kernels", f"threefry, {scheme} scheme: {calls} calls "
+                f"(fold_in, split 2/3/5, bits, uniform, normal, log-normal "
+                f"mask, bernoulli at {shapes}) bit-identical to the plain "
+                f"version, one launch each")
+    torch.cuda.empty_cache()
+    log("3 kernels", f"threefry checks: {time.perf_counter() - t0:.1f}s")
+
+
+def threefry_bound_ms(mode, n_keys, n, partitionable):
+    """Least time for one draw of n words under each of n_keys keys: the
+    threefry blocks (one per word, or per counter pair under the original
+    scheme) at the int32 instruction rate plus the tail's float32
+    operations at the FFMA rate (both on the same lanes, so the times add),
+    against the keys read and the output written once.
+    Returns (ms, "bytes" | "operations")."""
+    blocks = n_keys * (n if partitionable else (n + 1) // 2)
+    t_ops = (THREEFRY_BLOCK_OPS * blocks / PEAK_INT32_OPS
+             + 2 * THREEFRY_TAIL_OPS[mode] * n_keys * n / PEAK_F32_FLOPS
+             ) * 1e3
+    out_bytes = 8 if mode == "bits" else 4
+    t_bytes = (16 * n_keys + out_bytes * n_keys * n) / PEAK_BYTES_PER_S * 1e3
+    return (t_ops, "operations") if t_ops >= t_bytes else (t_bytes, "bytes")
+
+
+def phase_threefry_times(ops_):
+    """Phase 4, the die-sampling kernel at the periphery draw [4, 294912,
+    60]: the normal (both schemes) and bernoulli(0.5), against the int64
+    plain version, torch.randn / torch.rand with a CUDA generator (other
+    bits; the one torch call of the same kind) and the bound."""
+    import math
+    import torch
+    from repro_torch import prng
+    gen = torch.Generator(device="cuda").manual_seed(58)
+    keys = prng.fold_in(prng.PRNGKey(5, device="cuda"),
+                        torch.arange(THREEFRY_KEYS, device="cuda"))
+    n = math.prod(THREEFRY_SHAPE)
+    full = (THREEFRY_KEYS,) + THREEFRY_SHAPE
+    out = {}
+    for mode, flag in (("normal", True), ("bernoulli", True),
+                       ("normal", False)):
+        with prng.threefry_partitionable(flag):
+            kern, plain = threefry_calls(keys, THREEFRY_SHAPE)[mode]
+            got, want = kern(), plain()
+            err = float((got - want).abs().max())
+            del got, want
+            ms, host = queued_ms(kern, reps=7, calls=20)
+            plain_ms = cuda_ms(plain, reps=3)
+        lib = ((lambda: torch.randn(full, generator=gen, device="cuda"))
+               if mode == "normal" else
+               (lambda: torch.rand(full, generator=gen, device="cuda")))
+        lib_ms, _ = queued_ms(lib, reps=7, calls=20)
+        b_ms, b_by = threefry_bound_ms(mode, THREEFRY_KEYS, n, flag)
+        tag = f"{mode}{'' if flag else ' original'}"
+        out[tag] = dict(ms=ms, plain_ms=plain_ms, library_ms=lib_ms,
+                        bound_ms=b_ms, bound_by=b_by, max_abs_err=err)
+        lib_name = "randn" if mode == "normal" else "rand"
+        log("4 times", f"threefry {tag} {full}: kernel {ms:.4f} ms, plain "
+            f"{plain_ms:.3f} ms, torch.{lib_name} {lib_ms:.4f} ms, bound "
+            f"{b_ms:.4f} ms ({b_by}), share of bound {b_ms / ms:.3f}, host "
+            f"enqueue {host:.4f} ms per call")
+        torch.cuda.empty_cache()
+    return out
 
 
 def phase_xla_times(ops_):
@@ -720,16 +923,21 @@ def phase_xla_times(ops_):
     return out
 
 
-# the elementwise kernels every path that samples dies launches (normals
-# and variation masks); the plain route's epilogue and partial sums add
-# the fused multiply-add
-XLA_SAMPLING = ("xla_erf_inv", "xla_exp")
+# the kernel every path that samples dies launches (keys, normals, masks,
+# fallback bits); the plain route's epilogue and partial sums add the fused
+# multiply-add.  The sampling's erf_inv and exp run inside the threefry
+# kernel, so their standalone kernels launch on no path.
+XLA_SAMPLING = ("threefry",)
+XLA_PLAIN_ROUTE = ("threefry", "xla_fma")
+XLA_OFF_PATH = ("xla_erf_inv", "xla_exp")
 
 
 def check_xla_launched(tag, launches, names=XLA_SAMPLING):
-    """Each of `names` ran at least once on this path."""
-    check(all(launches[k] >= 1 for k in names),
-          f"{tag}: elementwise kernels not launched: {launches}")
+    """Each of `names` ran at least once on this path, and the standalone
+    erf_inv and exp kernels not at all."""
+    check(all(launches[k] >= 1 for k in names)
+          and all(launches[k] == 0 for k in XLA_OFF_PATH),
+          f"{tag}: sampling kernels not as expected: {launches}")
 
 
 def bound_ms(C, B, R, N, per_chip_x, per_chip_g):
@@ -873,7 +1081,8 @@ def phase_main_path(ops_):
         f"chips in chunks of {chunk}, columns {[c[0] for c in columns]}: "
         f"wall {wall:.2f}s, peak device memory {peak:.2f} GiB, kernel "
         f"launches {launches} (want irc_mvm_chips = 14 x {n_chunks} x "
-        f"{len(columns)} = {want}, xla_erf_inv and xla_exp >= 1)")
+        f"{len(columns)} = {want}, threefry >= 1, xla_erf_inv and xla_exp "
+        f"0)")
     check(launches["irc_mvm_chips"] == want
           and launches["flash_attention"] == 0, f"launches {launches}")
     check_xla_launched("detector", launches)
@@ -899,6 +1108,7 @@ def phase_main_path(ops_):
         f"{agree:.6f}")
     check(single_launches["irc_mvm"] == 1 and agree >= 0.999,
           f"layer path: launches {single_launches}, agreement {agree}")
+    check_xla_launched("single-chip layer path", single_launches)
     return launches, single_launches
 
 
@@ -982,13 +1192,12 @@ def phase_baseline_detector(ops_):
         f"{BASELINE_CHIPS} chips in chunks of {BASELINE_CHUNK}, "
         f"{len(results)} columns: wall {wall:.2f}s, peak device memory "
         f"{peak:.2f} GiB, kernel launches {launches} (want irc_mvm_chips 0:"
-        f" partial sums take the plain route; the sampling's elementwise "
-        f"kernels >= 1)")
+        f" partial sums take the plain route; threefry and xla_fma >= 1)")
     check(all(launches[k] == 0 for k in ("irc_mvm_chips", "irc_mvm",
                                           "ternary_matmul",
                                           "flash_attention")),
           f"baseline launches {launches}")
-    check_xla_launched("baseline", launches, tuple(XLA_OPS))
+    check_xla_launched("baseline", launches, XLA_PLAIN_ROUTE)
     del params, images
     torch.cuda.empty_cache()
     return launches
@@ -1067,7 +1276,7 @@ def phase_layer_path(ops_):
               and launches["flash_attention"] == 0,
               f"layer {design}: launches {launches}")
         check_xla_launched(f"layer {design}", launches,
-                           tuple(XLA_OPS) if mc.backend == "plain"
+                           XLA_PLAIN_ROUTE if mc.backend == "plain"
                            else XLA_SAMPLING)
         del mapped, x, ref_bits, results
         torch.cuda.empty_cache()
@@ -1186,8 +1395,10 @@ def phase_network(ops_):
 
 def phase_profile():
     """`--only profile`: where one full-width chunk's device time goes (4
-    chips x 2 images, all effects): the chunk's span on CUDA events and
-    torch.profiler's device time by kernel name."""
+    chips x 2 images, all effects): the chunk's span on CUDA events, its
+    host enqueue, and torch.profiler's device time and launches by kernel
+    name, the threefry kernel's beside the int64 elementwise ops that the
+    plain sampling ran as."""
     import torch
     from torch.profiler import ProfilerActivity, profile
     from repro_torch import prng
@@ -1240,12 +1451,24 @@ def phase_profile():
             "measured")
         return
     irc = sum(dev_us(e) for e in rows if "irc_mvm_chips_kernel" in e.key)
-    int64 = sum(dev_us(e) for e in rows if "<long" in e.key)
+    sampling = [e for e in rows
+                if "draw_kernel" in e.key or "pairs_kernel" in e.key]
+    tf = sum(dev_us(e) for e in sampling)
+    # int64 elementwise ops: the plain threefry's (PR 15: 554.40 ms); what
+    # is left names what still runs as int64 torch ops
+    int64 = [e for e in rows if "<long" in e.key]
+    i64 = sum(dev_us(e) for e in int64)
     log("9 profile", f"device kernels {total / 1e3:.2f} ms in "
         f"{sum(e.count for e in rows)} launches: irc_mvm_chips "
-        f"{irc / 1e3:.2f} ms ({100 * irc / total:.1f}%), int64 elementwise "
-        f"(threefry) {int64 / 1e3:.2f} ms ({100 * int64 / total:.1f}%), "
-        f"rest {(total - irc - int64) / 1e3:.2f} ms")
+        f"{irc / 1e3:.2f} ms ({100 * irc / total:.1f}%), threefry kernel "
+        f"{tf / 1e3:.2f} ms ({100 * tf / total:.1f}%) in "
+        f"{sum(e.count for e in sampling)} launches, int64 elementwise "
+        f"{i64 / 1e3:.2f} ms ({100 * i64 / total:.1f}%) in "
+        f"{sum(e.count for e in int64)} launches, rest "
+        f"{(total - irc - tf - i64) / 1e3:.2f} ms")
+    for e in int64[:5]:
+        log("9 profile", f"int64 left: {dev_us(e) / 1e3:9.2f} ms "
+            f"x{e.count:<5d} {e.key[:90]}")
     for e in rows[:12]:
         log("9 profile", f"{dev_us(e) / 1e3:9.2f} ms "
             f"{100 * dev_us(e) / total:5.1f}%  x{e.count:<5d} {e.key[:90]}")
@@ -1312,8 +1535,9 @@ def main(argv=None) -> int:
         f" cuda {torch.version.cuda}; gpu: {card}")
 
     from repro_torch.kernels import (build, flash_attention_cuda as flash,
-                                     irc_mvm, ops, ternary_matmul, xla_math)
-    mods = (irc_mvm, ternary_matmul, flash, xla_math)
+                                     irc_mvm, ops, ternary_matmul, threefry,
+                                     xla_math)
+    mods = (irc_mvm, ternary_matmul, flash, xla_math, threefry)
     sources = tuple(m.SOURCE for m in mods)
     build.build(*sources)
     for src in sources:
@@ -1334,12 +1558,14 @@ def main(argv=None) -> int:
         phase_k3_checks(ops)
         k4_err = phase_k4_checks(ops)
         phase_xla_checks(ops)
-    times, k3_times, k4_times, xla_times = {}, {}, {}, {}
+        phase_threefry_checks(ops)
+    times, k3_times, k4_times, xla_times, tf_times = {}, {}, {}, {}, {}
     if "times" in only:
         times = phase_times(ops)
         k3_times = phase_k3_times(ops)
         k4_times = phase_k4_times(ops)
         xla_times = phase_xla_times(ops)
+        tf_times = phase_threefry_times(ops)
     launches, single, layer, k4_launches, baseline = {}, {}, {}, {}, {}
     if "main" in only:
         launches, single = phase_main_path(ops)
@@ -1399,6 +1625,21 @@ def main(argv=None) -> int:
             "max_abs_err": t["max_abs_err"], "ms": t["ms"],
             "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],
             "bound_by": t["bound_by"], "library_ms": t["library_ms"]})
+    # the die sampling at the periphery draw; its launches are the two
+    # detector runs'
+    t = tf_times["normal"]
+    kernels.append({
+        "name": "threefry", "route": "cuda",
+        "source": "src/repro_torch/csrc/threefry.cu",
+        "replaces": "src/repro/core/nonideal.py:64",
+        "launches": launches["threefry"] + baseline["threefry"],
+        "max_abs_err": max(v["max_abs_err"] for v in tf_times.values()),
+        "ms": t["ms"], "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],
+        "bound_by": t["bound_by"], "library_ms": t["library_ms"]})
+    log("8 summary", "threefry launches by path: detector proposed "
+        f"{launches['threefry']}, detector baseline {baseline['threefry']}, "
+        f"layer {dict((d, c['threefry']) for d, c in layer.items())}, "
+        f"single-chip layer {single['threefry']}")
     flips = sum(f for _, f in checks.values())
     log("8 summary", f"binary flips of K1/K2 in phase 3: {flips}; total "
         f"{time.perf_counter() - t_start:.1f}s")

@@ -19,6 +19,8 @@
 //                  version xla_order.erf_inv_plain;
 //   * xla_exp:     out = exp(x), XLA CPU's float32 exp; plain version
 //                  xla_order.exp_plain.
+// erf_inv and exp live in xla_math.cuh, which the die-sampling kernel
+// (threefry.cu) shares: the sampling itself no longer launches these two.
 // Every add, multiply, divide and square root is an explicit `__f*_rn`
 // intrinsic, so nvcc contracts nothing on its own, and nothing is built
 // with fast math, so subnormals are kept (the flushes of XLA's log1p and
@@ -27,9 +29,18 @@
 //
 // What bounds them on the H100: bytes.  Each reads its inputs once and
 // writes its output once (3.35 TB/s); the ~60 flops of erf_inv per element
-// take ~1/10 of that time at the FFMA rate.  Each thread handles one
-// element per step of a grid-stride loop; broadcast operands of xla_fma are
-// read through their strides, so nothing is expanded in device memory.
+// take ~1/10 of that time at the FFMA rate.  xla_erf_inv and xla_exp handle
+// one element per thread and step of a grid-stride loop.  xla_fma reads
+// broadcast operands through their strides, so nothing is expanded in
+// device memory; what its index arithmetic costs it keeps off the bytes'
+// path: the launcher merges the axes that are contiguous for all three
+// operands (the SA epilogue's sigma [B, N] against [C, B, N] becomes two
+// axes), indexes in 32 bits when the output and every offset fit, divides
+// by each axis's size with a precomputed magic number (a high multiply, an
+// add and a shift instead of a 64-bit % and /), and, when the innermost
+// axis is a multiple of 4 long and each tensor operand is contiguous or
+// broadcast along it, lets each thread take 4 elements with float4 loads
+// and stores.  The 64-bit general path remains for the rest.
 
 #include <cuda_runtime.h>
 #include <math.h>
@@ -138,9 +149,11 @@ xla_fma32_kernel(Fma32Args a, float* __restrict__ out, unsigned items) {
           v[k] = make_float4(s, s, s, s);
         }
       }
-      reinterpret_cast<float4*>(out)[t] = make_float4(
-          __fmaf_rn(v[0].x, v[1].x, v[2].x), __fmaf_rn(v[0].y, v[1].y, v[2].y),
-          __fmaf_rn(v[0].z, v[1].z, v[2].z), __fmaf_rn(v[0].w, v[1].w, v[2].w));
+      reinterpret_cast<float4*>(out)[t] =
+          make_float4(__fmaf_rn(v[0].x, v[1].x, v[2].x),
+                      __fmaf_rn(v[0].y, v[1].y, v[2].y),
+                      __fmaf_rn(v[0].z, v[1].z, v[2].z),
+                      __fmaf_rn(v[0].w, v[1].w, v[2].w));
     } else {
       offsets32<kDims>(a, t, off);
       float v[3];

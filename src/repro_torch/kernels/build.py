@@ -4,7 +4,8 @@ Each source compiles at first use with `nvcc -gencode
 arch=compute_90a,code=sm_90a` into its own library,
 `build/repro_torch/lib<source stem>.so` under the repository root, with a
 plain C interface that ctypes loads.  A library is rebuilt when its source,
-or a header beside it (`csrc/*.cuh`), is newer.  `build` starts one nvcc process per stale source, all at once.
+or a header beside it (`csrc/*.cuh`), is newer.  `build` starts one nvcc
+process per stale source, all at once.
 Nothing here runs when the module is imported: the CPU tests import it on
 machines without nvcc or a card.
 """

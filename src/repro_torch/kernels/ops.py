@@ -258,13 +258,14 @@ def threefry_fold_in(key: torch.Tensor, data) -> torch.Tensor:
     from repro_torch.kernels import threefry as kern
     lead, d, scalar = key.shape[:-1], None, 0
     if torch.is_tensor(data):
-        d = data.to(device=dev, dtype=torch.int64)
+        d = data.to(device=key.device, dtype=torch.int64)
         lead = torch.broadcast_shapes(lead, d.shape)
         d = d.expand(lead).reshape(-1).contiguous()
     else:
         scalar = int(data) & prng.MASK32
     if math.prod(lead) == 0:
-        return torch.empty(tuple(lead) + (2,), dtype=torch.int64, device=dev)
+        return torch.empty(tuple(lead) + (2,), dtype=torch.int64,
+                           device=key.device)
     out = kern.launch_pairs(_key_rows(key, lead), d, scalar, 1)
     LAUNCHES["threefry"] += 1
     return out.reshape(tuple(lead) + (2,))
@@ -282,7 +283,7 @@ def threefry_split(key: torch.Tensor, num: int = 2) -> torch.Tensor:
     prng.check_words(num if partitionable else 2 * num)
     if num == 0 or math.prod(lead) == 0:
         return torch.empty(tuple(lead) + (num, 2), dtype=torch.int64,
-                           device=dev)
+                           device=key.device)
     rows = _key_rows(key, lead)
     out = (kern.launch_pairs(rows, None, 0, num) if partitionable
            else kern.launch_draw(rows, 2 * num, True, "bits"))
@@ -308,7 +309,7 @@ def threefry_draw(key: torch.Tensor, shape: Sequence[int], tail: str, *,
     prng.check_words(n)
     if n == 0 or math.prod(lead) == 0:
         return torch.empty(tuple(lead) + shape, dtype=kern.TAILS[tail][1],
-                           device=dev)
+                           device=key.device)
     lo, span = prng.uniform_consts(minval, maxval)
     if tail in ("normal", "lognormal"):
         lo, span = prng.uniform_consts(prng.NORMAL_LO, 1.0)

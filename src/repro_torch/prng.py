@@ -137,7 +137,7 @@ def _ops():
     return ops
 
 
-# ------------------------------------------------------------------ entry points
+# ------------------------------------------------------------ entry points
 
 def fold_in(key: torch.Tensor, data: IntLike) -> torch.Tensor:
     """`jax.random.fold_in(key, data)`.  `data` may be an int or an integer
@@ -190,7 +190,7 @@ def bernoulli(key: torch.Tensor, p: float, shape: Sequence[int]
     return _ops().threefry_draw(key, shape, "bernoulli", p=p)
 
 
-# ------------------------------------------------------------------ plain versions
+# ---------------------------------------------------------- plain versions
 
 def _as_words(data: IntLike, device) -> torch.Tensor:
     if isinstance(data, torch.Tensor):
