@@ -310,11 +310,11 @@ def threefry_draw(key: torch.Tensor, shape: Sequence[int], tail: str, *,
     if n == 0 or math.prod(lead) == 0:
         return torch.empty(tuple(lead) + shape, dtype=kern.TAILS[tail][1],
                            device=key.device)
-    lo, span = prng.uniform_consts(minval, maxval)
     if tail in ("normal", "lognormal"):
-        lo, span = prng.uniform_consts(prng.NORMAL_LO, 1.0)
+        minval, maxval = prng.NORMAL_LO, 1.0
     elif tail == "bernoulli":
-        lo, span = prng.uniform_consts(0.0, 1.0)
+        minval, maxval = 0.0, 1.0
+    lo, span = prng.uniform_consts(minval, maxval)
     out = kern.launch_draw(_key_rows(key, lead), n,
                            not prng.is_partitionable(), tail, lo, span,
                            prng.normal_factor(scale), p)

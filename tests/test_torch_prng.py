@@ -8,8 +8,8 @@ Normals go through XLA's float32 `erf_inv`: they must agree within
 (0 today).  Every parity test runs once per scheme, JAX set with
 `jax.threefry_partitionable(flag)` and the port with its own context
 manager; the original scheme (jax 0.4.x's default) pads odd draws and lays
-out `split`'s counters differently, so it has cases of its own.  On the CPU
-every draw takes the plain int64 path and counts no kernel launch."""
+out `split`'s counters differently, so it has cases of its own.  (On the
+CPU every draw takes the plain int64 path: `tests/test_torch_threefry.py`.)"""
 import os
 import subprocess
 import sys
@@ -133,25 +133,6 @@ def test_lognormal_is_the_jitted_variation_mask(threefry_scheme):
         kk, (33, 7), 0.4245))(k))
     got = prng.lognormal(tk, (33, 7), 0.4245).numpy()
     np.testing.assert_array_equal(got.view(np.int32), want.view(np.int32))
-
-
-def test_cpu_draws_take_the_plain_path_and_count_no_launch(threefry_scheme):
-    tk = _tkey(6)
-    ops.reset_launches()
-    draws = [prng.fold_in(tk, 3), prng.fold_in(tk, torch.arange(2)),
-             prng.split(tk, 3), prng.random_bits(tk, (5,)),
-             prng.uniform(tk, (5,)), prng.normal(tk, (5,)),
-             prng.lognormal(tk, (5,), 0.5), prng.bernoulli(tk, 0.3, (5,))]
-    plain = [prng.fold_in_plain(tk, 3),
-             prng.fold_in_plain(tk, torch.arange(2)),
-             prng.split_plain(tk, 3), prng.random_bits_plain(tk, (5,)),
-             prng.uniform_plain(tk, (5,)), prng.normal_plain(tk, (5,)),
-             prng.lognormal_plain(tk, (5,), 0.5),
-             prng.bernoulli_plain(tk, 0.3, (5,))]
-    for got, want in zip(draws, plain):
-        assert got.dtype == want.dtype and torch.equal(got, want)
-    assert ops.LAUNCHES["threefry"] == 0
-    assert sum(ops.LAUNCHES.values()) == 0
 
 
 def test_draw_checks_and_empty_draws():

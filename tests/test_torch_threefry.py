@@ -10,7 +10,6 @@ torch = pytest.importorskip("torch")
 
 from repro_torch import prng  # noqa: E402
 from repro_torch.kernels import ops  # noqa: E402
-from repro_torch.kernels import threefry as kern  # noqa: E402
 
 torch.set_num_threads(2)
 
@@ -42,14 +41,6 @@ def _same(a, b):
     return a.dtype == b.dtype and torch.equal(a, b)
 
 
-def test_tails_name_their_output_types():
-    assert {t: d for t, (_, d) in kern.TAILS.items()} == {
-        "bits": torch.int64, "uniform": torch.float32,
-        "normal": torch.float32, "lognormal": torch.float32,
-        "bernoulli": torch.float32}
-    assert sorted(c for c, _ in kern.TAILS.values()) == list(range(5))
-
-
 def test_uniform_and_normal_constants_are_float32_roundings():
     lo, span = prng.uniform_consts(-0.3, 2.5)
     assert lo == float(np.float32(-0.3))
@@ -68,9 +59,12 @@ def test_cpu_entry_points_are_the_plain_path(threefry_scheme, lead):
     for call, plain in _draws(key, (5, 3)):
         got = call()
         assert got.shape == lead + (5, 3) and _same(got, plain())
-    assert _same(ops.threefry_split(key, 5), prng.split_plain(key, 5))
-    assert _same(ops.threefry_fold_in(key, 4), prng.fold_in_plain(key, 4))
-    assert ops.LAUNCHES["threefry"] == 0
+    assert _same(prng.split(key, 5), prng.split_plain(key, 5))
+    assert _same(prng.fold_in(key, 4), prng.fold_in_plain(key, 4))
+    ids = torch.arange(3)
+    assert _same(prng.fold_in(key[..., None, :], ids),
+                 prng.fold_in_plain(key[..., None, :], ids))
+    assert sum(ops.LAUNCHES.values()) == 0
 
 
 def test_key_rows_are_views_where_they_can_be():
