@@ -12,29 +12,33 @@ Phases, each printing its own lines:
      the detector's full-width shapes (shared/per-chip word lines and
      placement planes, binary and diff outputs, all effects on and off; the
      single-chip case too), at 28 ragged shapes across the kernel's tile
-     edges (R from 32 to 1,024 rows, N from 1 to 100, B from 1 to 1,000)
-     and with word lines that are not all 0 or 1, bit-identical; the
-     ternary matmul (K3) at
-     ragged shapes and the layer path's, {0,1} inputs bit-identical, normal
-     and bfloat16 inputs within the JAX package's tolerances; causal flash
-     attention (K4) at the JAX package's test shapes, a ragged Sq > Sk
-     case and chameleon-34b's attention layer (64 heads x 4096 x 128),
-     float32 and bfloat16, within the JAX package's tolerances (bfloat16
-     also row by row within one bf16 rounding); the elementwise kernels of
-     XLA's float32 math (fused multiply-add, erf_inv, exp) at the main
-     paths' shapes, the fused multiply-add on each of its paths (float4,
-     32-bit, 64-bit; broadcast, strided, scalar, 0-dim, misaligned),
-     bit-identical; the die-sampling kernel (threefry) in every mode
-     (fold_in, split, bits, uniform, normal, log-normal mask, bernoulli)
-     under both threefry schemes at the first layer's periphery draw
-     [4, 294912, 60], the variation masks, odd and single-word draws, one
-     and several keys, bit-identical to the int64 plain version;
+     edges (R from 32 to 1,024 rows, N from 1 to 100, B from 1 to 1,000) and
+     with word lines that are not all 0 or 1, bit-identical; the ternary
+     matmul (K3) at ragged shapes and the layer path's, {0,1} inputs
+     bit-identical, normal and bfloat16 inputs within the JAX package's
+     tolerances; causal flash attention (K4) at the JAX package's test
+     shapes, a ragged Sq > Sk case, two shapes ragged at the bf16 leg's TMA
+     box edges (4x1000x1000x128, 2x4096x1000x64) and chameleon-34b's
+     attention layer (64 heads x 4096 x 128), float32 and bfloat16, within
+     the JAX package's tolerances (bfloat16 also row by row within one bf16
+     rounding); the elementwise kernels of XLA's float32 math (fused
+     multiply-add, erf_inv, exp) at the main paths' shapes, the fused
+     multiply-add on each of its paths (float4, 32-bit, 64-bit; broadcast,
+     strided, scalar, 0-dim, misaligned), bit-identical; the die-sampling
+     kernel (threefry) in every mode (fold_in, split, bits, uniform, normal,
+     log-normal mask, bernoulli) under both threefry schemes at the first
+     layer's periphery draw [4, 294912, 60], the variation masks, odd and
+     single-word draws, one and several keys, bit-identical to the int64
+     plain version;
   4. times with CUDA events: each kernel, its plain version, a library
      yardstick (torch.bmm of the IRC MVM's four products; torch.matmul in
      true f32 for K3; scaled_dot_product_attention, TF32 off, for K4;
      torch.addcmul, erfinv and exp for the elementwise kernels; torch.randn
      with a CUDA generator for the die sampling) and the card's bound for
-     the same work; the calls of all but K1/K2 are queued
+     the same work (K4 bf16: QK^T 1 + PV 3 bf16 tensor-core passes; its
+     rate on that work, sdpa f32 on its upcast inputs as the
+     same-precision yardstick, and a check that its SASS holds HGMMA);
+     the calls of all but K1/K2 are queued
      behind a sleep kernel so that the events hold device time only, and
      the host's enqueue time per call is printed on its own line;
   5. the main paths: `run_ablation_detector` on `yolo_irc.proposed()` at
@@ -89,6 +93,9 @@ PEAK_BF16_FLOPS = 989e12        # tensor cores, bf16 operands
 # (128 per SM) and clock, integer adds issuing as IMAD on the FMA pipe
 # beside the ALU's; the FFMA rate counts two flops per lane: 67e12 / 2
 PEAK_INT32_OPS = PEAK_F32_FLOPS / 2
+# special-function unit (exp2): 16 per SM and clock (Hopper architecture
+# white paper), 132 SMs at the 1.98 GHz boost clock
+PEAK_MUFU_OPS = 16 * 132 * 1.98e9
 
 # full-width geometry of yolo_irc.proposed(): 576x1024 images, stem /2
 S0_ROWS_PER_IMAGE = 288 * 512
@@ -501,6 +508,9 @@ def phase_k3_times(ops_):
 K4_TEST_SHAPES = ((2, 64, 64, 16), (4, 128, 128, 32), (1, 100, 100, 16),
                   (2, 256, 256, 64), (2, 96, 40, 16))
 K4_CHAMELEON = (64, 4096, 4096, 128)
+# ragged at the bf16 kernel's TMA box edges (128 query rows, 64 keys),
+# spanning several turns of its 3-stage ring, one with Sq > Sk
+K4_RAGGED_SHAPES = ((4, 1000, 1000, 128), (2, 4096, 1000, 64))
 K4_F32 = dict(atol=2e-5, rtol=1e-4)
 K4_BF16 = dict(atol=3e-2, rtol=3e-2)
 
@@ -530,17 +540,18 @@ def bf16_row_ratio(got, q, k, v):
 
 def phase_k4_checks(ops_):
     """Phase 3, K4: causal flash attention against its plain version, both
-    tile sizes at the test shapes, float32 and bfloat16; the default tiles
-    at chameleon-34b's shape.  bfloat16 is held at the JAX tests' 3e-2 and,
-    row by row, to one bf16 rounding (`bf16_row_ratio`).  Returns max |err|
-    at chameleon-34b's shape in float32."""
+    tile sizes at the test shapes and the ragged shapes, float32 and
+    bfloat16; the default tiles at chameleon-34b's shape.  bfloat16 is held
+    at the JAX tests' 3e-2 and, row by row, to one bf16 rounding
+    (`bf16_row_ratio`).  Returns max |err| at chameleon-34b's shape by
+    dtype name."""
     import torch
     from repro_torch.kernels.ref import flash_attention_ref
     gen = torch.Generator(device="cuda").manual_seed(44)
-    cases = [(shape, tiles) for shape in K4_TEST_SHAPES
+    cases = [(shape, tiles) for shape in K4_TEST_SHAPES + K4_RAGGED_SHAPES
              for tiles in ((64, 64), (32, 32), (64, 32))]
     cases.append((K4_CHAMELEON, (64, 64)))
-    err_f32 = 0.0
+    err_chameleon = {}
     for (H, Sq, Sk, hd), (bq, bk) in cases:
         errs = []
         for dtype, tol in ((torch.float32, K4_F32),
@@ -561,39 +572,87 @@ def phase_k4_checks(ops_):
             del q, k, v, got
             torch.cuda.empty_cache()
         if (H, Sq, Sk, hd) == K4_CHAMELEON:
-            err_f32 = errs[0]
+            err_chameleon = {"float32": errs[0], "bfloat16": errs[1]}
         log("3 kernels", f"flash_attention H={H} Sq={Sq} Sk={Sk} hd={hd} "
             f"tiles {bq}x{bk}: max|err| f32 {errs[0]:.3g} (atol 2e-5, rtol "
             f"1e-4), bf16 {errs[1]:.3g} (3e-2; row-scaled {ratio:.3f} of "
             f"one bf16 rounding + 1e-4 of the row)")
-    return err_f32
+    # bf16 operands that start 2 bytes past a 16-byte boundary (views into
+    # one buffer): a TMA tensor map takes 16-byte starts only
+    H, Sq, Sk, hd = 2, 200, 150, 64
+    buf = torch.randn(H * (Sq + 2 * Sk) * hd + 3, generator=gen,
+                      device="cuda").bfloat16()
+    n_q, n_kv = H * Sq * hd, H * Sk * hd
+    q, k, v = (buf[o:o + n].view(H, -1, hd) for o, n in (
+        (1, n_q), (1 + n_q, n_kv), (1 + n_q + n_kv, n_kv)))
+    check(q.data_ptr() % 16 != 0, "K4 misaligned case is aligned")
+    got = ops_.flash_attention(q, k, v)
+    torch.testing.assert_close(got.float(),
+                               flash_attention_ref(q, k, v).float(),
+                               **K4_BF16)
+    ratio = bf16_row_ratio(got, q, k, v)
+    check(ratio <= 1.0, f"K4 misaligned bf16: error {ratio:.3f} x bound")
+    log("3 kernels", f"flash_attention bf16 operands 2 bytes off 16-byte "
+        f"alignment, {H}x{Sq}x{Sk}x{hd}: row-scaled {ratio:.3f}")
+    return err_chameleon
+
+
+def k4_pairs(Sq, Sk):
+    """Causal (query, key) pairs: key <= query and key < Sk."""
+    return sum(min(i + 1, Sk) for i in range(Sq))
 
 
 def k4_bound_ms(H, Sq, Sk, hd, elem_bytes):
-    """Least time for causal attention: 2*H*hd multiply-adds for QK^T and
-    as many for PV per (query, key) pair with key <= query and key < Sk,
-    against q, k, v read once and the output written once.  PV multiplies
-    f32 softmax weights, so it needs f32 FFMA; QK^T does too on f32 inputs,
-    but on bf16 inputs its products are exact in f32, which the bf16 tensor
-    cores give, so it goes at their rate.  Returns (ms, "bytes" |
-    "operations")."""
-    pairs = sum(min(i + 1, Sk) for i in range(Sq))
+    """Least time for causal attention at the reference's f32 precision:
+    2*H*hd multiply-adds for QK^T and as many for PV per causal pair,
+    against q, k, v read once and the output written once, and one exp per
+    pair on the special-function units (a floor under the products).
+    - f32 inputs: nothing cheaper than FFMA keeps f32 products exact, so
+      both products go at the FFMA rate.
+    - bf16 inputs: QK^T's products are exact in f32, one bf16 tensor-core
+      pass; PV multiplies f32 weights p, which split exactly into three
+      bf16 parts (p = hi + mid + lo), each product with a bf16 v exact in
+      f32: three bf16 passes.  So 1 + 3 passes at the bf16 rate.
+    Returns (ms, "bytes" | "operations")."""
+    pairs = k4_pairs(Sq, Sk)
     ops_each = 2 * H * hd * pairs
-    qk_peak = PEAK_BF16_FLOPS if elem_bytes == 2 else PEAK_F32_FLOPS
-    t_ops = (ops_each / qk_peak + ops_each / PEAK_F32_FLOPS) * 1e3
+    if elem_bytes == 2:
+        t_mma = (1 + 3) * ops_each / PEAK_BF16_FLOPS
+    else:
+        t_mma = 2 * ops_each / PEAK_F32_FLOPS
+    t_ops = max(t_mma, H * pairs / PEAK_MUFU_OPS) * 1e3
     t_bytes = elem_bytes * H * hd * (2 * Sq + 2 * Sk) / PEAK_BYTES_PER_S * 1e3
     return (t_ops, "operations") if t_ops >= t_bytes else (t_bytes, "bytes")
+
+
+def flash_hgmma_count():
+    """HGMMA (wgmma) instructions in the built flash-attention library's
+    SASS (`cuobjdump -sass` beside nvcc)."""
+    from repro_torch.kernels import build, flash_attention_cuda
+    tool = Path(build.nvcc_path()).parent / "cuobjdump"
+    sass = subprocess.run(
+        [str(tool), "-sass",
+         str(build.library_path(flash_attention_cuda.SOURCE))],
+        capture_output=True, text=True, check=True).stdout
+    return sass.count("HGMMA")
 
 
 def phase_k4_times(ops_):
     """Phase 4, K4 at chameleon-34b's shape, float32 and bfloat16: kernel,
     plain version, scaled_dot_product_attention (causal; TF32 off, as the
-    port keeps it) and bound; device times from `queued_ms`."""
+    port keeps it) and bound; device times from `queued_ms`.  For bfloat16
+    also the kernel's rate on its 4-pass work and sdpa in float32 on the
+    upcast inputs (the same precision); first it checks that the bf16
+    leg's SASS holds wgmma (HGMMA) instructions."""
     import torch
     import torch.nn.functional as F
     from repro_torch.kernels.ref import flash_attention_ref
     check(not torch.backends.cuda.matmul.allow_tf32,
           "TF32 is on for matmuls")
+    n_hgmma = flash_hgmma_count()
+    log("4 times", f"flash_attention SASS: {n_hgmma} HGMMA (wgmma) "
+        f"instructions")
+    check(n_hgmma > 0, "the bf16 flash-attention leg has no HGMMA")
     gen = torch.Generator(device="cuda").manual_seed(45)
     H, Sq, Sk, hd = K4_CHAMELEON
     out = {}
@@ -617,6 +676,19 @@ def phase_k4_times(ops_):
         log("4 times", f"flash_attention {name}: host enqueue per call: "
             f"kernel {host:.4f} ms, plain {plain_host:.4f} ms, sdpa "
             f"{lib_host:.4f} ms")
+        if dtype == torch.bfloat16:
+            work = 4 * 2 * H * hd * k4_pairs(Sq, Sk)
+            qf, kf, vf = (t.float() for t in (q, k, v))
+            f32_ms, _ = queued_ms(
+                lambda: F.scaled_dot_product_attention(
+                    qf[None], kf[None], vf[None], is_causal=True),
+                reps=3, calls=2)
+            log("4 times", f"flash_attention bfloat16: {work / ms / 1e9:.1f} "
+                f"TFLOP/s on its 4-pass work (QK^T 1 + PV 3 bf16 passes, "
+                f"{work:.4g} flop), {b_ms / ms:.3f} of its bound; sdpa f32 "
+                f"on the upcast inputs (same precision) {f32_ms:.3f} ms, "
+                f"sdpa bf16 (P rounded to bf16) {lib_ms:.3f} ms")
+            del qf, kf, vf
         del q, k, v
         torch.cuda.empty_cache()
     return out
@@ -1115,14 +1187,18 @@ def phase_main_path(ops_):
 def phase_k4_path(ops_):
     """Phase 5, K4's path: the op entry point `ops.flash_attention` on one
     chameleon-34b attention layer, float32 then bfloat16, launch counts
-    from 0; returns them."""
+    from 0; returns each call's K4 launches by dtype name."""
     import torch
     gen = torch.Generator(device="cuda").manual_seed(46)
     ops_.reset_launches()
+    by_dtype = {}
     for dtype in (torch.float32, torch.bfloat16):
         q, k, v = k4_case(*K4_CHAMELEON, dtype, gen)
+        before = ops_.LAUNCHES["flash_attention"]
         o = ops_.flash_attention(q, k, v)
         torch.cuda.synchronize()
+        by_dtype[str(dtype).split(".")[-1]] = (
+            ops_.LAUNCHES["flash_attention"] - before)
         check(o.dtype == dtype and o.shape == q.shape
               and bool(torch.isfinite(o).all()), f"K4 path {dtype}: bad out")
         del q, k, v, o
@@ -1132,7 +1208,7 @@ def phase_k4_path(ops_):
     check(launches["flash_attention"] == 2
           and sum(launches.values()) == 2, f"K4 path launches {launches}")
     torch.cuda.empty_cache()
-    return launches
+    return by_dtype
 
 
 # the baseline detector at full width: chips and chunk (the plain route's
@@ -1546,12 +1622,13 @@ def main(argv=None) -> int:
         for line in build.BUILD_LOG.get(src.name, "").splitlines():
             if "Function properties for" in line:
                 log("2 build", "ptxas: " + line.split(" for ")[-1][:90])
-            elif "registers" in line or "spill" in line:
+            elif ("registers" in line or "spill" in line
+                  or "Performance Loss" in line):
                 log("2 build", "ptxas: " + line.strip())
     for mod in mods:
         mod.load()
 
-    checks, k4_err = {}, None
+    checks, k4_err = {}, {}
     if "kernels" in only:
         checks = phase_kernels(ops)
         checks["ragged"] = (0.0, phase_k1_ragged(ops))
@@ -1607,14 +1684,18 @@ def main(argv=None) -> int:
         "max_abs_err": max(v["max_abs_err"] for v in k3_times.values()),
         "ms": t["ms"], "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],
         "bound_by": t["bound_by"], "library_ms": t["library_ms"]})
-    t = k4_times["float32"]
-    kernels.append({
-        "name": "flash_attention", "route": "cuda",
-        "source": "src/repro_torch/csrc/flash_attention.cu",
-        "replaces": "src/repro/kernels/flash_attention.py:75",
-        "launches": k4_launches["flash_attention"], "max_abs_err": k4_err,
-        "ms": t["ms"], "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],
-        "bound_by": t["bound_by"], "library_ms": t["library_ms"]})
+    # K4's two legs, each with its launches on the op path
+    for name, dtype in (("flash_attention", "float32"),
+                        ("flash_attention_bf16", "bfloat16")):
+        t = k4_times[dtype]
+        kernels.append({
+            "name": name, "route": "cuda",
+            "source": "src/repro_torch/csrc/flash_attention.cu",
+            "replaces": "src/repro/kernels/flash_attention.py:75",
+            "launches": k4_launches[dtype], "max_abs_err": k4_err[dtype],
+            "ms": t["ms"], "plain_ms": t["plain_ms"],
+            "bound_ms": t["bound_ms"], "bound_by": t["bound_by"],
+            "library_ms": t["library_ms"]})
     # the elementwise kernels; their launches are the two detector runs'
     for name, t in xla_times.items():
         kernels.append({

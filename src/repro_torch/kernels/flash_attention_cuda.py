@@ -1,5 +1,6 @@
 """Load and launch the Hopper causal flash-attention kernel
-(`csrc/flash_attention.cu`).
+(`csrc/flash_attention.cu`: float32 inputs on the FFMA pipes, bfloat16
+inputs on the tensor cores through TMA tensor maps, `csrc/hopper.cuh`).
 
 The source compiles at first use into
 `build/repro_torch/libflash_attention.so` (`repro_torch.kernels.build`).
@@ -61,7 +62,9 @@ def check(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, bq: int,
 def launch(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
            out: torch.Tensor, bq: int, bk: int) -> None:
     """Enqueue one launch on checked, contiguous CUDA operands; `out` is
-    [H,Sq,hd] in q's dtype."""
+    [H,Sq,hd] in q's dtype.  An operand that does not start on 16 bytes,
+    as a TMA tensor map needs, is copied first."""
+    q, k, v = (t if t.data_ptr() % 16 == 0 else t.clone() for t in (q, k, v))
     H, Sq, hd = q.shape
     stream = torch.cuda.current_stream(q.device).cuda_stream
     err = load().flash_attention_launch(

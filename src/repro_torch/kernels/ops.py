@@ -149,7 +149,10 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                     ) -> torch.Tensor:
     """Causal flash attention: q [H,Sq,hd], k/v [H,Sk,hd] (float32 or
     bfloat16, one dtype) -> [H,Sq,hd] in q's dtype, in ONE kernel launch on
-    the card; `bq`/`bk` pick the kernel's query and key tiles (32 or 64).
+    the card.  `bq`/`bk` (32 or 64, checked for either dtype) pick the
+    float32 kernel's query and key tiles; the bfloat16 kernel, on the
+    tensor cores, has its own (128 query rows, 64 keys).  Both compute in
+    float32 as the plain version does.
 
     The kernel masks ragged Sq and Sk itself, so nothing is padded.  Like
     the JAX package's wrapper, it takes the causal case only."""

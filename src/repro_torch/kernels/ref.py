@@ -236,6 +236,25 @@ def flash_attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     return torch.einsum("hqk,hkd->hqd", p, v.float()).to(q.dtype)
 
 
+def bf16x3_split(p: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor,
+                                           torch.Tensor]:
+    """float32 p -> (hi, mid, lo), three bfloat16 tensors: hi = bf16(p),
+    mid = bf16(p - hi), lo = bf16(p - hi - mid), each rounded to nearest
+    even.  hi + mid + lo == p exactly in float32 wherever |p| >= 2^-110
+    (p's last bit is then no finer than 2^-133, bfloat16's smallest
+    subnormal step; float32 and bfloat16 share their exponent range);
+    below that lo rounds, by at most 2^-134.  The bf16 flash attention
+    kernel splits its softmax weights so, in registers, before its three
+    P V passes (a weight under 2^-110 is that small against its row's
+    largest, 1); this plain version states and tests the split, and no
+    path calls it."""
+    p = p.float()
+    hi = p.bfloat16()
+    rest = p - hi.float()
+    mid = rest.bfloat16()
+    return hi, mid, (rest - mid.float()).bfloat16()
+
+
 def near_tie_flips(out_a: torch.Tensor, out_b: torch.Tensor,
                    margin: torch.Tensor, tol: float = NEAR_TIE_TOL
                    ) -> Tuple[int, bool]:

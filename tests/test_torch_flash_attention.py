@@ -9,6 +9,13 @@ TestFlashAttention`.  Tolerances are that file's: atol 2e-5 and rtol 1e-4
 in float32 (the kernel's online softmax against one softmax over all
 keys), 3e-2 in bfloat16 (one bf16 rounding of the output).  The CUDA leg
 runs on the card only.
+
+The bfloat16 kernel splits its float32 softmax weights p into three
+bfloat16 parts and runs P V as three tensor-core passes.  The split
+(`bf16x3_split`, exact) and a float32 emulation of the kernel's algorithm
+are held here: three passes keep the reference's precision, one pass (p
+rounded to bfloat16) breaks the row-scaled bound that `chip_smoke.py`
+holds the kernel to.
 """
 import numpy as np
 import pytest
@@ -36,6 +43,7 @@ except ImportError:             # hypothesis optional: the sweep then skips
 from repro_torch.kernels import ops  # noqa: E402
 from repro_torch.kernels import (flash_attention,  # noqa: E402
                                  flash_attention_ref)
+from repro_torch.kernels.ref import bf16x3_split  # noqa: E402
 
 F32 = dict(atol=2e-5, rtol=1e-4)
 BF16 = dict(atol=3e-2, rtol=3e-2)
@@ -139,6 +147,147 @@ def test_package_attribute_stays_the_op():
     assert K.flash_attention is ops.flash_attention
     assert torch.equal(first, second)
     assert flash_attention_cuda.SOURCE.name == "flash_attention.cu"
+
+
+def _assert_split_exact(p):
+    hi, mid, lo = bf16x3_split(p)
+    assert hi.dtype == mid.dtype == lo.dtype == torch.bfloat16
+    assert torch.equal((hi.float() + mid.float()) + lo.float(), p)
+    assert torch.equal(hi.double() + mid.double() + lo.double(), p.double())
+
+
+F32_ONE_DOWN = float(np.nextafter(np.float32(1), np.float32(0)))
+SPLIT_EDGES = [0.0, 1.0, 0.5, 2.0 ** -24, 2.0 ** -126, F32_ONE_DOWN,
+               1 - 2.0 ** -9, 1 - 2.0 ** -17, 1 + 2.0 ** -23,
+               float(np.float32(1 / 3)), float(np.float32(0.1)),
+               2.0 ** -110 * (2 - 2.0 ** -23)]
+
+
+@pytest.mark.parametrize("p", SPLIT_EDGES, ids=lambda p: f"{p:.9g}")
+def test_bf16x3_split_edges(p):
+    """Zero, powers of two (2^-126, the smallest normal, too), values just
+    under and over 1 and ones with all 24 bits set, down to 2^-110: hi +
+    mid + lo == p exactly."""
+    _assert_split_exact(torch.tensor([p, -p], dtype=torch.float32))
+
+
+@settings(max_examples=200, deadline=None)
+@given(st.lists(st.floats(min_value=2.0 ** -110, max_value=1.0, width=32),
+                min_size=1, max_size=64))
+def test_bf16x3_split_is_exact(ps):
+    """Every float32 in [2^-110, 1], softmax weights down to 2^-110 of
+    their row's largest."""
+    _assert_split_exact(torch.tensor(ps, dtype=torch.float32))
+
+
+@settings(max_examples=200, deadline=None)
+@given(st.lists(st.floats(min_value=2.0 ** -126, max_value=2.0 ** -110,
+                          width=32), min_size=1, max_size=64))
+def test_bf16x3_split_below_2e_110_errs_at_most_2e_134(ps):
+    """Below 2^-110 the last part meets bf16's smallest subnormal step
+    (2^-133) and rounds: hi + mid + lo is within 2^-134 of p."""
+    p = torch.tensor(ps, dtype=torch.float32)
+    hi, mid, lo = bf16x3_split(p)
+    err = (hi.double() + mid.double() + lo.double() - p.double()).abs()
+    assert float(err.max()) <= 2.0 ** -134
+
+
+def _emulate_bf16_kernel(q, k, v, passes, bk=64):
+    """The bf16 kernel's algorithm in float32 on the CPU: key tiles of
+    `bk`, online softmax with float32 max and denominator, P V as
+    `passes` products of bfloat16 parts of p (3: `bf16x3_split`; 1: p
+    rounded to bfloat16) summed in float32.  Returns the float32 output
+    before its one rounding to bfloat16."""
+    H, Sq, hd = q.shape
+    Sk = k.shape[1]
+    qf, kf, vf = q.float(), k.float(), v.float()
+    m = torch.full((H, Sq, 1), float("-inf"))
+    l = torch.zeros(H, Sq, 1)
+    acc = torch.zeros(H, Sq, hd)
+    rows = torch.arange(Sq)[:, None]
+    for k0 in range(0, Sk, bk):
+        kt, vt = kf[:, k0:k0 + bk], vf[:, k0:k0 + bk]
+        s = (qf @ kt.transpose(1, 2)) * hd ** -0.5
+        keys = torch.arange(k0, k0 + kt.shape[1])[None, :]
+        s = s.masked_fill(keys > rows, float("-inf"))
+        m_new = torch.maximum(m, s.amax(-1, keepdim=True))
+        alpha = torch.exp(m - m_new)
+        p = torch.exp(s - m_new)
+        l = l * alpha + p.sum(-1, keepdim=True)
+        parts = bf16x3_split(p) if passes == 3 else (p.bfloat16(),)
+        pv = parts[0].float() @ vt
+        for part in parts[1:]:
+            pv = pv + part.float() @ vt
+        acc = acc * alpha + pv
+        m = m_new
+    return acc / l.clamp_min(1e-20)
+
+
+def _row_ratio(got, q, k, v):
+    """chip_smoke.py's `bf16_row_ratio`: the worst ratio of the bf16
+    output's error, against the plain version in float32 on the same
+    inputs, to one bf16 rounding of the output (2^-8 of it) plus 1e-4 of
+    its row's largest output."""
+    want = flash_attention_ref(q.float(), k.float(), v.float())
+    row = want.abs().amax(-1, keepdim=True)
+    bound = 2.0 ** -8 * want.abs() + 1e-4 * row
+    return float(((got.float() - want).abs() / bound).max())
+
+
+@pytest.fixture(scope="module")
+def precision_case():
+    """H=2, S=1024, hd=128, bf16 inputs (and their float32 values)."""
+    q, k, v = (torch.from_numpy(a).bfloat16()
+               for a in _qkv(2, 1024, 1024, 128, 1024))
+    return q, k, v
+
+
+def test_three_pass_split_keeps_f32_precision(precision_case):
+    """Three passes on the split of p: the float32 output meets the F32
+    tolerance against the plain version and the JAX op in float32, and
+    the bf16 output meets the BF16 tolerance against the JAX op in
+    bfloat16 and the row-scaled bound."""
+    q, k, v = precision_case
+    out32 = _emulate_bf16_kernel(q, k, v, passes=3)
+    np.testing.assert_allclose(
+        out32.numpy(),
+        flash_attention_ref(q.float(), k.float(), v.float()).numpy(), **F32)
+    qn, kn, vn = (t.float().numpy() for t in (q, k, v))
+    j_op32, _ = _jax(qn, kn, vn, 256, 256)
+    np.testing.assert_allclose(out32.numpy(), j_op32, **F32)
+    out = out32.bfloat16()
+    j_op, j_ref = _jax(qn, kn, vn, 256, 256, jnp.bfloat16)
+    np.testing.assert_allclose(out.float().numpy(), j_op, **BF16)
+    np.testing.assert_allclose(out.float().numpy(), j_ref, **BF16)
+    assert _row_ratio(out, q, k, v) <= 1.0
+
+
+def test_single_bf16_pass_breaks_the_row_bound(precision_case):
+    """p rounded once to bfloat16 (one pass, as sdpa does): late rows
+    average ~1,000 values, and p's rounding error outgrows the bound."""
+    q, k, v = precision_case
+    out = _emulate_bf16_kernel(q, k, v, passes=1).bfloat16()
+    assert _row_ratio(out, q, k, v) > 1.0
+
+
+@pytest.mark.parametrize("elem_bytes,want_ms", [(2, 0.5560), (4, 4.1037)],
+                         ids=["bf16", "f32"])
+def test_k4_bound_at_chameleon_shape(elem_bytes, want_ms):
+    """`chip_smoke.k4_bound_ms` at H=64, S=4096, hd=128: bf16 prices
+    QK^T as one and PV as three bf16 tensor-core passes, (1 + 3) x
+    1.3746e11 flop at 989 TFLOP/s; f32 prices both products at the FFMA
+    rate, 2 x 1.3746e11 flop at 67 TFLOP/s.  Both are bound by
+    operations."""
+    import importlib.util
+    from pathlib import Path
+    path = Path(__file__).resolve().parents[1] / "chip_smoke.py"
+    spec = importlib.util.spec_from_file_location("chip_smoke", path)
+    smoke = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(smoke)
+    assert smoke.k4_pairs(4096, 4096) == 8_390_656
+    ms, by = smoke.k4_bound_ms(64, 4096, 4096, 128, elem_bytes)
+    assert by == "operations"
+    assert ms == pytest.approx(want_ms, rel=1e-4)
 
 
 @pytest.mark.gpu
