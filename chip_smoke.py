@@ -14,9 +14,13 @@ Phases, each printing its own lines:
      single-chip case too), at 28 ragged shapes across the kernel's tile
      edges (R from 32 to 1,024 rows, N from 1 to 100, B from 1 to 1,000) and
      with word lines that are not all 0 or 1, bit-identical; the ternary
-     matmul (K3) at ragged shapes and the layer path's, {0,1} inputs
-     bit-identical, normal and bfloat16 inputs within the JAX package's
-     tolerances; causal flash attention (K4) at the JAX package's test
+     matmul (K3) at shapes across its tiles, splits over K and load paths
+     (TMA, cp.async, 2-byte loads; each line names the plan) and the layer
+     path's, {0,1} inputs bit-identical, normal and bfloat16 inputs within
+     the JAX package's tolerances, also with x 4 and 2 bytes off 16-byte
+     alignment and with +-Inf, NaN, +-3e38 and subnormals in x (non-finite
+     outputs where the plain version's are); causal flash attention (K4) at
+     the JAX package's test
      shapes, a ragged Sq > Sk case, two shapes ragged at the bf16 leg's TMA
      box edges (4x1000x1000x128, 2x4096x1000x64) and chameleon-34b's
      attention layer (64 heads x 4096 x 128), float32 and bfloat16, within
@@ -35,9 +39,10 @@ Phases, each printing its own lines:
      true f32 for K3; scaled_dot_product_attention, TF32 off, for K4;
      torch.addcmul, erfinv and exp for the elementwise kernels; torch.randn
      with a CUDA generator for the die sampling) and the card's bound for
-     the same work (K4 bf16: QK^T 1 + PV 3 bf16 tensor-core passes; its
-     rate on that work, sdpa f32 on its upcast inputs as the
-     same-precision yardstick, and a check that its SASS holds HGMMA);
+     the same work (K3: 3 bf16 tensor-core passes for f32 x, 1 for bf16
+     x, and a check that its SASS holds HGMMA; K4 bf16: QK^T 1 + PV 3 bf16
+     tensor-core passes, its rate on that work, sdpa f32 on its upcast
+     inputs as the same-precision yardstick, and the HGMMA check);
      the calls of all but K1/K2 are queued
      behind a sleep kernel so that the events hold device time only, and
      the host's enqueue time per call is printed on its own line;
@@ -407,13 +412,22 @@ def phase_k1_ragged(ops_):
     return flips
 
 
-# K3 shapes: ragged edges, then the layer path's 256x540x60
+# K3 shapes across the kernel's edges (plan: `kernels/ternary_matmul.py`):
+# ragged B, K and N below one 128x64 tile; splits over K in clusters of 5
+# and 8 blocks; f32 K with K*4 not a multiple of 16 (cp.async; its bf16 leg
+# takes 2-byte loads); the layer path's 256x540x60 (bf16: cp.async);
+# N > 64 and not a multiple of 8 with K split 8 ways; many row tiles per
+# block (the persistent grid), also with a K range deeper than the weights
+# the shared memory holds (loaded in chunks) over two column tiles
 K3_CHECK_SHAPES = ((1, 16, 1), (33, 300, 77), (200, 1000, 40),
-                   (256, 540, 60))
+                   (65, 301, 60), (256, 540, 60), (300, 2048, 130),
+                   (20000, 540, 60), (40000, 1000, 70))
 # K3 timed shapes: (name, B, K, N, x kind, back-to-back calls per timing)
 K3_TIMED = (("layer", 256, 540, 60, "bits", 200),
             ("kernel_bench", 256, 2048, 512, "normal", 50),
             ("s0", 2 * S0_ROWS_PER_IMAGE, 540, 60, "bits", 3))
+K3_NORMAL = dict(rtol=1e-5, atol=1e-4)
+K3_BF16 = dict(rtol=3e-2, atol=3e-2)
 
 
 def k3_case(B, K, N, kind, gen):
@@ -429,50 +443,139 @@ def k3_case(B, K, N, kind, gen):
     return (x.to(torch.bfloat16) if kind == "bf16" else x), w
 
 
-def phase_k3_checks(ops_):
-    """Phase 3, K3: the ternary matmul against its plain version."""
+def k3_plan(x, N):
+    """K3's launch plan for x and N columns, as one line."""
+    from repro_torch.kernels import ternary_matmul as kern
+    pl = kern.plan_for(x, N)
+    return (f"{pl.path}, split {pl.split} x {pl.k_slice}, grid {pl.grid}, "
+            f"{pl.kw} weight rows resident")
+
+
+def k3_check(ops_, x, w, kind):
+    """K3 against its plain version on x, w: {0,1} bit-identical, normal
+    float32 within rtol 1e-5 / atol 1e-4, bfloat16 within 3e-2; non-finite
+    outputs where the plain version's are, with their signs.  Returns the
+    largest |error| over finite outputs."""
     import torch
     from repro_torch.kernels.ref import ternary_matmul_ref
+    got = ops_.ternary_matmul(x, w)
+    want = ternary_matmul_ref(x, w)
+    torch.cuda.synchronize()
+    tag = f"K3 {tuple(x.shape)}x{w.shape[1]} {kind} x"
+    check(got.shape == want.shape and got.dtype == torch.float32, tag)
+    if kind == "bits":
+        check(torch.equal(got, want), f"{tag}: not bit-identical")
+        return 0.0
+    fin = torch.isfinite(want)
+    check(torch.equal(torch.isnan(got), torch.isnan(want)),
+          f"{tag}: NaNs differ")
+    check(torch.equal(got[~fin & ~torch.isnan(want)],
+                      want[~fin & ~torch.isnan(want)]),
+          f"{tag}: infinities differ")
+    torch.testing.assert_close(got[fin], want[fin],
+                               **(K3_BF16 if kind == "bf16" else K3_NORMAL))
+    return float((got[fin] - want[fin]).abs().max()) if fin.any() else 0.0
+
+
+def k3_specials(B, K, N, gen):
+    """Normal x [B,K] with one special value in every 7th row (+-Inf, NaN,
+    +-3e38, subnormals, zero; one to a row, so no sum overflows) and
+    subnormals spread over the rows between."""
+    import torch
+    x = torch.randn((B, K), generator=gen, device="cuda")
+    sub = torch.rand((B, K), generator=gen, device="cuda") < 0.05
+    x = torch.where(sub, torch.full_like(x, 3e-39), x)
+    specials = torch.tensor([float("inf"), -float("inf"), float("nan"),
+                             3.0e38, -3.0e38, 1e-40, -1e-45, 0.0],
+                            device="cuda")
+    rows = torch.arange(0, B, 7, device="cuda")
+    cols = torch.randint(0, K, (rows.numel(),), generator=gen, device="cuda")
+    x[rows, cols] = specials[torch.arange(rows.numel(), device="cuda") % 8]
+    return x
+
+
+def phase_k3_checks(ops_):
+    """Phase 3, K3: the ternary matmul against its plain version at every
+    check shape ({0,1}, normal and bfloat16 x), at x views whose base is 4
+    and 2 bytes off 16-byte alignment, and at x holding non-finite, huge
+    and subnormal values; each line names the load path the plan took."""
+    import torch
     gen = torch.Generator(device="cuda").manual_seed(77)
     for B, K, N in K3_CHECK_SHAPES:
-        errs = []
+        errs, paths = [], []
         for kind in ("bits", "normal", "bf16"):
             x, w = k3_case(B, K, N, kind, gen)
-            got = ops_.ternary_matmul(x, w)
-            want = ternary_matmul_ref(x, w)
-            torch.cuda.synchronize()
-            if kind == "bits":
-                check(torch.equal(got, want),
-                      f"K3 {B}x{K}x{N}: {{0,1}} inputs not bit-identical")
-            else:
-                tol = (1e-5, 1e-4) if kind == "normal" else (3e-2, 3e-2)
-                torch.testing.assert_close(got, want, rtol=tol[0],
-                                           atol=tol[1])
-            errs.append(float((got - want).abs().max()))
+            paths.append(k3_plan(x, N))
+            errs.append(k3_check(ops_, x, w, kind))
         log("3 kernels", f"ternary_matmul {B}x{K}x{N}: {{0,1}} x "
             f"bit-identical, max|err| normal x {errs[1]:.3g} (rtol 1e-5, "
-            f"atol 1e-4), bf16 x {errs[2]:.3g} (3e-2)")
+            f"atol 1e-4), bf16 x {errs[2]:.3g} (3e-2); f32 plan: "
+            f"{paths[1]}; bf16 plan: {paths[2]}")
+    B, K, N = 300, 540, 60
+    for dtype, off in ((torch.float32, 1), (torch.bfloat16, 1),
+                       (torch.bfloat16, 2)):
+        buf = torch.randn(B * K + 8, generator=gen, device="cuda").to(dtype)
+        x = buf[off:off + B * K].view(B, K)
+        check(x.data_ptr() % 16 != 0, "K3 misaligned case is aligned")
+        w = torch.randint(-1, 2, (K, N), generator=gen, device="cuda",
+                          dtype=torch.int8)
+        kind = "bf16" if dtype == torch.bfloat16 else "normal"
+        err = k3_check(ops_, x, w, kind)
+        log("3 kernels", f"ternary_matmul {kind} x {x.data_ptr() % 16} "
+            f"bytes off 16-byte alignment, {B}x{K}x{N}: max|err| "
+            f"{err:.3g}; plan: {k3_plan(x, N)}")
+    for B, K, N in ((300, 540, 60), (20000, 540, 130)):
+        x = k3_specials(B, K, N, gen)
+        w = torch.randint(-1, 2, (K, N), generator=gen, device="cuda",
+                          dtype=torch.int8)
+        err = k3_check(ops_, x, w, "normal")
+        want = x @ w.float()
+        log("3 kernels", f"ternary_matmul {B}x{K}x{N} with +-Inf, NaN, "
+            f"+-3e38 and subnormals in x: NaN and Inf outputs as the plain "
+            f"version's ({int(torch.isnan(want).sum())} NaN, "
+            f"{int(torch.isinf(want).sum())} Inf), max|err| elsewhere "
+            f"{err:.3g}")
 
 
-def k3_bound_ms(B, K, N, x_bytes, exact):
-    """Least time for x [B,K] @ w [K,N]: 2*B*K*N operations against x, the
-    int8 weights and the f32 output each moved once.  With {0,1} x
-    (`exact`) every product and partial sum is a small integer, which the
-    tensor cores sum exactly, so the operations go at the TF32 rate, as
-    K1's counts do in `bound_ms`; other x needs true f32, the FFMA rate.
-    Returns (ms, "bytes" | "operations")."""
-    peak = PEAK_TF32_FLOPS if exact else PEAK_F32_FLOPS
-    t_ops = 2 * B * K * N / peak * 1e3
+def k3_bound_ms(B, K, N, x_bytes):
+    """Least time for x [B,K] @ w [K,N] at f32 precision: 2*B*K*N
+    operations per bf16 tensor-core pass against x, the int8 weights and
+    the f32 output each moved once.  The weights are exact in bf16 and a
+    product of two bf16 values is exact in f32, so bf16 x takes one pass;
+    f32 x splits exactly into three bf16 parts (hi + mid + lo), three
+    passes.  TF32 would round x, so it is no bound for this work.  Returns
+    (ms, "bytes" | "operations")."""
+    passes = 1 if x_bytes == 2 else 3
+    t_ops = passes * 2 * B * K * N / PEAK_BF16_FLOPS * 1e3
     t_bytes = (x_bytes * B * K + K * N + 4 * B * N) / PEAK_BYTES_PER_S * 1e3
     return (t_ops, "operations") if t_ops >= t_bytes else (t_bytes, "bytes")
+
+
+def hgmma_count(source):
+    """HGMMA (wgmma) instructions in the SASS of the library built from
+    `source` (`cuobjdump -sass` beside nvcc)."""
+    from repro_torch.kernels import build
+    tool = Path(build.nvcc_path()).parent / "cuobjdump"
+    sass = subprocess.run(
+        [str(tool), "-sass", str(build.library_path(source))],
+        capture_output=True, text=True, check=True).stdout
+    return sass.count("HGMMA")
 
 
 def phase_k3_times(ops_):
     """Phase 4, K3: kernel, plain version, torch.matmul yardstick (true f32,
     the weights cast outside the timed call) and bound at three shapes;
-    device times from `queued_ms`, and each one's host enqueue per call."""
+    device times from `queued_ms`, and each one's host enqueue per call.
+    First it checks that the kernel's SASS holds wgmma (HGMMA)."""
     import torch
+    from repro_torch.kernels import ternary_matmul as kern
     from repro_torch.kernels.ref import ternary_matmul_ref
+    check(not torch.backends.cuda.matmul.allow_tf32,
+          "TF32 is on for matmuls")
+    n_hgmma = hgmma_count(kern.SOURCE)
+    log("4 times", f"ternary_matmul SASS: {n_hgmma} HGMMA (wgmma) "
+        f"instructions")
+    check(n_hgmma > 0, "the ternary matmul kernel has no HGMMA")
     gen = torch.Generator(device="cuda").manual_seed(78)
     out = {}
     for name, B, K, N, kind, calls in K3_TIMED:
@@ -486,14 +589,14 @@ def phase_k3_times(ops_):
                                          reps=5, calls=calls)
         lib_ms, lib_host = queued_ms(lambda: torch.matmul(x, wf), reps=5,
                                      calls=calls)
-        b_ms, b_by = k3_bound_ms(B, K, N, x.element_size(), kind == "bits")
+        b_ms, b_by = k3_bound_ms(B, K, N, x.element_size())
         out[name] = dict(ms=ms, plain_ms=plain_ms, library_ms=lib_ms,
                          bound_ms=b_ms, bound_by=b_by, max_abs_err=err,
                          shape=(B, K, N))
-        log("4 times", f"ternary_matmul {name} {B}x{K}x{N} ({kind} x): "
-            f"kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, torch.matmul "
-            f"f32 {lib_ms:.4f} ms, bound {b_ms:.4f} ms ({b_by}), share of "
-            f"bound {b_ms / ms:.3f}, max|err| {err:.3g}")
+        log("4 times", f"ternary_matmul {name} {B}x{K}x{N} ({kind} x; "
+            f"{k3_plan(x, N)}): kernel {ms:.4f} ms, plain {plain_ms:.4f} "
+            f"ms, torch.matmul f32 {lib_ms:.4f} ms, bound {b_ms:.6f} ms "
+            f"({b_by}), share of bound {b_ms / ms:.3f}, max|err| {err:.3g}")
         log("4 times", f"ternary_matmul {name}: host enqueue per call: "
             f"kernel {host:.4f} ms, plain {plain_host:.4f} ms, torch.matmul "
             f"{lib_host:.4f} ms")
@@ -625,18 +728,6 @@ def k4_bound_ms(H, Sq, Sk, hd, elem_bytes):
     return (t_ops, "operations") if t_ops >= t_bytes else (t_bytes, "bytes")
 
 
-def flash_hgmma_count():
-    """HGMMA (wgmma) instructions in the built flash-attention library's
-    SASS (`cuobjdump -sass` beside nvcc)."""
-    from repro_torch.kernels import build, flash_attention_cuda
-    tool = Path(build.nvcc_path()).parent / "cuobjdump"
-    sass = subprocess.run(
-        [str(tool), "-sass",
-         str(build.library_path(flash_attention_cuda.SOURCE))],
-        capture_output=True, text=True, check=True).stdout
-    return sass.count("HGMMA")
-
-
 def phase_k4_times(ops_):
     """Phase 4, K4 at chameleon-34b's shape, float32 and bfloat16: kernel,
     plain version, scaled_dot_product_attention (causal; TF32 off, as the
@@ -649,7 +740,8 @@ def phase_k4_times(ops_):
     from repro_torch.kernels.ref import flash_attention_ref
     check(not torch.backends.cuda.matmul.allow_tf32,
           "TF32 is on for matmuls")
-    n_hgmma = flash_hgmma_count()
+    from repro_torch.kernels import flash_attention_cuda
+    n_hgmma = hgmma_count(flash_attention_cuda.SOURCE)
     log("4 times", f"flash_attention SASS: {n_hgmma} HGMMA (wgmma) "
         f"instructions")
     check(n_hgmma > 0, "the bf16 flash-attention leg has no HGMMA")

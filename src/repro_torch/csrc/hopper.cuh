@@ -1,7 +1,9 @@
 // PTX wrappers for Hopper's asynchronous units (sm_90a): mbarriers, TMA
-// tiled loads through tensor maps, and warpgroup matrix products (wgmma)
-// on bf16 operands with f32 accumulators.  Header only; shared by the
-// port's kernels that run on the tensor cores.
+// tiled loads through tensor maps, cp.async copies that complete on an
+// mbarrier, thread-block clusters and their distributed shared memory, and
+// warpgroup matrix products (wgmma) on bf16 operands with f32
+// accumulators.  Header only; shared by the port's kernels that run on the
+// tensor cores.
 //
 // Tensor maps are encoded on the host by `cuTensorMapEncodeTiled`, which
 // `encode_tiled_3d` looks up through the CUDA runtime, so a library that
@@ -78,6 +80,14 @@ __device__ __forceinline__ void tma_load_3d(void* dst, const CUtensorMap* map,
       : "memory");
 }
 
+// fetches a tensor map (a __grid_constant__ kernel parameter) ahead of
+// its first TMA load
+__device__ __forceinline__ void prefetch_tensormap(const CUtensorMap* map) {
+  asm volatile("prefetch.tensormap [%0];\n" ::"l"(
+                   reinterpret_cast<uint64_t>(map))
+               : "memory");
+}
+
 // the CUtensorMapSwizzle that matches a row of `row_bytes` (32, 64, 128)
 inline CUtensorMapSwizzle swizzle_for(int row_bytes) {
   return row_bytes >= 128  ? CU_TENSOR_MAP_SWIZZLE_128B
@@ -85,12 +95,15 @@ inline CUtensorMapSwizzle swizzle_for(int row_bytes) {
                            : CU_TENSOR_MAP_SWIZZLE_32B;
 }
 
-// Encodes a tensor map over a contiguous bf16 array [d2][d1][d0] (d0
-// innermost) whose boxes are [1][box1][box0], swizzled to match box0's
-// bytes; elements outside the array read as zero.  Returns a CUDA error.
-inline cudaError_t encode_tiled_3d(CUtensorMap* map, const void* base,
-                                   uint64_t d0, uint64_t d1, uint64_t d2,
-                                   uint32_t box0, uint32_t box1) {
+// Encodes a tensor map over a contiguous array [d2][d1][d0] (d0
+// innermost) of `type` (bf16 unless given; `elem_bytes` its size) whose
+// boxes are [1][box1][box0], swizzled to match box0's bytes; elements
+// outside the array read as zero.  Returns a CUDA error.
+inline cudaError_t encode_tiled_3d(
+    CUtensorMap* map, const void* base, uint64_t d0, uint64_t d1, uint64_t d2,
+    uint32_t box0, uint32_t box1,
+    CUtensorMapDataType type = CU_TENSOR_MAP_DATA_TYPE_BFLOAT16,
+    uint32_t elem_bytes = 2) {
   using Encode = CUresult (*)(CUtensorMap*, CUtensorMapDataType, cuuint32_t,
                               void*, const cuuint64_t*, const cuuint64_t*,
                               const cuuint32_t*, const cuuint32_t*,
@@ -114,15 +127,90 @@ inline cudaError_t encode_tiled_3d(CUtensorMap* map, const void* base,
     encode = reinterpret_cast<Encode>(fn);
   }
   const cuuint64_t dims[3] = {d0, d1, d2};
-  const cuuint64_t strides[2] = {d0 * 2, d0 * d1 * 2};  // bytes, dims 1, 2
+  const cuuint64_t strides[2] = {d0 * elem_bytes,
+                                 d0 * d1 * elem_bytes};  // bytes, dims 1, 2
   const cuuint32_t box[3] = {box0, box1, 1};
   const cuuint32_t elem_strides[3] = {1, 1, 1};
   const CUresult res = encode(
-      map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 3, const_cast<void*>(base), dims,
-      strides, box, elem_strides, CU_TENSOR_MAP_INTERLEAVE_NONE,
-      swizzle_for(box0 * 2), CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
+      map, type, 3, const_cast<void*>(base), dims, strides, box,
+      elem_strides, CU_TENSOR_MAP_INTERLEAVE_NONE,
+      swizzle_for(box0 * elem_bytes), CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
       CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
   return res == CUDA_SUCCESS ? cudaSuccess : cudaErrorInvalidValue;
+}
+
+// ---------------------------------------------------------------- cp.async
+
+// copies 4 bytes from global to shared memory, or writes 4 zero bytes when
+// `ok` is false (the source is then not read)
+__device__ __forceinline__ void cp_async4(void* dst, const void* src,
+                                          bool ok) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(
+                   smem_addr(dst)),
+               "l"(src), "r"(ok ? 4 : 0)
+               : "memory");
+}
+
+// one arrival on `bar` once every cp.async this thread issued before has
+// landed (the barrier counts it among its expected arrivals)
+__device__ __forceinline__ void cp_async_mbar_arrive(uint64_t* bar) {
+  asm volatile("cp.async.mbarrier.arrive.noinc.shared::cta.b64 [%0];\n" ::"r"(
+                   smem_addr(bar))
+               : "memory");
+}
+
+// orders this thread's generic-proxy writes to shared memory before later
+// async-proxy reads of it (wgmma operands, TMA stores)
+__device__ __forceinline__ void fence_proxy_async() {
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+}
+
+// ----------------------------------------------------------------- clusters
+
+__device__ __forceinline__ uint32_t cluster_ctarank() {
+  uint32_t r;
+  asm volatile("mov.u32 %0, %%cluster_ctarank;\n" : "=r"(r));
+  return r;
+}
+
+// Every thread of every block of the cluster arrives once, then waits:
+// writes to shared memory before the arrival are visible to the whole
+// cluster after the wait, and every block has started.
+__device__ __forceinline__ void cluster_arrive() {
+  asm volatile("barrier.cluster.arrive.release;\n" ::: "memory");
+}
+// an arrival that publishes nothing (no release)
+__device__ __forceinline__ void cluster_arrive_relaxed() {
+  asm volatile("barrier.cluster.arrive.relaxed;\n" ::: "memory");
+}
+__device__ __forceinline__ void cluster_wait() {
+  asm volatile("barrier.cluster.wait.acquire;\n" ::: "memory");
+}
+
+// the shared::cluster address of `p`'s counterpart in block `rank` of the
+// cluster
+__device__ __forceinline__ uint32_t cluster_map(const void* p,
+                                                uint32_t rank) {
+  uint32_t out;
+  asm volatile("mapa.shared::cluster.u32 %0, %1, %2;\n"
+               : "=r"(out)
+               : "r"(smem_addr(p)), "r"(rank));
+  return out;
+}
+
+// copies `bytes` (a multiple of 16, both ends 16-byte aligned) of this
+// block's shared memory to `dst`, a shared::cluster address in another
+// block of the cluster, and counts them on that block's mbarrier `bar`
+// (also a shared::cluster address)
+__device__ __forceinline__ void bulk_copy_to_cluster(uint32_t dst,
+                                                     const void* src,
+                                                     uint32_t bytes,
+                                                     uint32_t bar) {
+  asm volatile(
+      "cp.async.bulk.shared::cluster.shared::cta.mbarrier::complete_tx::bytes"
+      " [%0], [%1], %2, [%3];\n" ::"r"(dst),
+      "r"(smem_addr(src)), "r"(bytes), "r"(bar)
+      : "memory");
 }
 
 // ------------------------------------------------------------- registers

@@ -255,6 +255,34 @@ def bf16x3_split(p: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor,
     return hi, mid, (rest - mid.float()).bfloat16()
 
 
+def _top16(v: torch.Tensor) -> torch.Tensor:
+    """float32 v with its low 16 bits cleared (a bf16 value, truncated)."""
+    return (v.view(torch.int32) & -65536).view(torch.float32)
+
+
+def bf16x3_split_masked(x: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor,
+                                                  torch.Tensor]:
+    """float32 x -> (hi, mid, lo), three bfloat16 tensors, by truncation:
+    hi = x's top 16 bits, rest = x - hi, mid = rest's top 16 bits, lo =
+    rest - mid truncated to bf16.  hi + mid + lo == x exactly in float32
+    wherever |x| >= 2^-110 (below, lo loses the bits under bf16's smallest
+    subnormal step, 2^-133); unlike `bf16x3_split`, hi never rounds up to
+    Inf near FLT_MAX.  An Inf or NaN stays in hi (a NaN as a NaN, whatever
+    its payload) with mid = lo = 0, so Inf * 1 = Inf and Inf * 0 = NaN as
+    in an f32 product.  The ternary matmul kernel splits its float32 x so,
+    in registers (`split3` in csrc/ternary_matmul.cu), before its three
+    bf16 passes; this plain version states and tests the split, and no
+    path calls it."""
+    x = x.float()
+    nan = torch.isnan(x)
+    hi = _top16(torch.where(nan, torch.full_like(x, float("nan")), x))
+    rest = x - hi
+    rest = torch.where(torch.isnan(rest), torch.zeros_like(rest), rest)
+    mid = _top16(rest)
+    lo = _top16(rest - mid)
+    return hi.bfloat16(), mid.bfloat16(), lo.bfloat16()
+
+
 def near_tie_flips(out_a: torch.Tensor, out_b: torch.Tensor,
                    margin: torch.Tensor, tol: float = NEAR_TIE_TOL
                    ) -> Tuple[int, bool]:
