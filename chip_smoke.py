@@ -426,6 +426,10 @@ K3_CHECK_SHAPES = ((1, 16, 1), (33, 300, 77), (200, 1000, 40),
 K3_TIMED = (("layer", 256, 540, 60, "bits", 200),
             ("kernel_bench", 256, 2048, 512, "normal", 50),
             ("s0", 2 * S0_ROWS_PER_IMAGE, 540, 60, "bits", 3))
+# the split-K path's shapes, called again and again: its sum over the
+# cluster is in a fixed order, so every call must give the same bits
+K3_REPEAT_SHAPES = ((256, 540, 60), (256, 2048, 512))
+K3_REPEATS = 300
 K3_NORMAL = dict(rtol=1e-5, atol=1e-4)
 K3_BF16 = dict(rtol=3e-2, atol=3e-2)
 
@@ -524,6 +528,17 @@ def phase_k3_checks(ops_):
         log("3 kernels", f"ternary_matmul {kind} x {x.data_ptr() % 16} "
             f"bytes off 16-byte alignment, {B}x{K}x{N}: max|err| "
             f"{err:.3g}; plan: {k3_plan(x, N)}")
+    for B, K, N in K3_REPEAT_SHAPES:
+        x, w = k3_case(B, K, N, "normal", gen)
+        first = ops_.ternary_matmul(x, w)
+        differ = torch.zeros((), dtype=torch.int64, device="cuda")
+        for _ in range(K3_REPEATS):
+            differ += (ops_.ternary_matmul(x, w) != first).sum()
+        check(int(differ) == 0, f"K3 {B}x{K}x{N}: {int(differ)} outputs "
+              f"differ over {K3_REPEATS} repeated calls")
+        log("3 kernels", f"ternary_matmul {B}x{K}x{N} normal x, "
+            f"{K3_REPEATS} repeated calls ({k3_plan(x, N)}): every output "
+            f"bit-identical to the first")
     for B, K, N in ((300, 540, 60), (20000, 540, 130)):
         x = k3_specials(B, K, N, gen)
         w = torch.randint(-1, 2, (K, N), generator=gen, device="cuda",
@@ -560,6 +575,40 @@ def hgmma_count(source):
         [str(tool), "-sass", str(build.library_path(source))],
         capture_output=True, text=True, check=True).stdout
     return sass.count("HGMMA")
+
+
+def k3_path_times(x, w, calls):
+    """x's two load paths side by side where the plan takes TMA: the plan,
+    and the same plan with 4-byte cp.async, which serves any float32 x.
+    Both write the same swizzled stages, so their outputs must be
+    bit-identical.  Each is timed twice, alternating, through the binding
+    on one preallocated output (device and host milliseconds a call).
+    Returns {path: [(ms, host ms), ...]}, empty where the plan is not TMA."""
+    import dataclasses
+    import torch
+    from repro_torch.kernels import ternary_matmul as kern
+    N = w.shape[1]
+    tma = kern.plan_for(x, N)
+    if tma.path != "tma":
+        return {}
+    plans = {"tma": tma, "cp.async": dataclasses.replace(tma, path="cp.async")}
+    outs = {k: torch.empty((x.shape[0], N), device="cuda") for k in plans}
+    for k, pl in plans.items():
+        kern.launch(x, w, outs[k], pl)
+    check(torch.equal(outs["tma"], outs["cp.async"]),
+          f"K3 {tuple(x.shape)}x{N}: TMA and cp.async outputs differ")
+    times = {k: [] for k in plans}
+    for _ in range(2):
+        for k, pl in plans.items():
+            times[k].append(queued_ms(
+                lambda pl=pl, o=outs[k]: kern.launch(x, w, o, pl), reps=7,
+                calls=calls))
+    log("4 times", f"ternary_matmul {tuple(x.shape)}x{N} load paths, "
+        f"outputs bit-identical; device ms (host enqueue ms) a call, two "
+        f"rounds: " + "; ".join(
+            f"{k} " + ", ".join(f"{ms:.4f} ({h:.4f})" for ms, h in v)
+            for k, v in times.items()))
+    return times
 
 
 def phase_k3_times(ops_):
@@ -600,6 +649,7 @@ def phase_k3_times(ops_):
         log("4 times", f"ternary_matmul {name}: host enqueue per call: "
             f"kernel {host:.4f} ms, plain {plain_host:.4f} ms, torch.matmul "
             f"{lib_host:.4f} ms")
+        out[name]["paths"] = k3_path_times(x, w, calls)
         del x, w, wf
         torch.cuda.empty_cache()
     return out

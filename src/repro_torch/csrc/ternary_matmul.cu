@@ -51,14 +51,14 @@
 //     skips the mid and lo passes too (4 wgmmas a stage);
 //   * few tiles (small B): the K range splits over the blocks of a
 //     thread-block cluster (up to 8, each range a multiple of 64 deep; one
-//     tile per cluster).  Each block parks its partial tile in its idle
-//     ring; one bulk copy a peer sends block q the rows of q's share,
-//     rows q*ceil(128/S).., into q's shared memory, counted in bytes on
-//     an mbarrier there; block q then sums its share over the slots in
-//     rank order 0, 1, ..., S-1 and writes it: deterministic, one launch,
-//     no atomics.  Two cluster barriers bracket the copies: every block
-//     has started before any copies into it, and none exits before all
-//     copies have landed;
+//     tile per cluster).  Each block parks its partial tile in its ring
+//     once both consumer warpgroups are done with it; one bulk copy a
+//     peer sends block q the rows of q's share, rows q*ceil(128/S)..,
+//     into q's shared memory, counted in bytes on an mbarrier there;
+//     block q then sums its share over the slots in rank order 0, 1, ...,
+//     S-1 and writes it: deterministic, one launch, no atomics.  Two
+//     cluster barriers bracket the copies: every block has started before
+//     any copies into it, and none exits before all copies have landed;
 //   * ragged B, K and N are masked here; the caller pads nothing.  N is
 //     padded to 64 with zero weight columns that are never written.
 // Non-finite x: hi carries an Inf or NaN alone (mid = lo = 0), so Inf * 1
@@ -487,11 +487,15 @@ ternary_matmul_kernel(const __grid_constant__ CUtensorMap tx, const Params p) {
         }
       }
     } else {
-      // Split K (one tile per cluster).  The partial tile goes to the ring,
-      // idle now, as [128][kRedStride]; the rows of block q's share go by
-      // one bulk copy to slot `rank` of q's `red` ([split][share]
-      // [kRedStride]), counted in bytes on q's red_full.
+      // Split K (one tile per cluster).  The partial tile goes to the ring
+      // as [128][kRedStride]; the rows of block q's share go by one bulk
+      // copy to slot `rank` of q's `red` ([split][share][kRedStride]),
+      // counted in bytes on q's red_full.  The ring is idle only once both
+      // warpgroups have read their last stage: a warpgroup syncs only its
+      // own threads and may be a stage ahead of the other, whose fragments
+      // its partial rows would overwrite.
       float* part = reinterpret_cast<float*>(ring);
+      consumer_sync();
 #pragma unroll
       for (int r = 0; r < 2; ++r)
 #pragma unroll

@@ -14,7 +14,7 @@ from __future__ import annotations
 import ctypes
 import dataclasses
 import functools
-from typing import Callable, Dict, Tuple
+from typing import Callable, Dict, Optional, Tuple
 
 import torch
 
@@ -178,13 +178,15 @@ def plan_for(x: torch.Tensor, N: int) -> Plan:
                     x.data_ptr() % 16)
 
 
-def launch(x: torch.Tensor, w_t: torch.Tensor, out: torch.Tensor) -> Plan:
+def launch(x: torch.Tensor, w_t: torch.Tensor, out: torch.Tensor,
+           pl: Optional[Plan] = None) -> Plan:
     """Enqueue one launch: x [B,K] contiguous float32 or bfloat16, w_t [K,N]
-    contiguous int8, out [B,N] float32, all on one CUDA device.  Returns
-    the plan it launched."""
+    contiguous int8, out [B,N] float32, all on one CUDA device, as `pl`
+    lays it out (by default `plan_for(x, N)`; `chip_smoke.py` times
+    another load path through it).  Returns the plan it launched."""
     B, K = x.shape
     N = w_t.shape[1]
-    pl = plan_for(x, N)
+    pl = pl or plan_for(x, N)
     stream = torch.cuda.current_stream(x.device).cuda_stream
     err = load().ternary_matmul_launch(
         x.data_ptr(), w_t.data_ptr(), out.data_ptr(), B, K, N,

@@ -44,6 +44,7 @@ from repro_torch.kernels import ops  # noqa: E402
 from repro_torch.kernels import (flash_attention,  # noqa: E402
                                  flash_attention_ref)
 from repro_torch.kernels.ref import bf16x3_split  # noqa: E402
+from torch_smoke_loader import chip_smoke  # noqa: E402
 
 F32 = dict(atol=2e-5, rtol=1e-4)
 BF16 = dict(atol=3e-2, rtol=3e-2)
@@ -278,12 +279,7 @@ def test_k4_bound_at_chameleon_shape(elem_bytes, want_ms):
     1.3746e11 flop at 989 TFLOP/s; f32 prices both products at the FFMA
     rate, 2 x 1.3746e11 flop at 67 TFLOP/s.  Both are bound by
     operations."""
-    import importlib.util
-    from pathlib import Path
-    path = Path(__file__).resolve().parents[1] / "chip_smoke.py"
-    spec = importlib.util.spec_from_file_location("chip_smoke", path)
-    smoke = importlib.util.module_from_spec(spec)
-    spec.loader.exec_module(smoke)
+    smoke = chip_smoke()
     assert smoke.k4_pairs(4096, 4096) == 8_390_656
     ms, by = smoke.k4_bound_ms(64, 4096, 4096, 128, elem_bytes)
     assert by == "operations"

@@ -53,6 +53,7 @@ from repro_torch.kernels import build as nvb  # noqa: E402
 from repro_torch.kernels import ops  # noqa: E402
 from repro_torch.kernels import ref as tref  # noqa: E402
 from repro_torch.kernels import ternary_matmul as kern3  # noqa: E402
+from torch_smoke_loader import chip_smoke  # noqa: E402
 
 torch.set_num_threads(2)
 
@@ -509,16 +510,6 @@ def test_smem_bytes_at_s0():
         39_168 + 72
 
 
-def _smoke():
-    import importlib.util
-    from pathlib import Path
-    path = Path(__file__).resolve().parents[1] / "chip_smoke.py"
-    spec = importlib.util.spec_from_file_location("chip_smoke", path)
-    smoke = importlib.util.module_from_spec(spec)
-    spec.loader.exec_module(smoke)
-    return smoke
-
-
 @pytest.mark.parametrize("shape,x_bytes,want_ms,by", [
     ((256, 540, 60), 4, 0.000193075, "bytes"),
     ((256, 2048, 512), 4, 0.001628665, "operations"),
@@ -529,6 +520,6 @@ def test_k3_bound(shape, x_bytes, want_ms, by):
     """`chip_smoke.k3_bound_ms`: f32 x at three bf16 tensor-core passes
     (3 x 2BKN at 989 TFLOP/s), bf16 x at one, against x, the int8 weights
     and the f32 output moved once at 3.35 TB/s."""
-    ms, got_by = _smoke().k3_bound_ms(*shape, x_bytes)
+    ms, got_by = chip_smoke().k3_bound_ms(*shape, x_bytes)
     assert got_by == by
     assert ms == pytest.approx(want_ms, rel=1e-4)
