@@ -7,7 +7,8 @@ Phases, each printing its own lines:
   1. environment: torch/CUDA versions, the card's name and power limit;
   2. build: compiles src/repro_torch/csrc/{irc_mvm,ternary_matmul,
      flash_attention,xla_math,threefry}.cu for sm_90a, one nvcc process
-     each, all started together;
+     each, all started together; fails if ptxas spills in, or serializes
+     the wgmmas of (C7520), the tensor-core kernels (K3, K4);
   3. kernels against their plain PyTorch versions: the IRC MVM (K1/K2) at
      the detector's full-width shapes (shared/per-chip word lines and
      placement planes, binary and diff outputs, all effects on and off; the
@@ -25,7 +26,8 @@ Phases, each printing its own lines:
      box edges (4x1000x1000x128, 2x4096x1000x64) and chameleon-34b's
      attention layer (64 heads x 4096 x 128), float32 and bfloat16, within
      the JAX package's tolerances (bfloat16 also row by row within one bf16
-     rounding); the elementwise kernels of XLA's float32 math (fused
+     rounding), also with operands 4 (float32) and 2 bytes (bfloat16) off
+     16-byte alignment; the elementwise kernels of XLA's float32 math (fused
      multiply-add, erf_inv, exp) at the main paths' shapes, the fused
      multiply-add on each of its paths (float4, 32-bit, 64-bit; broadcast,
      strided, scalar, 0-dim, misaligned), bit-identical; the die-sampling
@@ -40,9 +42,11 @@ Phases, each printing its own lines:
      torch.addcmul, erfinv and exp for the elementwise kernels; torch.randn
      with a CUDA generator for the die sampling) and the card's bound for
      the same work (K3: 3 bf16 tensor-core passes for f32 x, 1 for bf16
-     x, and a check that its SASS holds HGMMA; K4 bf16: QK^T 1 + PV 3 bf16
-     tensor-core passes, its rate on that work, sdpa f32 on its upcast
-     inputs as the same-precision yardstick, and the HGMMA check);
+     x, and a check that its SASS holds HGMMA; K4: QK^T 1 + PV 3 bf16
+     tensor-core passes for bf16 inputs, 6 + 6 for f32 (bf16x6), each
+     leg's rate on that work and a check that its own SASS function holds
+     HGMMA; for f32 the split pre-pass alone and the FFMA bound beside, for
+     bf16 sdpa f32 on the upcast inputs as the same-precision yardstick);
      the calls of all but K1/K2 are queued
      behind a sleep kernel so that the events hold device time only, and
      the host's enqueue time per call is printed on its own line;
@@ -54,7 +58,8 @@ Phases, each printing its own lines:
      in chunks of 512) for the proposed design through K1 and the baseline
      through the plain route, each with its ideal reference bits through
      K3, launch counts checked; the op `ops.flash_attention` at
-     chameleon-34b's attention shape (K4, one launch per call); the
+     chameleon-34b's attention shape (K4, one count per call: the f32
+     call's two CUDA launches, split and attention, count once); the
      baseline design `yolo_irc.baseline()` at full width through
      `run_ablation_detector`, all five Table II columns, on the plain
      route (no K1 launch, as in the reference); every path that samples
@@ -566,15 +571,22 @@ def k3_bound_ms(B, K, N, x_bytes):
     return (t_ops, "operations") if t_ops >= t_bytes else (t_bytes, "bytes")
 
 
-def hgmma_count(source):
+def hgmma_count(source, function=""):
     """HGMMA (wgmma) instructions in the SASS of the library built from
-    `source` (`cuobjdump -sass` beside nvcc)."""
+    `source` (`cuobjdump -sass` beside nvcc), in the functions whose
+    (mangled) name holds `function`: all of them by default."""
     from repro_torch.kernels import build
     tool = Path(build.nvcc_path()).parent / "cuobjdump"
     sass = subprocess.run(
         [str(tool), "-sass", str(build.library_path(source))],
         capture_output=True, text=True, check=True).stdout
-    return sass.count("HGMMA")
+    count, name = 0, ""
+    for line in sass.splitlines():
+        if "Function :" in line:
+            name = line.split("Function :", 1)[1]
+        elif function in name:
+            count += line.count("HGMMA")
+    return count
 
 
 def k3_path_times(x, w, calls):
@@ -747,6 +759,19 @@ def phase_k4_checks(ops_):
     check(ratio <= 1.0, f"K4 misaligned bf16: error {ratio:.3f} x bound")
     log("3 kernels", f"flash_attention bf16 operands 2 bytes off 16-byte "
         f"alignment, {H}x{Sq}x{Sk}x{hd}: row-scaled {ratio:.3f}")
+    # f32 operands 4 bytes past a 16-byte boundary, which the split's
+    # float4 loads cannot take either
+    buf = torch.randn(H * (Sq + 2 * Sk) * hd + 1, generator=gen,
+                      device="cuda")
+    q, k, v = (buf[o:o + n].view(H, -1, hd) for o, n in (
+        (1, n_q), (1 + n_q, n_kv), (1 + n_q + n_kv, n_kv)))
+    check(q.data_ptr() % 16 == 4, "K4 misaligned f32 case is aligned")
+    got = ops_.flash_attention(q, k, v)
+    want = flash_attention_ref(q, k, v)
+    torch.testing.assert_close(got, want, **K4_F32)
+    log("3 kernels", f"flash_attention f32 operands 4 bytes off 16-byte "
+        f"alignment, {H}x{Sq}x{Sk}x{hd}: max|err| "
+        f"{float((got - want).abs().max()):.3g}")
     return err_chameleon
 
 
@@ -755,46 +780,57 @@ def k4_pairs(Sq, Sk):
     return sum(min(i + 1, Sk) for i in range(Sq))
 
 
+def k4_passes(elem_bytes):
+    """bf16 tensor-core passes the K4 kernel of the inputs' dtype runs,
+    each 2*H*hd operations per causal pair: bf16 inputs take QK^T 1 + PV 3
+    (p splits exactly into three bf16 parts); f32 inputs take 6 + 6
+    (bf16x6: q, k, v and p each split into three parts, six of the nine
+    products of parts kept per product)."""
+    return 1 + 3 if elem_bytes == 2 else 6 + 6
+
+
 def k4_bound_ms(H, Sq, Sk, hd, elem_bytes):
-    """Least time for causal attention at the reference's f32 precision:
-    2*H*hd multiply-adds for QK^T and as many for PV per causal pair,
-    against q, k, v read once and the output written once, and one exp per
-    pair on the special-function units (a floor under the products).
-    - f32 inputs: nothing cheaper than FFMA keeps f32 products exact, so
-      both products go at the FFMA rate.
-    - bf16 inputs: QK^T's products are exact in f32, one bf16 tensor-core
-      pass; PV multiplies f32 weights p, which split exactly into three
-      bf16 parts (p = hi + mid + lo), each product with a bf16 v exact in
-      f32: three bf16 passes.  So 1 + 3 passes at the bf16 rate.
+    """Least time for causal attention at the reference's f32 precision,
+    as the kernel of the inputs' dtype computes it: `k4_passes` bf16
+    tensor-core passes of 2*H*hd operations per causal pair, against q, k,
+    v read once and the output written once, and one exp per pair on the
+    special-function units (a floor under the products).  A bf16 product
+    is exact in f32, so no pass rounds an operand, as TF32 would.
     Returns (ms, "bytes" | "operations")."""
     pairs = k4_pairs(Sq, Sk)
-    ops_each = 2 * H * hd * pairs
-    if elem_bytes == 2:
-        t_mma = (1 + 3) * ops_each / PEAK_BF16_FLOPS
-    else:
-        t_mma = 2 * ops_each / PEAK_F32_FLOPS
+    t_mma = k4_passes(elem_bytes) * 2 * H * hd * pairs / PEAK_BF16_FLOPS
     t_ops = max(t_mma, H * pairs / PEAK_MUFU_OPS) * 1e3
     t_bytes = elem_bytes * H * hd * (2 * Sq + 2 * Sk) / PEAK_BYTES_PER_S * 1e3
     return (t_ops, "operations") if t_ops >= t_bytes else (t_bytes, "bytes")
 
 
+def k4_ffma_ms(H, Sq, Sk, hd):
+    """Both products of f32 attention on the FFMA pipes (true f32
+    products, as PR 13's kernel ran them): 2 x 2*H*hd operations per
+    causal pair at 67 TFLOP/s, in ms."""
+    return 2 * 2 * H * hd * k4_pairs(Sq, Sk) / PEAK_F32_FLOPS * 1e3
+
+
 def phase_k4_times(ops_):
     """Phase 4, K4 at chameleon-34b's shape, float32 and bfloat16: kernel,
     plain version, scaled_dot_product_attention (causal; TF32 off, as the
-    port keeps it) and bound; device times from `queued_ms`.  For bfloat16
-    also the kernel's rate on its 4-pass work and sdpa in float32 on the
-    upcast inputs (the same precision); first it checks that the bf16
-    leg's SASS holds wgmma (HGMMA) instructions."""
+    port keeps it) and bound; device times from `queued_ms`.  Each leg's
+    rate on the bf16 passes it runs (`k4_passes`); for float32 also the
+    split pre-pass alone and the bound on the FFMA pipes, for bfloat16 sdpa
+    in float32 on the upcast inputs (the same precision).  First it checks
+    that each leg's SASS holds wgmma (HGMMA) instructions."""
     import torch
     import torch.nn.functional as F
     from repro_torch.kernels.ref import flash_attention_ref
     check(not torch.backends.cuda.matmul.allow_tf32,
           "TF32 is on for matmuls")
     from repro_torch.kernels import flash_attention_cuda
-    n_hgmma = hgmma_count(flash_attention_cuda.SOURCE)
-    log("4 times", f"flash_attention SASS: {n_hgmma} HGMMA (wgmma) "
-        f"instructions")
-    check(n_hgmma > 0, "the bf16 flash-attention leg has no HGMMA")
+    for leg in ("f32", "bf16"):
+        n_hgmma = hgmma_count(flash_attention_cuda.SOURCE,
+                              f"flash_attention_{leg}_kernel")
+        log("4 times", f"flash_attention {leg} leg SASS: {n_hgmma} HGMMA "
+            f"(wgmma) instructions")
+        check(n_hgmma > 0, f"the {leg} flash-attention leg has no HGMMA")
     gen = torch.Generator(device="cuda").manual_seed(45)
     H, Sq, Sk, hd = K4_CHAMELEON
     out = {}
@@ -818,18 +854,34 @@ def phase_k4_times(ops_):
         log("4 times", f"flash_attention {name}: host enqueue per call: "
             f"kernel {host:.4f} ms, plain {plain_host:.4f} ms, sdpa "
             f"{lib_host:.4f} ms")
-        if dtype == torch.bfloat16:
-            work = 4 * 2 * H * hd * k4_pairs(Sq, Sk)
+        passes = k4_passes(q.element_size())
+        work = passes * 2 * H * hd * k4_pairs(Sq, Sk)
+        rate = (f"flash_attention {name}: {work / ms / 1e9:.1f} TFLOP/s on "
+                f"its {passes}-pass work ({work:.4g} flop), {b_ms / ms:.3f} "
+                f"of its bound")
+        if dtype == torch.float32:
+            parts = torch.empty(flash_attention_cuda.parts_numel(
+                H, Sq, Sk, hd), dtype=torch.bfloat16, device="cuda")
+            split_ms, _ = queued_ms(
+                lambda: flash_attention_cuda.split(q, k, v, parts), reps=5,
+                calls=3)
+            log("4 times", f"{rate} (bf16x6: QK^T 6 + PV 6 passes); the "
+                f"split pre-pass alone {split_ms:.3f} ms of the call "
+                f"({1e-9 * (4 + 6) * H * hd * (Sq + 2 * Sk) / split_ms:.2f}"
+                f" TB/s on its f32 reads and bf16 writes); on the FFMA "
+                f"pipes the bound would be {k4_ffma_ms(H, Sq, Sk, hd):.3f} "
+                f"ms")
+            out[name]["split_ms"] = split_ms
+            del parts
+        else:
             qf, kf, vf = (t.float() for t in (q, k, v))
             f32_ms, _ = queued_ms(
                 lambda: F.scaled_dot_product_attention(
                     qf[None], kf[None], vf[None], is_causal=True),
                 reps=3, calls=2)
-            log("4 times", f"flash_attention bfloat16: {work / ms / 1e9:.1f} "
-                f"TFLOP/s on its 4-pass work (QK^T 1 + PV 3 bf16 passes, "
-                f"{work:.4g} flop), {b_ms / ms:.3f} of its bound; sdpa f32 "
-                f"on the upcast inputs (same precision) {f32_ms:.3f} ms, "
-                f"sdpa bf16 (P rounded to bf16) {lib_ms:.3f} ms")
+            log("4 times", f"{rate} (QK^T 1 + PV 3 passes); sdpa f32 on "
+                f"the upcast inputs (same precision) {f32_ms:.3f} ms, sdpa "
+                f"bf16 (P rounded to bf16) {lib_ms:.3f} ms")
             del qf, kf, vf
         del q, k, v
         torch.cuda.empty_cache()
@@ -1767,6 +1819,16 @@ def main(argv=None) -> int:
             elif ("registers" in line or "spill" in line
                   or "Performance Loss" in line):
                 log("2 build", "ptxas: " + line.strip())
+    # the tensor-core kernels serialize every wgmma if ptxas spills or
+    # cannot prove a warpgroup's wgmmas uniform (C7520)
+    for src in (ternary_matmul.SOURCE, flash.SOURCE):
+        text = build.BUILD_LOG.get(src.name, "")
+        spills = [ln.strip() for ln in text.splitlines()
+                  if "spill" in ln and not ln.strip().startswith(
+                      "0 bytes stack frame, 0 bytes spill stores, 0 bytes "
+                      "spill loads")]
+        check("C7520" not in text and not spills,
+              f"{src.name}: ptxas serialized wgmma or spilled: {spills}")
     for mod in mods:
         mod.load()
 

@@ -1,6 +1,7 @@
 // Causal flash attention (online softmax) for NVIDIA Hopper (sm_90a), in
-// two legs: float32 inputs on the FFMA pipes, bfloat16 inputs on the
-// tensor cores.  Plain C interface, loaded with ctypes by
+// two legs, float32 and bfloat16 inputs, both on the tensor cores with
+// wgmma (hopper.cuh) at the reference's float32 precision.  Plain C
+// interface, loaded with ctypes by
 // repro_torch/kernels/flash_attention_cuda.py.
 //
 // Both replace the TPU kernel `flash_attention_pallas`
@@ -20,64 +21,79 @@
 // The work: 2*H*hd multiply-adds for QK^T and as many for PV per causal
 // (query, key) pair, 1.37e11 operations each at chameleon-34b's 64 heads
 // x 4096 x 128, against 0.27 (bf16) or 0.54 GB (f32) of traffic: both legs
-// are bound by operations.
+// are bound by operations.  The product of two bf16 values is exact in
+// f32, and an f32 value splits exactly into three bf16 parts, so each leg
+// runs its products as a few bf16 tensor-core passes into f32
+// accumulators; neither rounds an operand as TF32 would.
 //
-// The f32 leg (bf16 == 0) keeps true float32 products, so it runs on the
-// FFMA pipes (67 TFLOP/s; 4.1 ms at that shape):
-//   * one thread block per (head, tile of BQ query rows), heaviest tiles
-//     first; 256 threads as a 16 x 16 grid, thread (ty, tx) owns query
-//     rows ty + 16*a (a < BQ/16): their running max and denominator in
-//     registers, their output columns tx + 16*c (c < HD/16) in registers;
-//   * it walks the keys in tiles of BK, stopping at the first tile that
-//     lies wholly in the future of the query tile (causal skip).  Per
-//     tile: K into shared memory (rows padded by one float, so the column
-//     walk is free of bank conflicts), the BQ x BK scores (each thread
-//     BQ/16 x BK/16 of them, key columns tx + 16*b), the row max by warp
-//     shuffles over the 16 threads of a row, p = exp(s - m) into shared
-//     memory, then V into the same buffer as K and acc += p V.
-//   BQ and BK are the caller's bq and bk (32 or 64).
-//
-// The bf16 leg (bf16 != 0) runs both products on the tensor cores with
-// wgmma (hopper.cuh), at f32 precision:
-//   * QK^T on bf16 inputs: each product of two bf16 values is exact in
-//     f32, so one bf16 pass with an f32 accumulator gives the f32 scores;
-//   * PV: p = exp(s - m) needs f32's 24 bits.  It splits exactly into
-//     three bf16 values, p = hi + mid + lo, each of whose products with a
-//     bf16 v is exact in f32, so three bf16 passes into one f32
-//     accumulator give P V at the reference's precision.  One pass would
-//     round p to bf16 (sdpa's choice); two would keep 16 of its 24 bits.
-//   So its bound is 1 + 3 bf16 passes at 989 TFLOP/s (0.556 ms at
-//   chameleon-34b's shape), beside exp on the MUFU (~0.13 ms) and the
-//   bytes (0.08 ms).  Its design:
+// Both legs share one skeleton:
 //   * one block per (head, tile of 128 query rows), heaviest causal tiles
 //     first; two consumer warpgroups of 64 query rows each (wgmma's M)
 //     and a producer warpgroup that gives them its registers
 //     (setmaxnreg: 240 a consumer thread, 24 a producer thread);
-//   * key tiles of 64 rows: the S accumulator (32 f32 a thread), the
-//     three bf16 parts of the previous tile's P (48 registers) and the
-//     hd = 128 output accumulator (64) fit in 240 registers without
-//     spilling, and a 64-row warpgroup skips whole 64-key tiles at the
-//     causal edge;
 //   * loads by TMA from tiled tensor maps (3-d, so rows past Sq or Sk of
 //     a head read as zeros, never the next head's), encoded per call on
-//     the host: Q once, K and V into a 3-stage ring with full and empty
-//     mbarriers (in trials a 2-stage ring ran slower, a 4-stage one no
-//     faster).  Rows are swizzled to their bytes (32, 64 or 128); hd = 128
-//     is two 64-column panels;
-//   * S = Q K^T by wgmma m64n64k16 from shared memory (hd/16 k-steps);
-//     scale, mask (only on tiles at the causal or ragged edge), row max
-//     (quad shuffles), alpha and p in registers; no P tile touches shared
-//     memory: the accumulator's fragment of 16 keys is the A fragment of
-//     register-A wgmma m64n{hd}k16, which runs three times per k-step on
-//     p's parts, B = V MN-major (transpose bit);
-//   * each warpgroup issues tile j's QK^T and tile j-1's three PV passes
-//     together and runs tile j's softmax while they are on the tensor
-//     cores; O is rescaled by tile j's alpha once PV has landed;
-//   * out = O / max(l, 1e-20), rounded once to bf16, rows past Sq masked.
-//   The caller's bq and bk are checked but pick nothing here.
+//     the host: Q once, K and V tile by tile into rings with full and
+//     empty mbarriers.  Rows are swizzled to their bytes (32, 64 or 128);
+//     hd = 128 is two 64-column panels;
+//   * S = Q K^T by wgmma from shared memory; scale, mask (only on tiles at
+//     the causal or ragged edge), row max (quad shuffles), alpha and
+//     p = exp(s - m) in registers, exp as 2^x on the MUFU (`ex2`); no P
+//     tile touches shared memory: the accumulator's fragment of 16 keys is
+//     the A fragment of register-A wgmma m64n{hd}k16, which runs once per
+//     bf16 part of p, B = V MN-major (transpose bit);
+//   * each warpgroup issues tile j's QK^T and tile j-1's P V together and
+//     runs tile j's softmax while they are on the tensor cores; O is
+//     rescaled by tile j's alpha once P V has landed;
+//   * out = O / max(l, 1e-20), rows past Sq masked.
+//   The caller's bq and bk are checked but pick nothing in either leg.
+//
+// The bf16 leg (bf16 != 0): QK^T on bf16 inputs is one bf16 pass; p needs
+// f32's 24 bits, so it splits into three bf16 parts rounded to nearest
+// (p = hi + mid + lo, `split3_rn`) and P V is three passes into one f32
+// accumulator (one pass would round p to bf16, sdpa's choice).  Its bound
+// is 1 + 3 bf16 passes at 989 TFLOP/s (0.556 ms at chameleon-34b's shape)
+// beside exp on the MUFU (~0.13 ms) and the bytes (0.08 ms).  Key tiles of
+// 64 rows through a 3-stage ring of K and V (in trials a 2-stage ring ran
+// slower, a 4-stage one no faster): the S accumulator (32 f32 a thread),
+// the three bf16 parts of the previous tile's P (48 registers) and the
+// hd = 128 output accumulator (64) fit in 240 registers without spilling.
+// The output is rounded once to bf16.
+//
+// The f32 leg (bf16 == 0), bf16x6: q, k, v and p each split exactly into
+// three bf16 parts by truncation (hopper.cuh's `split3`; the plain version
+// is ref.py::bf16x3_split_masked).  Of the nine products of two split
+// operands a = a0 + a1 + a2 and b = b0 + b1 + b2 it keeps six, a0 b0,
+// a0 b1, a1 b0, a0 b2, a2 b0 and a1 b1, and drops a1 b2, a2 b1 and a2 b2,
+// each under 2^-22 of |a b|: 6 passes for QK^T and 6 for P V, a bound of
+// 12 bf16 passes (1.668 ms at chameleon-34b's shape, against 4.104 ms for
+// both products on the FFMA pipes).  Each product's passes go smallest
+// term first, so a tensor-core accumulator that truncates its adds meets
+// the small terms while it is small.
+//   * the parts of q, k and v come from a pre-pass (`split_kernel`, one
+//     launch for all three) into scratch that the wrapper allocates,
+//     [3][H][S][hd] bf16 each (0.60 GB at chameleon-34b's shape); the main
+//     kernel TMA-loads parts exactly as the bf16 leg loads its inputs, the
+//     part index folded into the tensor map's head axis;
+//   * shared memory: Q's three parts for 128 rows take 96 KiB at hd = 128,
+//     one key tile's three parts 768 bytes a key.  Key tiles of 32 rows,
+//     K and V in separate 2-slot rings (4 x 24 KiB): a K slot frees once
+//     its QK^T has landed and a V slot once its P V has, so every load has
+//     a whole iteration to land; a 64-key tile with two slots would not
+//     fit beside Q (288 KiB);
+//   * QK^T is wgmma m64n32k16 from shared memory, 6 terms x hd/16 k-steps
+//     into S (16 f32 a thread); p's parts are 24 registers;
+//   * P V accumulates into O on the tensor cores through every key tile,
+//     O rescaled by alpha in f32 between tiles.  With truncating adds that
+//     accumulator drifts with depth: 8.3e-6 at chameleon-34b's shape, 0.18
+//     of the tolerance (atol 2e-5, rtol 1e-4).  A fresh accumulator per
+//     tile, added to O rounded to nearest, held 1.8e-6 in trials but took
+//     64 more registers a thread, past setmaxnreg's 240, and ptxas spilled
+//     (144 bytes; 208 at 232, 272 at 224), for no time gained.
+//   So two launches per call, the split and the attention.
 // Later work: a persistent grid (each block's first QK^T and last PV are
-// not overlapped), the f32 leg on split bf16 products (bf16x6 or bf16x9)
-// on the tensor cores.
+// not overlapped); for the f32 leg, the split of K and V inside the kernel
+// (no scratch, no pre-pass).
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -88,222 +104,21 @@
 
 namespace {
 
-// ------------------------------------------------------------ the f32 leg
-
-constexpr int kThreads = 256;   // 16 x 16
-constexpr float kMasked = -1e30f;
-
-__device__ __forceinline__ float load_f(const float* p) { return *p; }
-__device__ __forceinline__ void store_f(float* p, float v) { *p = v; }
-
-template <int HD, int BQ, int BK, typename T>
-__global__ void __launch_bounds__(kThreads)
-flash_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
-                       const T* __restrict__ v, T* __restrict__ out, int Sq,
-                       int Sk, float scale) {
-  constexpr int RA = BQ / 16;    // query rows per thread
-  constexpr int CB = BK / 16;    // score columns per thread
-  constexpr int CD = HD / 16;    // output columns per thread
-  constexpr int KS = HD + 1;     // padded row stride of the K/V tile
-  extern __shared__ float smem[];
-  float* s_q = smem;                    // [BQ][HD]
-  float* s_kv = s_q + BQ * HD;          // [BK][KS]
-  float* s_p = s_kv + BK * KS;          // [BQ][BK + 1]
-
-  const int tid = threadIdx.x;
-  const int tx = tid % 16;
-  const int ty = tid / 16;
-  const int n_qt = (Sq + BQ - 1) / BQ;
-  const int qt = n_qt - 1 - blockIdx.x;      // heaviest query tiles first
-  const int q0 = qt * BQ;
-  const int h = blockIdx.y;
-  const T* qh = q + (long long)h * Sq * HD;
-  const T* kh = k + (long long)h * Sk * HD;
-  const T* vh = v + (long long)h * Sk * HD;
-
-  for (int e = tid; e < BQ * HD; e += kThreads) {
-    const int r = e / HD, d = e % HD;
-    s_q[e] = (q0 + r < Sq) ? load_f(qh + (long long)(q0 + r) * HD + d)
-                           : 0.0f;
-  }
-
-  float m[RA], l[RA], acc[RA][CD];
-#pragma unroll
-  for (int a = 0; a < RA; ++a) {
-    m[a] = kMasked;
-    l[a] = 0.0f;
-#pragma unroll
-    for (int c = 0; c < CD; ++c) acc[a][c] = 0.0f;
-  }
-
-  // keys beyond the query tile's last row lie wholly in the future
-  const int k_end = min(Sk, q0 + BQ);
-  for (int k0 = 0; k0 < k_end; k0 += BK) {
-    __syncthreads();              // the previous tile's V is consumed
-    for (int e = tid; e < BK * HD; e += kThreads) {
-      const int r = e / HD, d = e % HD;
-      s_kv[r * KS + d] = (k0 + r < Sk)
-                             ? load_f(kh + (long long)(k0 + r) * HD + d)
-                             : 0.0f;
-    }
-    __syncthreads();
-    float s[RA][CB];
-#pragma unroll
-    for (int a = 0; a < RA; ++a)
-#pragma unroll
-      for (int b = 0; b < CB; ++b) s[a][b] = 0.0f;
-#pragma unroll 4
-    for (int d = 0; d < HD; ++d) {
-      float qv[RA], kv[CB];
-#pragma unroll
-      for (int a = 0; a < RA; ++a) qv[a] = s_q[(ty + 16 * a) * HD + d];
-#pragma unroll
-      for (int b = 0; b < CB; ++b) kv[b] = s_kv[(tx + 16 * b) * KS + d];
-#pragma unroll
-      for (int a = 0; a < RA; ++a)
-#pragma unroll
-        for (int b = 0; b < CB; ++b) s[a][b] = fmaf(qv[a], kv[b], s[a][b]);
-    }
-#pragma unroll
-    for (int a = 0; a < RA; ++a) {
-      const int qi = q0 + ty + 16 * a;
-      float mx = kMasked;
-#pragma unroll
-      for (int b = 0; b < CB; ++b) {
-        const int kj = k0 + tx + 16 * b;
-        const bool keep = kj < Sk && kj <= qi;
-        s[a][b] = keep ? s[a][b] * scale : kMasked;
-        mx = fmaxf(mx, s[a][b]);
-      }
-#pragma unroll
-      for (int off = 8; off > 0; off >>= 1)
-        mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, off));
-      const float m_new = fmaxf(m[a], mx);
-      const float alpha = expf(m[a] - m_new);
-      float rs = 0.0f;
-#pragma unroll
-      for (int b = 0; b < CB; ++b) {
-        const float p = (s[a][b] == kMasked) ? 0.0f : expf(s[a][b] - m_new);
-        rs += p;
-        s_p[(ty + 16 * a) * (BK + 1) + tx + 16 * b] = p;
-      }
-#pragma unroll
-      for (int off = 8; off > 0; off >>= 1)
-        rs += __shfl_xor_sync(0xffffffffu, rs, off);
-      l[a] = l[a] * alpha + rs;
-      m[a] = m_new;
-#pragma unroll
-      for (int c = 0; c < CD; ++c) acc[a][c] *= alpha;
-    }
-    __syncthreads();              // scores done with K; p written
-    for (int e = tid; e < BK * HD; e += kThreads) {
-      const int r = e / HD, d = e % HD;
-      s_kv[r * KS + d] = (k0 + r < Sk)
-                             ? load_f(vh + (long long)(k0 + r) * HD + d)
-                             : 0.0f;
-    }
-    __syncthreads();
-#pragma unroll 4
-    for (int j = 0; j < BK; ++j) {
-      float pv[RA], vv[CD];
-#pragma unroll
-      for (int a = 0; a < RA; ++a) pv[a] = s_p[(ty + 16 * a) * (BK + 1) + j];
-#pragma unroll
-      for (int c = 0; c < CD; ++c) vv[c] = s_kv[j * KS + tx + 16 * c];
-#pragma unroll
-      for (int a = 0; a < RA; ++a)
-#pragma unroll
-        for (int c = 0; c < CD; ++c) acc[a][c] = fmaf(pv[a], vv[c], acc[a][c]);
-    }
-  }
-
-  T* oh = out + (long long)h * Sq * HD;
-#pragma unroll
-  for (int a = 0; a < RA; ++a) {
-    const int qi = q0 + ty + 16 * a;
-    if (qi >= Sq) continue;
-    const float den = fmaxf(l[a], 1e-20f);
-#pragma unroll
-    for (int c = 0; c < CD; ++c)
-      store_f(oh + (long long)qi * HD + tx + 16 * c, acc[a][c] / den);
-  }
-}
-
-template <int HD, int BQ, int BK, typename T>
-cudaError_t launch(const void* q, const void* k, const void* v, void* out,
-                   int H, int Sq, int Sk, float scale, cudaStream_t stream) {
-  const size_t smem =
-      sizeof(float) * (BQ * HD + BK * (HD + 1) + BQ * (BK + 1));
-  auto kern = flash_attention_kernel<HD, BQ, BK, T>;
-  cudaError_t err = cudaFuncSetAttribute(
-      kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-  if (err != cudaSuccess) return err;
-  dim3 grid((Sq + BQ - 1) / BQ, H);
-  kern<<<grid, kThreads, smem, stream>>>(
-      static_cast<const T*>(q), static_cast<const T*>(k),
-      static_cast<const T*>(v), static_cast<T*>(out), Sq, Sk, scale);
-  return cudaGetLastError();
-}
-
-template <int BQ, int BK, typename T>
-cudaError_t dispatch_hd(const void* q, const void* k, const void* v,
-                        void* out, int H, int Sq, int Sk, int hd, float scale,
-                        cudaStream_t st) {
-  switch (hd) {
-    case 16: return launch<16, BQ, BK, T>(q, k, v, out, H, Sq, Sk, scale, st);
-    case 32: return launch<32, BQ, BK, T>(q, k, v, out, H, Sq, Sk, scale, st);
-    case 64: return launch<64, BQ, BK, T>(q, k, v, out, H, Sq, Sk, scale, st);
-    case 128:
-      return launch<128, BQ, BK, T>(q, k, v, out, H, Sq, Sk, scale, st);
-    default: return cudaErrorInvalidValue;
-  }
-}
-
-template <typename T>
-cudaError_t dispatch_tiles(const void* q, const void* k, const void* v,
-                           void* out, int H, int Sq, int Sk, int hd, int bq,
-                           int bk, float scale, cudaStream_t st) {
-  if (bq == 64 && bk == 64)
-    return dispatch_hd<64, 64, T>(q, k, v, out, H, Sq, Sk, hd, scale, st);
-  if (bq == 64 && bk == 32)
-    return dispatch_hd<64, 32, T>(q, k, v, out, H, Sq, Sk, hd, scale, st);
-  if (bq == 32 && bk == 64)
-    return dispatch_hd<32, 64, T>(q, k, v, out, H, Sq, Sk, hd, scale, st);
-  if (bq == 32 && bk == 32)
-    return dispatch_hd<32, 32, T>(q, k, v, out, H, Sq, Sk, hd, scale, st);
-  return cudaErrorInvalidValue;
-}
-
-// ------------------------------------------------------------ the bf16 leg
-
-namespace bf16_leg {
-
 using namespace hopper;
 
+// ------------------------------------------------------ shared by the legs
+
 constexpr int kBQ = 128;          // query rows per block
-constexpr int kBK = 64;           // key rows per tile
-constexpr int kStages = 3;        // K/V tiles in flight
 constexpr int kConsumers = 256;   // two warpgroups of 64 query rows each
-constexpr int kThreads = kConsumers + 128;  // and a producer warpgroup
 constexpr float kLog2e = 1.4426950408889634f;
 
-// Shared-memory layout of one head dim.  Every tile is stored as TMA
-// writes it: panels of at most 64 columns (128 bytes a row) with the
-// swizzle of the panel's row bytes, so hd = 128 is two panels.
+// Tiles as TMA writes them: panels of at most 64 columns (128 bytes a row)
+// with the swizzle of the panel's row bytes, so hd = 128 is two panels.
 template <int HD>
-struct Geometry {
-  static constexpr int kPanelCols = HD < 64 ? HD : 64;
-  static constexpr int kRowBytes = 2 * kPanelCols;      // 32, 64 or 128
-  static constexpr int kPanels = HD / kPanelCols;
-  static constexpr int kQPanel = kBQ * kRowBytes;       // bytes
-  static constexpr int kQBytes = kPanels * kQPanel;
-  static constexpr int kKPanel = kBK * kRowBytes;
-  static constexpr int kTileBytes = kPanels * kKPanel;  // one K or V tile
-  static constexpr int kStageBytes = 2 * kTileBytes;    // K then V
-  static constexpr int kBarBytes = 8 * (1 + 2 * kStages);
-  // + 1024 to align the tiles to the 128-byte swizzle's 1024-byte atom
-  static constexpr int kSmem = 1024 + kQBytes + kStages * kStageBytes +
-                               kBarBytes;
+struct Panels {
+  static constexpr int kCols = HD < 64 ? HD : 64;
+  static constexpr int kRowBytes = 2 * kCols;        // 32, 64 or 128
+  static constexpr int kCount = HD / kCols;
 };
 
 // 2^x on the special-function unit (MUFU.EX2, an f32 result within 2
@@ -316,6 +131,80 @@ __device__ __forceinline__ float ex2(float x) {
   return y;
 }
 
+// Masks one tile of BK keys' scores (keys from k0; only when `kMasked`:
+// the tile holds keys past Sk or past one of its rows), updates the
+// running max m (of the scaled scores, in log2 units) and this thread's
+// share l of the row sums, and leaves p = exp(s * scale - max) =
+// 2^(s * scale_log2 - m) in sc and the rescale factor of the earlier tiles
+// in alpha.  Element i of the accumulator is row row0 + 8 * ((i / 2) % 2),
+// key k0 + 8 * (i / 4) + 2 * t + i % 2; the four threads of a quad share a
+// row.
+template <int BK, bool kMasked>
+__device__ __forceinline__ void softmax_tile(float (&sc)[BK / 2],
+                                             float (&m)[2], float (&l)[2],
+                                             float (&alpha)[2], int k0,
+                                             int Sk, int row0, int t,
+                                             float scale_log2) {
+  float mx[2] = {-INFINITY, -INFINITY};
+#pragma unroll
+  for (int i = 0; i < BK / 2; ++i) {
+    const int r = (i / 2) % 2;
+    float x = sc[i];
+    if (kMasked) {
+      const int kj = k0 + 8 * (i / 4) + 2 * t + i % 2;
+      if (kj >= Sk || kj > row0 + 8 * r) x = -INFINITY;
+    }
+    sc[i] = x;
+    mx[r] = fmaxf(mx[r], x);
+  }
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 1));
+    mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 2));
+    const float m_new = fmaxf(m[r], mx[r] * scale_log2);
+    alpha[r] = m_new == -INFINITY ? 1.0f : ex2(m[r] - m_new);
+    m[r] = m_new;
+    l[r] *= alpha[r];
+  }
+#pragma unroll
+  for (int i = 0; i < BK / 2; ++i) {
+    const int r = (i / 2) % 2;
+    sc[i] = ex2(fmaf(sc[i], scale_log2, -m[r]));
+    l[r] += sc[i];
+  }
+}
+
+// the row sums over each quad: l becomes the whole row's denominator
+__device__ __forceinline__ void quad_sum(float (&l)[2]) {
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    l[r] += __shfl_xor_sync(0xffffffffu, l[r], 1);
+    l[r] += __shfl_xor_sync(0xffffffffu, l[r], 2);
+  }
+}
+
+// ------------------------------------------------------------ the bf16 leg
+
+namespace bf16_leg {
+
+constexpr int kBK = 64;           // key rows per tile
+constexpr int kStages = 3;        // K/V tiles in flight
+constexpr int kThreads = kConsumers + 128;  // and a producer warpgroup
+
+// Shared-memory layout of one head dim: Q, then the ring of K and V tiles.
+template <int HD>
+struct Geometry : Panels<HD> {
+  static constexpr int kQPanel = kBQ * Panels<HD>::kRowBytes;   // bytes
+  static constexpr int kQBytes = Panels<HD>::kCount * kQPanel;
+  static constexpr int kKPanel = kBK * Panels<HD>::kRowBytes;
+  static constexpr int kTileBytes = Panels<HD>::kCount * kKPanel;
+  static constexpr int kStageBytes = 2 * kTileBytes;    // K then V
+  static constexpr int kBarBytes = 8 * (1 + 2 * kStages);
+  // + 1024 to align the tiles to the 128-byte swizzle's 1024-byte atom
+  static constexpr int kSmem = 1024 + kQBytes + kStages * kStageBytes +
+                               kBarBytes;
+};
+
 // Two f32 values as bf16x2, the first in the low half (the lower column
 // of an mma fragment).
 __device__ __forceinline__ uint32_t pack_bf16(__nv_bfloat162 v) {
@@ -327,8 +216,8 @@ __device__ __forceinline__ uint32_t pack_bf16(__nv_bfloat162 v) {
 // (below, lo rounds at bf16's smallest subnormal step, an error of at most
 // 2^-134 on a weight that small against the row's largest, 1);
 // kernels/ref.py::bf16x3_split is the plain version.
-__device__ __forceinline__ void split3(float a, float b, uint32_t& hi,
-                                       uint32_t& mid, uint32_t& lo) {
+__device__ __forceinline__ void split3_rn(float a, float b, uint32_t& hi,
+                                          uint32_t& mid, uint32_t& lo) {
   const __nv_bfloat162 h = __floats2bfloat162_rn(a, b);
   const float2 hf = __bfloat1622float2(h);
   const float ra = a - hf.x, rb = b - hf.y;
@@ -348,8 +237,8 @@ __device__ __forceinline__ void issue_qk(float (&sc)[kBK / 2],
   using G = Geometry<HD>;
 #pragma unroll
   for (int kk = 0; kk < HD / 16; ++kk) {
-    const int p = kk * 16 / G::kPanelCols;
-    const int off = (kk * 16 % G::kPanelCols) * 2;
+    const int p = kk * 16 / G::kCols;
+    const int off = (kk * 16 % G::kCols) * 2;
     wgmma_ss<kBK>(
         sc, make_desc(q_w + p * G::kQPanel + off, 16, 8 * G::kRowBytes,
                       G::kRowBytes),
@@ -384,50 +273,8 @@ __device__ __forceinline__ void split_tile(const float (&sc)[kBK / 2],
   for (int kk = 0; kk < kBK / 16; ++kk)
 #pragma unroll
     for (int e = 0; e < 4; ++e)
-      split3(sc[8 * kk + 2 * e], sc[8 * kk + 2 * e + 1], pp[kk][0][e],
-             pp[kk][1][e], pp[kk][2][e]);
-}
-
-// Masks one tile's scores (keys from k0; only when `kMasked`: the tile
-// holds keys past Sk or past one of its rows), updates the running max m
-// (of the scaled scores, in log2 units) and this thread's share l of the row
-// sums, and leaves p = exp(s * scale - max) = 2^(s * scale_log2 - m) in
-// sc and the rescale factor of the earlier tiles in alpha.  Element i of
-// the accumulator is row row0 + 8 * ((i / 2) % 2), key k0 + 8 * (i / 4) +
-// 2 * t + i % 2; the four threads of a quad share a row.
-template <bool kMasked>
-__device__ __forceinline__ void softmax_tile(float (&sc)[kBK / 2],
-                                             float (&m)[2], float (&l)[2],
-                                             float (&alpha)[2], int k0,
-                                             int Sk, int row0, int t,
-                                             float scale_log2) {
-  float mx[2] = {-INFINITY, -INFINITY};
-#pragma unroll
-  for (int i = 0; i < kBK / 2; ++i) {
-    const int r = (i / 2) % 2;
-    float x = sc[i];
-    if (kMasked) {
-      const int kj = k0 + 8 * (i / 4) + 2 * t + i % 2;
-      if (kj >= Sk || kj > row0 + 8 * r) x = -INFINITY;
-    }
-    sc[i] = x;
-    mx[r] = fmaxf(mx[r], x);
-  }
-#pragma unroll
-  for (int r = 0; r < 2; ++r) {
-    mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 1));
-    mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 2));
-    const float m_new = fmaxf(m[r], mx[r] * scale_log2);
-    alpha[r] = m_new == -INFINITY ? 1.0f : ex2(m[r] - m_new);
-    m[r] = m_new;
-    l[r] *= alpha[r];
-  }
-#pragma unroll
-  for (int i = 0; i < kBK / 2; ++i) {
-    const int r = (i / 2) % 2;
-    sc[i] = ex2(fmaf(sc[i], scale_log2, -m[r]));
-    l[r] += sc[i];
-  }
+      split3_rn(sc[8 * kk + 2 * e], sc[8 * kk + 2 * e + 1], pp[kk][0][e],
+                pp[kk][1][e], pp[kk][2][e]);
 }
 
 // One block per (head, tile of kBQ query rows), heaviest causal tiles
@@ -479,19 +326,18 @@ flash_attention_bf16_kernel(const __grid_constant__ CUtensorMap tq,
     if (tid == kConsumers) {
       const int n_kt = (min(Sk, q0 + kBQ) + kBK - 1) / kBK;
       mbar_arrive_expect_tx(q_full, G::kQBytes);
-      for (int p = 0; p < G::kPanels; ++p)
-        tma_load_3d(s_q + p * G::kQPanel, &tq, q_full, p * G::kPanelCols, q0,
-                    h);
+      for (int p = 0; p < G::kCount; ++p)
+        tma_load_3d(s_q + p * G::kQPanel, &tq, q_full, p * G::kCols, q0, h);
       for (int j = 0; j < n_kt; ++j) {
         const int s = j % kStages;
         if (j >= kStages) mbar_wait(&empty[s], ((j / kStages) - 1) & 1);
         mbar_arrive_expect_tx(&full[s], G::kStageBytes);
         uint8_t* kt = s_kv + s * G::kStageBytes;
-        for (int p = 0; p < G::kPanels; ++p) {
-          tma_load_3d(kt + p * G::kKPanel, &tk, &full[s], p * G::kPanelCols,
+        for (int p = 0; p < G::kCount; ++p) {
+          tma_load_3d(kt + p * G::kKPanel, &tk, &full[s], p * G::kCols,
                       j * kBK, h);
           tma_load_3d(kt + G::kTileBytes + p * G::kKPanel, &tv, &full[s],
-                      p * G::kPanelCols, j * kBK, h);
+                      p * G::kCols, j * kBK, h);
         }
       }
     }
@@ -520,9 +366,10 @@ flash_attention_bf16_kernel(const __grid_constant__ CUtensorMap tq,
   // the mask is needed where a tile holds keys past Sk or past a row
   auto softmax = [&](int k0) {
     if (k0 + kBK > Sk || k0 + kBK - 1 > wg_first)
-      softmax_tile<true>(sc, m, l, alpha, k0, Sk, row0, t, scale_log2);
+      softmax_tile<kBK, true>(sc, m, l, alpha, k0, Sk, row0, t, scale_log2);
     else
-      softmax_tile<false>(sc, m, l, alpha, k0, Sk, row0, t, scale_log2);
+      softmax_tile<kBK, false>(sc, m, l, alpha, k0, Sk, row0, t,
+                               scale_log2);
   };
   // Tile j's QK^T and tile j-1's P V are issued together; tile j's
   // softmax runs while P V is on the tensor cores, and O is rescaled by
@@ -566,10 +413,9 @@ flash_attention_bf16_kernel(const __grid_constant__ CUtensorMap tq,
   fence_regs(o);
 
   // out = O / max(l, 1e-20), rounded once to bf16; rows past Sq unwritten
+  quad_sum(l);
 #pragma unroll
   for (int r = 0; r < 2; ++r) {
-    l[r] += __shfl_xor_sync(0xffffffffu, l[r], 1);
-    l[r] += __shfl_xor_sync(0xffffffffu, l[r], 2);
     const int qi = row0 + 8 * r;
     if (qi >= Sq) continue;
     const float inv = 1.0f / fmaxf(l[r], 1e-20f);
@@ -587,12 +433,11 @@ cudaError_t launch(const void* q, const void* k, const void* v, void* out,
                    int H, int Sq, int Sk, float scale, cudaStream_t stream) {
   using G = Geometry<HD>;
   CUtensorMap tq, tk, tv;
-  cudaError_t err =
-      encode_tiled_3d(&tq, q, HD, Sq, H, G::kPanelCols, kBQ);
+  cudaError_t err = encode_tiled_3d(&tq, q, HD, Sq, H, G::kCols, kBQ);
   if (err == cudaSuccess)
-    err = encode_tiled_3d(&tk, k, HD, Sk, H, G::kPanelCols, kBK);
+    err = encode_tiled_3d(&tk, k, HD, Sk, H, G::kCols, kBK);
   if (err == cudaSuccess)
-    err = encode_tiled_3d(&tv, v, HD, Sk, H, G::kPanelCols, kBK);
+    err = encode_tiled_3d(&tv, v, HD, Sk, H, G::kCols, kBK);
   if (err != cudaSuccess) return err;
   auto kern = flash_attention_bf16_kernel<HD>;
   err = cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize,
@@ -604,35 +449,373 @@ cudaError_t launch(const void* q, const void* k, const void* v, void* out,
   return cudaGetLastError();
 }
 
-cudaError_t dispatch_hd(const void* q, const void* k, const void* v,
-                        void* out, int H, int Sq, int Sk, int hd, float scale,
-                        cudaStream_t st) {
-  switch (hd) {
-    case 16: return launch<16>(q, k, v, out, H, Sq, Sk, scale, st);
-    case 32: return launch<32>(q, k, v, out, H, Sq, Sk, scale, st);
-    case 64: return launch<64>(q, k, v, out, H, Sq, Sk, scale, st);
-    case 128: return launch<128>(q, k, v, out, H, Sq, Sk, scale, st);
-    default: return cudaErrorInvalidValue;
+}  // namespace bf16_leg
+
+// ------------------------------------------------------------- the f32 leg
+
+namespace f32_leg {
+
+constexpr int kBK = 32;           // key rows per tile
+constexpr int kStages = 2;        // slots of the K ring and of the V ring
+constexpr int kThreads = kConsumers + 128;  // and a producer warpgroup
+
+// Shared-memory layout of one head dim: Q's three parts, the ring of K
+// tiles, the ring of V tiles (each tile its three parts), the barriers.
+template <int HD>
+struct Geometry : Panels<HD> {
+  static constexpr int kQPanel = kBQ * Panels<HD>::kRowBytes;   // bytes
+  static constexpr int kQPart = Panels<HD>::kCount * kQPanel;
+  static constexpr int kKPanel = kBK * Panels<HD>::kRowBytes;
+  static constexpr int kPart = Panels<HD>::kCount * kKPanel;  // of a tile
+  static constexpr int kTile = 3 * kPart;
+  static constexpr int kBarBytes = 8 * (1 + 4 * kStages);
+  // + 1024 to align the tiles to the 128-byte swizzle's 1024-byte atom
+  static constexpr int kSmem = 1024 + 3 * kQPart + 2 * kStages * kTile +
+                               kBarBytes;
+};
+
+// The six kept terms a_i b_j of two split operands, smallest first (a2 b0,
+// a0 b2, a1 b1, a1 b0, a0 b1, a0 b0): the part i of the left operand (q or
+// p) and j of the right one (k or v), term t in nibble t.
+__device__ __forceinline__ constexpr int term_left(int term) {
+  return (0x001102 >> (4 * term)) & 0xF;
+}
+__device__ __forceinline__ constexpr int term_right(int term) {
+  return (0x010120 >> (4 * term)) & 0xF;
+}
+
+// q, k and v -> their bf16 parts, [3][H][S][hd] each, q's then k's then
+// v's: blockIdx.y picks the tensor, each thread splits float4s.
+__global__ void __launch_bounds__(256)
+split_kernel(const float4* __restrict__ q, const float4* __restrict__ k,
+             const float4* __restrict__ v, uint2* __restrict__ parts,
+             long long nq4, long long nk4) {
+  const int y = blockIdx.y;
+  const float4* src = y == 0 ? q : y == 1 ? k : v;
+  const long long n4 = y == 0 ? nq4 : nk4;
+  uint2* dst = parts + (y == 0 ? 0 : 3 * nq4 + (y - 1) * 3 * nk4);
+  for (long long i = blockIdx.x * 256LL + threadIdx.x; i < n4;
+       i += 256LL * gridDim.x) {
+    const float4 x = src[i];
+    uint2 hi, mid, lo;
+    split3(x.x, x.y, hi.x, mid.x, lo.x);
+    split3(x.z, x.w, hi.y, mid.y, lo.y);
+    dst[i] = hi;
+    dst[n4 + i] = mid;
+    dst[2 * n4 + i] = lo;
   }
 }
 
-}  // namespace bf16_leg
+// S = Q K^T for one warpgroup's 64 rows and one key tile, the six terms
+// of the parts: Q and K both K-major, each k-step's 32 bytes inside a
+// swizzled row of a panel.
+template <int HD>
+__device__ __forceinline__ void issue_qk(float (&sc)[kBK / 2],
+                                         const uint8_t* q_w,
+                                         const uint8_t* kt) {
+  using G = Geometry<HD>;
+#pragma unroll
+  for (int term = 0; term < 6; ++term)
+#pragma unroll
+    for (int kk = 0; kk < HD / 16; ++kk) {
+      const int c = kk * 16 / G::kCols;
+      const int off = (kk * 16 % G::kCols) * 2;
+      wgmma_ss<kBK>(sc,
+                    make_desc(q_w + term_left(term) * G::kQPart +
+                                  c * G::kQPanel + off,
+                              16, 8 * G::kRowBytes, G::kRowBytes),
+                    make_desc(kt + term_right(term) * G::kPart +
+                                  c * G::kKPanel + off,
+                              16, 8 * G::kRowBytes, G::kRowBytes),
+                    term > 0 || kk > 0);
+    }
+}
+
+// O += P V for one key tile, the six terms of p's parts (registers) and
+// V's (shared memory, MN-major: k-steps 16 rows apart, panels one leading
+// offset apart).
+template <int HD>
+__device__ __forceinline__ void issue_pv(float (&o)[HD / 2],
+                                         const uint32_t (&pp)[kBK / 16][3][4],
+                                         const uint8_t* vt) {
+  using G = Geometry<HD>;
+#pragma unroll
+  for (int term = 0; term < 6; ++term)
+#pragma unroll
+    for (int kk = 0; kk < kBK / 16; ++kk)
+      wgmma_rs_tb<HD>(o, pp[kk][term_left(term)],
+                      make_desc(vt + term_right(term) * G::kPart +
+                                    kk * 16 * G::kRowBytes,
+                                G::kKPanel, 8 * G::kRowBytes, G::kRowBytes));
+}
+
+// p's parts by truncation: the accumulator's fragment of keys 16 kk ..
+// 16 kk + 15 is the A fragment of k-step kk, registers {8 kk + 2 e,
+// 8 kk + 2 e + 1}, e < 4.
+__device__ __forceinline__ void split_tile(const float (&sc)[kBK / 2],
+                                           uint32_t (&pp)[kBK / 16][3][4]) {
+#pragma unroll
+  for (int kk = 0; kk < kBK / 16; ++kk)
+#pragma unroll
+    for (int e = 0; e < 4; ++e)
+      split3(sc[8 * kk + 2 * e], sc[8 * kk + 2 * e + 1], pp[kk][0][e],
+             pp[kk][1][e], pp[kk][2][e]);
+}
+
+// TMA loads of one K or V tile's three parts (key rows from k0 of head h)
+// into `dst`, counted on `bar`; part i of head h is row i * H + h of the
+// tensor map's outer axis.
+template <int HD>
+__device__ __forceinline__ void load_tile(uint8_t* dst, const CUtensorMap* map,
+                                          uint64_t* bar, int k0, int h,
+                                          int H) {
+  using G = Geometry<HD>;
+  mbar_arrive_expect_tx(bar, G::kTile);
+  for (int part = 0; part < 3; ++part)
+    for (int c = 0; c < G::kCount; ++c)
+      tma_load_3d(dst + part * G::kPart + c * G::kKPanel, map, bar,
+                  c * G::kCols, k0, part * H + h);
+}
+
+// One block per (head, tile of kBQ query rows), heaviest causal tiles
+// first; warpgroup 2 loads, warpgroups 0 and 1 each own 64 query rows (the
+// skeleton in the file's header).  Per key tile: S = Q K^T in 6 passes
+// from shared memory, the online softmax in registers, p split into three
+// bf16 parts, then P V in 6 register-A passes.
+template <int HD>
+__global__ void __launch_bounds__(kThreads, 1)
+flash_attention_f32_kernel(const __grid_constant__ CUtensorMap tq,
+                           const __grid_constant__ CUtensorMap tk,
+                           const __grid_constant__ CUtensorMap tv,
+                           float* __restrict__ out, int H, int Sq, int Sk,
+                           float scale_log2) {
+  using G = Geometry<HD>;
+  extern __shared__ uint8_t smem_raw[];
+  uint8_t* s_q = reinterpret_cast<uint8_t*>(
+      (reinterpret_cast<uintptr_t>(smem_raw) + 1023) & ~uintptr_t(1023));
+  uint8_t* s_k = s_q + 3 * G::kQPart;
+  uint8_t* s_v = s_k + kStages * G::kTile;
+  uint64_t* q_full = reinterpret_cast<uint64_t*>(s_v + kStages * G::kTile);
+  uint64_t* k_full = q_full + 1;
+  uint64_t* k_empty = k_full + kStages;
+  uint64_t* v_full = k_empty + kStages;
+  uint64_t* v_empty = v_full + kStages;
+
+  const int tid = threadIdx.x;
+  const int n_qt = (Sq + kBQ - 1) / kBQ;
+  const int q0 = (n_qt - 1 - (int)blockIdx.x) * kBQ;
+  const int h = blockIdx.y;
+
+  if (tid == 0) {
+    mbar_init(q_full, 1);
+    for (int s = 0; s < kStages; ++s) {
+      mbar_init(&k_full[s], 1);
+      mbar_init(&v_full[s], 1);
+      mbar_init(&k_empty[s], kConsumers / 32);   // lane 0 of each warp
+      mbar_init(&v_empty[s], kConsumers / 32);
+    }
+    mbar_fence_init();
+  }
+  __syncthreads();
+
+  if (tid >= kConsumers) {
+    // the producer, as in the bf16 leg: the K ring and the V ring each
+    // wait for their own slot to be released by both warpgroups
+    setmaxnreg_dec<24>();
+    if (tid == kConsumers) {
+      const int n_kt = (min(Sk, q0 + kBQ) + kBK - 1) / kBK;
+      mbar_arrive_expect_tx(q_full, 3 * G::kQPart);
+      for (int part = 0; part < 3; ++part)
+        for (int c = 0; c < G::kCount; ++c)
+          tma_load_3d(s_q + part * G::kQPart + c * G::kQPanel, &tq, q_full,
+                      c * G::kCols, q0, part * H + h);
+      for (int j = 0; j < n_kt; ++j) {
+        const int s = j % kStages;
+        if (j >= kStages) mbar_wait(&k_empty[s], ((j / kStages) - 1) & 1);
+        load_tile<HD>(s_k + s * G::kTile, &tk, &k_full[s], j * kBK, h, H);
+        if (j >= kStages) mbar_wait(&v_empty[s], ((j / kStages) - 1) & 1);
+        load_tile<HD>(s_v + s * G::kTile, &tv, &v_full[s], j * kBK, h, H);
+      }
+    }
+    return;
+  }
+
+  setmaxnreg_inc<240>();
+  const int wg = tid / 128;
+  const int warp = (tid % 128) / 32;
+  const int lane = tid % 32;
+  const int t = lane % 4;
+  const int row0 = q0 + wg * 64 + warp * 16 + lane / 4;   // and row0 + 8
+  const int wg_first = q0 + wg * 64;
+  const int n_kt = (min(Sk, wg_first + 64) + kBK - 1) / kBK;
+  const uint8_t* q_w = s_q + wg * 64 * G::kRowBytes;
+
+  float o[HD / 2];
+#pragma unroll
+  for (int i = 0; i < HD / 2; ++i) o[i] = 0.0f;
+  float m[2] = {-INFINITY, -INFINITY};
+  float l[2] = {0.0f, 0.0f};   // this thread's share of the row sums
+  float sc[kBK / 2];           // S, then p, of the newest tile
+  float alpha[2];
+  uint32_t pp[kBK / 16][3][4];  // the previous tile's p, split
+
+  auto softmax = [&](int k0) {
+    if (k0 + kBK > Sk || k0 + kBK - 1 > wg_first)
+      softmax_tile<kBK, true>(sc, m, l, alpha, k0, Sk, row0, t, scale_log2);
+    else
+      softmax_tile<kBK, false>(sc, m, l, alpha, k0, Sk, row0, t,
+                               scale_log2);
+  };
+
+  // Tile j's QK^T and tile j-1's P V are issued together; tile j's
+  // softmax runs while P V is on the tensor cores, and O is rescaled by
+  // tile j's alpha once P V has landed.
+  mbar_wait(q_full, 0);
+  mbar_wait(&k_full[0], 0);
+  fence_regs(sc);
+  wgmma_fence();
+  issue_qk<HD>(sc, q_w, s_k);
+  wgmma_commit();
+  wgmma_wait<0>();
+  fence_regs(sc);
+  if (lane == 0) mbar_arrive(&k_empty[0]);
+  softmax(0);
+  for (int j = 1; j < n_kt; ++j) {
+    const int sk = j % kStages;
+    const int sv = (j - 1) % kStages;
+    split_tile(sc, pp);
+    mbar_wait(&k_full[sk], (j / kStages) & 1);
+    mbar_wait(&v_full[sv], ((j - 1) / kStages) & 1);
+    fence_regs(o);
+    wgmma_fence();
+    issue_qk<HD>(sc, q_w, s_k + sk * G::kTile);
+    wgmma_commit();
+    issue_pv<HD>(o, pp, s_v + sv * G::kTile);
+    wgmma_commit();
+    wgmma_wait<1>();
+    fence_regs(sc);
+    if (lane == 0) mbar_arrive(&k_empty[sk]);
+    softmax(j * kBK);
+    wgmma_wait<0>();
+    fence_regs(o);
+    if (lane == 0) mbar_arrive(&v_empty[sv]);
+#pragma unroll
+    for (int i = 0; i < HD / 2; ++i) o[i] *= alpha[(i / 2) % 2];
+  }
+  // the last tile's P V; its V slot is released too, since the other
+  // warpgroup may have up to two key tiles more for the producer to load
+  const int sv = (n_kt - 1) % kStages;
+  split_tile(sc, pp);
+  mbar_wait(&v_full[sv], ((n_kt - 1) / kStages) & 1);
+  fence_regs(o);
+  wgmma_fence();
+  issue_pv<HD>(o, pp, s_v + sv * G::kTile);
+  wgmma_commit();
+  wgmma_wait<0>();
+  fence_regs(o);
+  if (lane == 0) mbar_arrive(&v_empty[sv]);
+
+  // out = O / max(l, 1e-20); rows past Sq unwritten
+  quad_sum(l);
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const int qi = row0 + 8 * r;
+    if (qi >= Sq) continue;
+    const float inv = 1.0f / fmaxf(l[r], 1e-20f);
+    float* orow = out + ((long long)h * Sq + qi) * HD + 2 * t;
+#pragma unroll
+    for (int c = 0; c < HD / 8; ++c)
+      *reinterpret_cast<float2*>(orow + 8 * c) =
+          make_float2(o[4 * c + 2 * r] * inv, o[4 * c + 2 * r + 1] * inv);
+  }
+}
+
+cudaError_t split(const void* q, const void* k, const void* v, void* parts,
+                  int H, int Sq, int Sk, int hd, cudaStream_t stream) {
+  const long long nq4 = (long long)H * Sq * hd / 4;
+  const long long nk4 = (long long)H * Sk * hd / 4;
+  const long long blocks = ((nq4 > nk4 ? nq4 : nk4) + 255) / 256;
+  dim3 grid((unsigned)(blocks < 132 * 8 ? blocks : 132 * 8), 3);
+  split_kernel<<<grid, 256, 0, stream>>>(
+      static_cast<const float4*>(q), static_cast<const float4*>(k),
+      static_cast<const float4*>(v), static_cast<uint2*>(parts), nq4, nk4);
+  return cudaGetLastError();
+}
+
+template <int HD>
+cudaError_t launch(const void* parts, void* out, int H, int Sq, int Sk,
+                   float scale, cudaStream_t stream) {
+  using G = Geometry<HD>;
+  const __nv_bfloat16* pq = static_cast<const __nv_bfloat16*>(parts);
+  const __nv_bfloat16* pk = pq + 3LL * H * Sq * HD;
+  const __nv_bfloat16* pv = pk + 3LL * H * Sk * HD;
+  CUtensorMap tq, tk, tv;
+  cudaError_t err = encode_tiled_3d(&tq, pq, HD, Sq, 3 * H, G::kCols, kBQ);
+  if (err == cudaSuccess)
+    err = encode_tiled_3d(&tk, pk, HD, Sk, 3 * H, G::kCols, kBK);
+  if (err == cudaSuccess)
+    err = encode_tiled_3d(&tv, pv, HD, Sk, 3 * H, G::kCols, kBK);
+  if (err != cudaSuccess) return err;
+  auto kern = flash_attention_f32_kernel<HD>;
+  err = cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             G::kSmem);
+  if (err != cudaSuccess) return err;
+  dim3 grid((Sq + kBQ - 1) / kBQ, H);
+  kern<<<grid, kThreads, G::kSmem, stream>>>(
+      tq, tk, tv, static_cast<float*>(out), H, Sq, Sk, scale * kLog2e);
+  return cudaGetLastError();
+}
+
+}  // namespace f32_leg
 
 }  // namespace
 
+// The parts of float32 q, k and v into `parts` (bf16, 3 * H * (Sq + 2 Sk)
+// * hd elements): the f32 leg's pre-pass, launched alone.
+extern "C" int flash_attention_split(const void* q, const void* k,
+                                     const void* v, void* parts, int H,
+                                     int Sq, int Sk, int hd, void* stream) {
+  if (H <= 0 || Sq <= 0 || Sk <= 0 || hd % 4 != 0 || parts == nullptr)
+    return (int)cudaErrorInvalidValue;
+  return (int)f32_leg::split(q, k, v, parts, H, Sq, Sk, hd,
+                             static_cast<cudaStream_t>(stream));
+}
+
+// One call of the op: bf16 q, k, v in one launch; float32 in two, the
+// split into `parts` (as `flash_attention_split`), then the attention.
 extern "C" int flash_attention_launch(const void* q, const void* k,
-                                      const void* v, void* out, int H, int Sq,
-                                      int Sk, int hd, int bq, int bk,
-                                      int bf16, float scale, void* stream) {
-  if (H <= 0 || Sq <= 0 || Sk <= 0 || H > 65535)
+                                      const void* v, void* out, void* parts,
+                                      int H, int Sq, int Sk, int hd, int bq,
+                                      int bk, int bf16, float scale,
+                                      void* stream) {
+  if (H <= 0 || Sq <= 0 || Sk <= 0 || H > 65535 ||
+      (bq != 32 && bq != 64) || (bk != 32 && bk != 64))
+    return (int)cudaErrorInvalidValue;
+  if (hd != 16 && hd != 32 && hd != 64 && hd != 128)
     return (int)cudaErrorInvalidValue;
   auto st = static_cast<cudaStream_t>(stream);
   if (bf16) {
-    if ((bq != 32 && bq != 64) || (bk != 32 && bk != 64))
-      return (int)cudaErrorInvalidValue;
-    return (int)bf16_leg::dispatch_hd(q, k, v, out, H, Sq, Sk, hd, scale,
-                                      st);
+    switch (hd) {
+      case 16: return (int)bf16_leg::launch<16>(q, k, v, out, H, Sq, Sk,
+                                                scale, st);
+      case 32: return (int)bf16_leg::launch<32>(q, k, v, out, H, Sq, Sk,
+                                                scale, st);
+      case 64: return (int)bf16_leg::launch<64>(q, k, v, out, H, Sq, Sk,
+                                                scale, st);
+      default: return (int)bf16_leg::launch<128>(q, k, v, out, H, Sq, Sk,
+                                                 scale, st);
+    }
   }
-  return (int)dispatch_tiles<float>(q, k, v, out, H, Sq, Sk, hd, bq, bk,
-                                    scale, st);
+  int err = flash_attention_split(q, k, v, parts, H, Sq, Sk, hd, stream);
+  if (err != 0) return err;
+  switch (hd) {
+    case 16: return (int)f32_leg::launch<16>(parts, out, H, Sq, Sk, scale,
+                                             st);
+    case 32: return (int)f32_leg::launch<32>(parts, out, H, Sq, Sk, scale,
+                                             st);
+    case 64: return (int)f32_leg::launch<64>(parts, out, H, Sq, Sk, scale,
+                                             st);
+    default: return (int)f32_leg::launch<128>(parts, out, H, Sq, Sk, scale,
+                                              st);
+  }
 }

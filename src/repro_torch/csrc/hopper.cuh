@@ -2,8 +2,9 @@
 // tiled loads through tensor maps, cp.async copies that complete on an
 // mbarrier, thread-block clusters and their distributed shared memory, and
 // warpgroup matrix products (wgmma) on bf16 operands with f32
-// accumulators.  Header only; shared by the port's kernels that run on the
-// tensor cores.
+// accumulators, and the exact split of f32 values into bf16 parts that
+// runs f32 products on them.  Header only; shared by the port's kernels
+// that run on the tensor cores.
 //
 // Tensor maps are encoded on the host by `cuTensorMapEncodeTiled`, which
 // `encode_tiled_3d` looks up through the CUDA runtime, so a library that
@@ -228,6 +229,33 @@ __device__ __forceinline__ void setmaxnreg_dec() {
   asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;\n" ::"n"(R));
 }
 
+// ------------------------------------------------------------- bf16 splits
+
+// x = hi + mid + lo for two f32 values, each part a bf16 (packed in pairs,
+// the first value in the low half): hi keeps x's top 16 bits, mid the top
+// 16 bits of the rest, lo what is left, all by truncation, which is exact
+// wherever |x| >= 2^-110 and never overflows near FLT_MAX.  An Inf or NaN
+// stays in hi (a NaN as a NaN, whatever its payload), with mid = lo = 0.
+// The product of two bf16 parts is exact in f32, so sums of such products
+// on the tensor cores give f32 products; repro_torch/kernels/ref.py::
+// bf16x3_split_masked is the plain version.
+__device__ __forceinline__ void split3(float a, float b, uint32_t& hi,
+                                       uint32_t& mid, uint32_t& lo) {
+  uint32_t ua = __float_as_uint(a), ub = __float_as_uint(b);
+  if (a != a) ua = 0x7FFFFFFFu;
+  if (b != b) ub = 0x7FFFFFFFu;
+  float ra = a - __uint_as_float(ua & 0xFFFF0000u);
+  float rb = b - __uint_as_float(ub & 0xFFFF0000u);
+  if (ra != ra) ra = 0.0f;   // x was Inf or NaN
+  if (rb != rb) rb = 0.0f;
+  const uint32_t qa = __float_as_uint(ra), qb = __float_as_uint(rb);
+  const float la = ra - __uint_as_float(qa & 0xFFFF0000u);
+  const float lb = rb - __uint_as_float(qb & 0xFFFF0000u);
+  hi = __byte_perm(ua, ub, 0x7632);
+  mid = __byte_perm(qa, qb, 0x7632);
+  lo = __byte_perm(__float_as_uint(la), __float_as_uint(lb), 0x7632);
+}
+
 // -------------------------------------------------------------------- wgmma
 
 // Shared-memory matrix descriptor of a tile that TMA wrote with the
@@ -274,6 +302,18 @@ __device__ __forceinline__ void wgmma_ss(float (&d)[N / 2], uint64_t da,
                                          uint64_t db, int accumulate);
 
 template <>
+__device__ __forceinline__ void wgmma_ss<32>(float (&d)[16], uint64_t da,
+                                             uint64_t db, int accumulate) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %18, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, "
+      "%15}, %16, %17, p, 1, 1, 0, 0;\n}\n"
+      : HOPPER_D8(0), HOPPER_D8(8)
+      : "l"(da), "l"(db), "r"(accumulate));
+}
+
+template <>
 __device__ __forceinline__ void wgmma_ss<64>(float (&d)[32], uint64_t da,
                                              uint64_t db, int accumulate) {
   asm volatile(
@@ -286,44 +326,48 @@ __device__ __forceinline__ void wgmma_ss<64>(float (&d)[32], uint64_t da,
       : "l"(da), "l"(db), "r"(accumulate));
 }
 
-// D += A B, m64nNk16, A from registers (four bf16x2 per thread, in the
+// D (+)= A B, m64nNk16, A from registers (four bf16x2 per thread, in the
 // accumulator's fragment layout of a 64 x 16 tile), B from shared memory
-// MN-major (the transpose bit set: B is stored [K][N], N contiguous).
+// MN-major (the transpose bit set: B is stored [K][N], N contiguous);
+// `accumulate` 0 overwrites D.
 template <int N>
 __device__ __forceinline__ void wgmma_rs_tb(float (&d)[N / 2],
                                             const uint32_t (&a)[4],
-                                            uint64_t db);
+                                            uint64_t db, int accumulate = 1);
 
 template <>
 __device__ __forceinline__ void wgmma_rs_tb<16>(float (&d)[8],
                                                 const uint32_t (&a)[4],
-                                                uint64_t db) {
+                                                uint64_t db,
+                                                int accumulate) {
   asm volatile(
       "{\n.reg .pred p;\nsetp.ne.b32 p, %13, 0;\n"
       "wgmma.mma_async.sync.aligned.m64n16k16.f32.bf16.bf16 "
       "{%0, %1, %2, %3, %4, %5, %6, %7}, {%8, %9, %10, %11}, %12, p, 1, 1, "
       "1;\n}\n"
       : HOPPER_D8(0)
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(accumulate));
 }
 
 template <>
 __device__ __forceinline__ void wgmma_rs_tb<32>(float (&d)[16],
                                                 const uint32_t (&a)[4],
-                                                uint64_t db) {
+                                                uint64_t db,
+                                                int accumulate) {
   asm volatile(
       "{\n.reg .pred p;\nsetp.ne.b32 p, %21, 0;\n"
       "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 "
       "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, "
       "%15}, {%16, %17, %18, %19}, %20, p, 1, 1, 1;\n}\n"
       : HOPPER_D8(0), HOPPER_D8(8)
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(accumulate));
 }
 
 template <>
 __device__ __forceinline__ void wgmma_rs_tb<64>(float (&d)[32],
                                                 const uint32_t (&a)[4],
-                                                uint64_t db) {
+                                                uint64_t db,
+                                                int accumulate) {
   asm volatile(
       "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
       "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
@@ -331,13 +375,14 @@ __device__ __forceinline__ void wgmma_rs_tb<64>(float (&d)[32],
       "%15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, "
       "%29, %30, %31}, {%32, %33, %34, %35}, %36, p, 1, 1, 1;\n}\n"
       : HOPPER_D8(0), HOPPER_D8(8), HOPPER_D8(16), HOPPER_D8(24)
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(accumulate));
 }
 
 template <>
 __device__ __forceinline__ void wgmma_rs_tb<128>(float (&d)[64],
                                                  const uint32_t (&a)[4],
-                                                 uint64_t db) {
+                                                 uint64_t db,
+                                                 int accumulate) {
   asm volatile(
       "{\n.reg .pred p;\nsetp.ne.b32 p, %69, 0;\n"
       "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 "
@@ -349,7 +394,7 @@ __device__ __forceinline__ void wgmma_rs_tb<128>(float (&d)[64],
       "1, 1;\n}\n"
       : HOPPER_D8(0), HOPPER_D8(8), HOPPER_D8(16), HOPPER_D8(24),
         HOPPER_D8(32), HOPPER_D8(40), HOPPER_D8(48), HOPPER_D8(56)
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(accumulate));
 }
 
 #undef HOPPER_D8

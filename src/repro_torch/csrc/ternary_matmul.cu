@@ -12,7 +12,7 @@
 // Precision.  A weight is exact in bf16 (so is any int8), and the product
 // of two bf16 values is exact in f32.  A bf16 x therefore needs one bf16
 // tensor-core pass.  A float32 x splits exactly into three bf16 parts,
-// x = hi + mid + lo (`split3`; the plain version is
+// x = hi + mid + lo (`split3` in hopper.cuh; the plain version is
 // kernels/ref.py::bf16x3_split_masked): three passes, each product exact,
 // give the f32 product; none of them rounds x, as TF32 would.  With {0,1}
 // x every product and partial sum is an integer below 2^24, exact in f32
@@ -151,28 +151,6 @@ __device__ __forceinline__ uint32_t bar_or(uint32_t v) {
 __device__ __forceinline__ bool warpgroup_any(bool pred, int wg) {
   const uint32_t r = wg == 0 ? bar_or<2>(pred) : bar_or<3>(pred);
   return __reduce_or_sync(0xffffffffu, r) != 0u;
-}
-
-// x = hi + mid + lo for two f32 values, each part a bf16 (packed in pairs,
-// the first value in the low half): hi keeps x's top 16 bits, mid the top
-// 16 bits of the rest, lo what is left, all by truncation, which is exact
-// wherever |x| >= 2^-110 and never overflows near FLT_MAX.  An Inf or NaN
-// stays in hi (a NaN as a NaN, whatever its payload), with mid = lo = 0.
-__device__ __forceinline__ void split3(float a, float b, uint32_t& hi,
-                                       uint32_t& mid, uint32_t& lo) {
-  uint32_t ua = __float_as_uint(a), ub = __float_as_uint(b);
-  if (a != a) ua = 0x7FFFFFFFu;
-  if (b != b) ub = 0x7FFFFFFFu;
-  float ra = a - __uint_as_float(ua & 0xFFFF0000u);
-  float rb = b - __uint_as_float(ub & 0xFFFF0000u);
-  if (ra != ra) ra = 0.0f;   // x was Inf or NaN
-  if (rb != rb) rb = 0.0f;
-  const uint32_t qa = __float_as_uint(ra), qb = __float_as_uint(rb);
-  const float la = ra - __uint_as_float(qa & 0xFFFF0000u);
-  const float lb = rb - __uint_as_float(qb & 0xFFFF0000u);
-  hi = __byte_perm(ua, ub, 0x7632);
-  mid = __byte_perm(qa, qb, 0x7632);
-  lo = __byte_perm(__float_as_uint(la), __float_as_uint(lb), 0x7632);
 }
 
 // The producer's copy of one stage without TMA: 128 threads, rows row0..

@@ -1,6 +1,8 @@
-"""Load and launch the Hopper causal flash-attention kernel
-(`csrc/flash_attention.cu`: float32 inputs on the FFMA pipes, bfloat16
-inputs on the tensor cores through TMA tensor maps, `csrc/hopper.cuh`).
+"""Load and launch the Hopper causal flash-attention kernels
+(`csrc/flash_attention.cu`, both on the tensor cores through TMA tensor
+maps, `csrc/hopper.cuh`): bfloat16 inputs in one launch; float32 inputs
+in two, a pre-pass that splits q, k and v exactly into three bfloat16
+parts each (into scratch allocated here) and the attention on the parts.
 
 The source compiles at first use into
 `build/repro_torch/libflash_attention.so` (`repro_torch.kernels.build`).
@@ -26,8 +28,12 @@ TILES = (32, 64)
 
 def _bind(lib: ctypes.CDLL) -> None:
     fn = lib.flash_attention_launch
-    fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 7 + [
+    fn.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 7 + [
         ctypes.c_float, ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    fn = lib.flash_attention_split
+    fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 4 + [
+        ctypes.c_void_p]
     fn.restype = ctypes.c_int
 
 
@@ -59,17 +65,49 @@ def check(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, bq: int,
         raise ValueError(f"bq and bk must be in {TILES}, got {bq} and {bk}")
 
 
-def launch(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-           out: torch.Tensor, bq: int, bk: int) -> None:
-    """Enqueue one launch on checked, contiguous CUDA operands; `out` is
-    [H,Sq,hd] in q's dtype.  An operand that does not start on 16 bytes,
-    as a TMA tensor map needs, is copied first."""
-    q, k, v = (t if t.data_ptr() % 16 == 0 else t.clone() for t in (q, k, v))
+def parts_numel(H: int, Sq: int, Sk: int, hd: int) -> int:
+    """bfloat16 elements of the float32 leg's scratch: three parts each of
+    q [H,Sq,hd], k and v [H,Sk,hd]."""
+    return 3 * H * (Sq + 2 * Sk) * hd
+
+
+def _aligned(*ts: torch.Tensor):
+    """The operands, each copied if it does not start on 16 bytes, as a TMA
+    tensor map (and the split's float4 loads) need."""
+    return tuple(t if t.data_ptr() % 16 == 0 else t.clone() for t in ts)
+
+
+def split(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+          parts: torch.Tensor) -> None:
+    """Enqueue the float32 leg's pre-pass alone: q, k and v (checked,
+    contiguous, float32, on the card) into `parts` (bfloat16,
+    `parts_numel` elements)."""
+    q, k, v = _aligned(q, k, v)
     H, Sq, hd = q.shape
     stream = torch.cuda.current_stream(q.device).cuda_stream
+    err = load().flash_attention_split(
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), parts.data_ptr(), H, Sq,
+        k.shape[1], hd, stream)
+    if err != 0:
+        raise RuntimeError(f"flash_attention split failed: cudaError {err}")
+
+
+def launch(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+           out: torch.Tensor, bq: int, bk: int) -> None:
+    """Enqueue one op call on checked, contiguous CUDA operands (one launch
+    for bfloat16, the split and the attention for float32); `out` is
+    [H,Sq,hd] in q's dtype.  An operand that does not start on 16 bytes is
+    copied first."""
+    q, k, v = _aligned(q, k, v)
+    H, Sq, hd = q.shape
+    Sk = k.shape[1]
+    bf16 = q.dtype == torch.bfloat16
+    parts = None if bf16 else torch.empty(
+        parts_numel(H, Sq, Sk, hd), dtype=torch.bfloat16, device=q.device)
+    stream = torch.cuda.current_stream(q.device).cuda_stream
     err = load().flash_attention_launch(
-        q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), H, Sq,
-        k.shape[1], hd, bq, bk, int(q.dtype == torch.bfloat16),
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+        None if bf16 else parts.data_ptr(), H, Sq, Sk, hd, bq, bk, int(bf16),
         hd ** -0.5, stream)
     if err != 0:
         raise RuntimeError(f"flash_attention launch failed: cudaError {err}")

@@ -148,11 +148,13 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                     causal: bool = True, bq: int = 64, bk: int = 64
                     ) -> torch.Tensor:
     """Causal flash attention: q [H,Sq,hd], k/v [H,Sk,hd] (float32 or
-    bfloat16, one dtype) -> [H,Sq,hd] in q's dtype, in ONE kernel launch on
-    the card.  `bq`/`bk` (32 or 64, checked for either dtype) pick the
-    float32 kernel's query and key tiles; the bfloat16 kernel, on the
-    tensor cores, has its own (128 query rows, 64 keys).  Both compute in
-    float32 as the plain version does.
+    bfloat16, one dtype) -> [H,Sq,hd] in q's dtype, in one kernel call on
+    the card (bfloat16: one launch; float32: two, a split of q, k and v
+    into bfloat16 parts, then the attention), counted once.  Both kernels
+    run on the tensor cores and compute in float32 as the plain version
+    does.  `bq`/`bk` mirror the JAX wrapper's signature: they are checked
+    (32 or 64) but pick nothing in either kernel, whose tiles are their own
+    (128 query rows; 64 keys in bfloat16, 32 in float32).
 
     The kernel masks ragged Sq and Sk itself, so nothing is padded.  Like
     the JAX package's wrapper, it takes the causal case only."""

@@ -16,6 +16,12 @@ bfloat16 parts and runs P V as three tensor-core passes.  The split
 are held here: three passes keep the reference's precision, one pass (p
 rounded to bfloat16) breaks the row-scaled bound that `chip_smoke.py`
 holds the kernel to.
+
+The float32 kernel splits q, k, v and p by truncation into three bfloat16
+parts each (`bf16x3_split_masked`) and keeps six of the nine products of
+parts for QK^T and for P V (bf16x6).  An emulation of its arithmetic
+(`_emulate_f32_kernel`) is held here against the JAX op and the plain
+version at F32, and fewer terms are shown to break F32.
 """
 import numpy as np
 import pytest
@@ -43,7 +49,8 @@ except ImportError:             # hypothesis optional: the sweep then skips
 from repro_torch.kernels import ops  # noqa: E402
 from repro_torch.kernels import (flash_attention,  # noqa: E402
                                  flash_attention_ref)
-from repro_torch.kernels.ref import bf16x3_split  # noqa: E402
+from repro_torch.kernels.ref import (bf16x3_split,  # noqa: E402
+                                    bf16x3_split_masked)
 from torch_smoke_loader import chip_smoke  # noqa: E402
 
 F32 = dict(atol=2e-5, rtol=1e-4)
@@ -271,19 +278,132 @@ def test_single_bf16_pass_breaks_the_row_bound(precision_case):
     assert _row_ratio(out, q, k, v) > 1.0
 
 
-@pytest.mark.parametrize("elem_bytes,want_ms", [(2, 0.5560), (4, 4.1037)],
+# the float32 kernel's terms (part of q or p, part of k or v), smallest
+# first, as csrc/flash_attention.cu issues them
+TERMS_X6 = ((2, 0), (0, 2), (1, 1), (1, 0), (0, 1), (0, 0))
+TERMS_X3 = ((1, 0), (0, 1), (0, 0))
+TERMS_X1 = ((0, 0),)
+LOG2E = 1.4426950408889634
+
+
+def _tc_add(acc, prods, tc):
+    """One tensor-core k-step: 16 exact products summed into the float32
+    accumulator with one rounding, to nearest ("rn") or truncated ("rz",
+    the worse case)."""
+    v = acc.double() + prods
+    r = v.float()
+    if tc == "rz":
+        over = r.double().abs() > v.abs()
+        r = torch.where(over, torch.nextafter(r, torch.zeros_like(r)), r)
+    return r
+
+
+def _parts_product(a, b, terms, tc, acc=None):
+    """sum over `terms` (smallest first) and k-steps of 16 of a_i @ b_j,
+    a's and b's parts from `bf16x3_split_masked`, into a fresh tensor-core
+    accumulator (or `acc`)."""
+    pa = [t.double() for t in bf16x3_split_masked(a)]
+    pb = [t.double() for t in bf16x3_split_masked(b)]
+    depth = a.shape[-1]
+    if acc is None:
+        acc = torch.zeros(a.shape[:-1] + b.shape[-1:])
+    for i, j in terms:
+        for k0 in range(0, depth, 16):
+            acc = _tc_add(acc, pa[i][..., k0:k0 + 16]
+                          @ pb[j][..., k0:k0 + 16, :], tc)
+    return acc
+
+
+def _emulate_f32_kernel(q, k, v, terms=TERMS_X6, tc="rz", bk=32):
+    """The float32 kernel's arithmetic on the CPU: key tiles of `bk`;
+    S = Q K^T and P V as products of the truncated bf16 parts of q, k, v
+    and p over `terms`, each k-step of 16 exact products added into a
+    tensor-core accumulator with one rounding `tc`; the online softmax in
+    log2 units in float32 (its exp2 correctly rounded, where the kernel's
+    MUFU.EX2 is within 2 ulp).  S starts afresh each tile; P V accumulates
+    into O through every tile, O rescaled by alpha (rounded to nearest)
+    once the tile's P V has landed, in the kernel's order.  Errors against
+    the plain version: at the test shapes bf16x6 stays within 0.04 of
+    F32's bound; at 1x4096x4096x128, 5.4e-6, 0.18 of it (a fresh
+    accumulator per tile promoted into O: 1.1e-6).  At 2x256x256x64 the
+    three terms hh, hm, mh alone reach 1.1e-4, 1.34 times the bound, and
+    one term (q, k, v and p each rounded to bf16) 2.4e-2."""
+    H, Sq, hd = q.shape
+    Sk = k.shape[1]
+    scale_log2 = torch.tensor(hd ** -0.5, dtype=torch.float32) * torch.tensor(
+        LOG2E, dtype=torch.float32)
+    m = torch.full((H, Sq, 1), float("-inf"))
+    l = torch.zeros(H, Sq, 1)
+    o = torch.zeros(H, Sq, hd)
+    pending = None               # the previous tile's p and v
+    rows = torch.arange(Sq)[:, None]
+    for k0 in range(0, Sk, bk):
+        kt, vt = k[:, k0:k0 + bk], v[:, k0:k0 + bk]
+        s = _parts_product(q, kt.transpose(1, 2), terms, tc)
+        keys = torch.arange(k0, k0 + kt.shape[1])[None, :]
+        s = s.masked_fill(keys > rows, float("-inf"))
+        m_new = torch.maximum(m, s.amax(-1, keepdim=True) * scale_log2)
+        alpha = torch.exp2((m - m_new).double()).float()
+        p = torch.exp2(s.double() * scale_log2.double()
+                       - m_new.double()).float()
+        l = l * alpha + p.sum(-1, keepdim=True)
+        m = m_new
+        if pending is not None:
+            o = _parts_product(*pending, terms, tc, acc=o) * alpha
+        pending = (p, vt)
+    o = _parts_product(*pending, terms, tc, acc=o)
+    return o / l.clamp_min(1e-20)
+
+
+# (H, Sq, Sk, hd, reference bq, bk): the test shapes and a ragged Sq > Sk
+F32_EMU_CASES = [(H, S, S, hd, bq, bk) for H, S, hd, bq, bk in SHAPES] + [
+    (2, 96, 40, 16, 32, 16)]
+
+
+@pytest.mark.parametrize("tc", ["rz", "rn"])
+@pytest.mark.parametrize("case", F32_EMU_CASES,
+                         ids=lambda c: "x".join(map(str, c)))
+def test_f32_kernel_emulation_matches_reference(case, tc):
+    """bf16x6 with the tensor cores' adds truncated or rounded to nearest:
+    within F32 of the JAX op (Pallas in interpret mode) and of the plain
+    version, at the reference's test shapes and a ragged Sq > Sk case."""
+    H, Sq, Sk, hd, bq, bk = case
+    q, k, v = _qkv(H, Sq, Sk, hd, Sq + hd)
+    j_op, _ = _jax(q, k, v, bq, bk)
+    T = torch.from_numpy
+    got = _emulate_f32_kernel(T(q), T(k), T(v), tc=tc)
+    np.testing.assert_allclose(got.numpy(), j_op, **F32)
+    torch.testing.assert_close(got, flash_attention_ref(T(q), T(k), T(v)),
+                               **F32)
+
+
+@pytest.mark.parametrize("terms", [TERMS_X3, TERMS_X1], ids=["x3", "x1"])
+def test_fewer_bf16_terms_break_f32(terms):
+    """Three terms per product (hh, hm, mh) or one (every operand rounded
+    to bf16, as a single bf16 pass computes) fall outside F32 of the plain
+    version where six keep within it."""
+    q, k, v = (torch.from_numpy(a) for a in _qkv(2, 256, 256, 64, 5))
+    want = flash_attention_ref(q, k, v)
+    torch.testing.assert_close(_emulate_f32_kernel(q, k, v), want, **F32)
+    assert not torch.allclose(_emulate_f32_kernel(q, k, v, terms), want,
+                              **F32)
+
+
+@pytest.mark.parametrize("elem_bytes,want_ms", [(2, 0.5560), (4, 1.6680)],
                          ids=["bf16", "f32"])
 def test_k4_bound_at_chameleon_shape(elem_bytes, want_ms):
-    """`chip_smoke.k4_bound_ms` at H=64, S=4096, hd=128: bf16 prices
-    QK^T as one and PV as three bf16 tensor-core passes, (1 + 3) x
-    1.3746e11 flop at 989 TFLOP/s; f32 prices both products at the FFMA
-    rate, 2 x 1.3746e11 flop at 67 TFLOP/s.  Both are bound by
-    operations."""
+    """`chip_smoke.k4_bound_ms` at H=64, S=4096, hd=128, both legs at the
+    bf16 tensor-core rate, 989 TFLOP/s: bf16 prices QK^T as one and PV as
+    three bf16 passes, (1 + 3) x 1.3746e11 flop; f32 prices six passes
+    for each product (bf16x6), 12 x 1.3746e11 flop.  Both are bound by
+    operations; the f32 work on the FFMA pipes would take 4.1037 ms."""
     smoke = chip_smoke()
     assert smoke.k4_pairs(4096, 4096) == 8_390_656
     ms, by = smoke.k4_bound_ms(64, 4096, 4096, 128, elem_bytes)
     assert by == "operations"
     assert ms == pytest.approx(want_ms, rel=1e-4)
+    assert smoke.k4_ffma_ms(64, 4096, 4096, 128) == pytest.approx(
+        4.1037, rel=1e-4)
 
 
 @pytest.mark.gpu
