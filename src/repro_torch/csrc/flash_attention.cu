@@ -29,15 +29,17 @@
 // Both legs share one skeleton:
 //   * one block per (head, tile of 128 query rows), heaviest causal tiles
 //     first; two consumer warpgroups of 64 query rows each (wgmma's M)
-//     and a producer warpgroup that gives them its registers
-//     (setmaxnreg: 240 a consumer thread, 24 a producer thread);
+//     and a producer warpgroup that gives them its registers (setmaxnreg:
+//     the 384 threads launch with 168 registers each, ptxas's cap, and the
+//     producer's 144 go to the consumers, 240 a consumer thread, 24 a
+//     producer thread);
 //   * loads by TMA from tiled tensor maps (3-d, so rows past Sq or Sk of
 //     a head read as zeros, never the next head's), encoded per call on
 //     the host: Q once, K and V tile by tile into rings with full and
 //     empty mbarriers.  Rows are swizzled to their bytes (32, 64 or 128);
 //     hd = 128 is two 64-column panels;
-//   * S = Q K^T by wgmma from shared memory; scale, mask (only on tiles at
-//     the causal or ragged edge), row max (quad shuffles), alpha and
+//   * S = Q K^T by wgmma, K from shared memory; scale, mask (only on tiles
+//     at the causal or ragged edge), row max (quad shuffles), alpha and
 //     p = exp(s - m) in registers, exp as 2^x on the MUFU (`ex2`); no P
 //     tile touches shared memory: the accumulator's fragment of 16 keys is
 //     the A fragment of register-A wgmma m64n{hd}k16, which runs once per
@@ -55,7 +57,8 @@
 // is 1 + 3 bf16 passes at 989 TFLOP/s (0.556 ms at chameleon-34b's shape)
 // beside exp on the MUFU (~0.13 ms) and the bytes (0.08 ms).  Key tiles of
 // 64 rows through a 3-stage ring of K and V (in trials a 2-stage ring ran
-// slower, a 4-stage one no faster): the S accumulator (32 f32 a thread),
+// slower, a 4-stage one no faster); Q from shared memory.  The S
+// accumulator (32 f32 a thread),
 // the three bf16 parts of the previous tile's P (48 registers) and the
 // hd = 128 output accumulator (64) fit in 240 registers without spilling.
 // The output is rounded once to bf16.
@@ -81,8 +84,11 @@
 //     its QK^T has landed and a V slot once its P V has, so every load has
 //     a whole iteration to land; a 64-key tile with two slots would not
 //     fit beside Q (288 KiB);
-//   * QK^T is wgmma m64n32k16 from shared memory, 6 terms x hd/16 k-steps
-//     into S (16 f32 a thread); p's parts are 24 registers;
+//   * QK^T is register-A wgmma m64n32k16, 6 terms x hd/16 k-steps into S
+//     (16 f32 a thread): each consumer thread reads its fragments of q's
+//     three parts once from the Q tile (96 registers at hd = 128); p's
+//     parts are 24 registers.  In trials Q from shared memory ran 3-8%
+//     slower, and q's hi part alone in registers level with all three;
 //   * P V accumulates into O on the tensor cores through every key tile,
 //     O rescaled by alpha in f32 between tiles.  With truncating adds that
 //     accumulator drifts with depth: 8.3e-6 at chameleon-34b's shape, 0.18
@@ -90,10 +96,13 @@
 //     tile, added to O rounded to nearest, held 1.8e-6 in trials but took
 //     64 more registers a thread, past setmaxnreg's 240, and ptxas spilled
 //     (144 bytes; 208 at 232, 272 at 224), for no time gained.
-//   So two launches per call, the split and the attention.
+//   So two launches per call, the split and the attention.  A trial that
+//   split inside the kernel instead (the producer warpgroup loading f32
+//   rows, splitting them and storing the swizzled parts, no scratch) ran
+//   15-20% slower than the pre-pass and this kernel together.
 // Later work: a persistent grid (each block's first QK^T and last PV are
-// not overlapped); for the f32 leg, the split of K and V inside the kernel
-// (no scratch, no pre-pass).
+// not overlapped); for the f32 leg, a split inside the kernel that keeps
+// more loads in flight than that trial did.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -507,11 +516,11 @@ split_kernel(const float4* __restrict__ q, const float4* __restrict__ k,
 }
 
 // S = Q K^T for one warpgroup's 64 rows and one key tile, the six terms
-// of the parts: Q and K both K-major, each k-step's 32 bytes inside a
-// swizzled row of a panel.
+// of the parts: A = q's parts from registers, B = K from shared memory,
+// K-major, each k-step's 32 bytes inside a swizzled row of a panel.
 template <int HD>
 __device__ __forceinline__ void issue_qk(float (&sc)[kBK / 2],
-                                         const uint8_t* q_w,
+                                         const uint32_t (&qa)[3][HD / 16][4],
                                          const uint8_t* kt) {
   using G = Geometry<HD>;
 #pragma unroll
@@ -520,15 +529,40 @@ __device__ __forceinline__ void issue_qk(float (&sc)[kBK / 2],
     for (int kk = 0; kk < HD / 16; ++kk) {
       const int c = kk * 16 / G::kCols;
       const int off = (kk * 16 % G::kCols) * 2;
-      wgmma_ss<kBK>(sc,
-                    make_desc(q_w + term_left(term) * G::kQPart +
-                                  c * G::kQPanel + off,
-                              16, 8 * G::kRowBytes, G::kRowBytes),
+      wgmma_rs<kBK>(sc, qa[term_left(term)][kk],
                     make_desc(kt + term_right(term) * G::kPart +
                                   c * G::kKPanel + off,
                               16, 8 * G::kRowBytes, G::kRowBytes),
                     term > 0 || kk > 0);
     }
+}
+
+// q's three parts as register-A fragments of the warpgroup's 64 rows (from
+// row 0 of q_w), read from the swizzled panels TMA wrote: the 16-byte
+// chunk b of row r lies at chunk b ^ (r * row bytes / 128 mod row bytes /
+// 16).  For k-step kk, register e holds row lane / 4 + 8 (e % 2) of the
+// warp's 16, columns 16 kk + 2 t + 8 (e / 2) and the next.
+template <int HD>
+__device__ __forceinline__ void load_q(uint32_t (&qa)[3][HD / 16][4],
+                                       const uint8_t* q_w, int warp,
+                                       int lane) {
+  using G = Geometry<HD>;
+#pragma unroll
+  for (int part = 0; part < 3; ++part)
+#pragma unroll
+    for (int kk = 0; kk < HD / 16; ++kk)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int r = warp * 16 + lane / 4 + 8 * (e % 2);
+        const int col = 16 * kk + 2 * (lane % 4) + 8 * (e / 2);
+        const int b = (col % G::kCols) * 2;   // byte in the panel's row
+        const int off = part * G::kQPart + col / G::kCols * G::kQPanel +
+                        r * G::kRowBytes +
+                        (((b >> 4) ^ ((r * G::kRowBytes >> 7) &
+                                      (G::kRowBytes / 16 - 1))) << 4) +
+                        (b & 15);
+        qa[part][kk][e] = *reinterpret_cast<const uint32_t*>(q_w + off);
+      }
 }
 
 // O += P V for one key tile, the six terms of p's parts (registers) and
@@ -671,10 +705,12 @@ flash_attention_f32_kernel(const __grid_constant__ CUtensorMap tq,
   // softmax runs while P V is on the tensor cores, and O is rescaled by
   // tile j's alpha once P V has landed.
   mbar_wait(q_full, 0);
+  uint32_t qa[3][HD / 16][4];   // q's parts, register-A fragments
+  load_q<HD>(qa, q_w, warp, lane);
   mbar_wait(&k_full[0], 0);
   fence_regs(sc);
   wgmma_fence();
-  issue_qk<HD>(sc, q_w, s_k);
+  issue_qk<HD>(sc, qa, s_k);
   wgmma_commit();
   wgmma_wait<0>();
   fence_regs(sc);
@@ -688,7 +724,7 @@ flash_attention_f32_kernel(const __grid_constant__ CUtensorMap tq,
     mbar_wait(&v_full[sv], ((j - 1) / kStages) & 1);
     fence_regs(o);
     wgmma_fence();
-    issue_qk<HD>(sc, q_w, s_k + sk * G::kTile);
+    issue_qk<HD>(sc, qa, s_k + sk * G::kTile);
     wgmma_commit();
     issue_pv<HD>(o, pp, s_v + sv * G::kTile);
     wgmma_commit();

@@ -302,18 +302,6 @@ __device__ __forceinline__ void wgmma_ss(float (&d)[N / 2], uint64_t da,
                                          uint64_t db, int accumulate);
 
 template <>
-__device__ __forceinline__ void wgmma_ss<32>(float (&d)[16], uint64_t da,
-                                             uint64_t db, int accumulate) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %18, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 "
-      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, "
-      "%15}, %16, %17, p, 1, 1, 0, 0;\n}\n"
-      : HOPPER_D8(0), HOPPER_D8(8)
-      : "l"(da), "l"(db), "r"(accumulate));
-}
-
-template <>
 __device__ __forceinline__ void wgmma_ss<64>(float (&d)[32], uint64_t da,
                                              uint64_t db, int accumulate) {
   asm volatile(
@@ -324,6 +312,27 @@ __device__ __forceinline__ void wgmma_ss<64>(float (&d)[32], uint64_t da,
       "%29, %30, %31}, %32, %33, p, 1, 1, 0, 0;\n}\n"
       : HOPPER_D8(0), HOPPER_D8(8), HOPPER_D8(16), HOPPER_D8(24)
       : "l"(da), "l"(db), "r"(accumulate));
+}
+
+// D (+)= A B, m64nNk16, A from registers (four bf16x2 per thread, in the
+// accumulator's fragment layout of a 64 x 16 tile), B from shared memory
+// K-major; `accumulate` 0 overwrites D.
+template <int N>
+__device__ __forceinline__ void wgmma_rs(float (&d)[N / 2],
+                                         const uint32_t (&a)[4], uint64_t db,
+                                         int accumulate);
+
+template <>
+__device__ __forceinline__ void wgmma_rs<32>(float (&d)[16],
+                                             const uint32_t (&a)[4],
+                                             uint64_t db, int accumulate) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %21, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, "
+      "%15}, {%16, %17, %18, %19}, %20, p, 1, 1, 0;\n}\n"
+      : HOPPER_D8(0), HOPPER_D8(8)
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(accumulate));
 }
 
 // D (+)= A B, m64nNk16, A from registers (four bf16x2 per thread, in the
