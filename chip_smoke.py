@@ -860,17 +860,16 @@ def phase_k4_times(ops_):
                 f"its {passes}-pass work ({work:.4g} flop), {b_ms / ms:.3f} "
                 f"of its bound")
         if dtype == torch.float32:
-            parts = torch.empty(flash_attention_cuda.parts_numel(
-                H, Sq, Sk, hd), dtype=torch.bfloat16, device="cuda")
+            parts = torch.empty(flash_attention_cuda.parts_numel(H, Sk, hd),
+                                dtype=torch.bfloat16, device="cuda")
             split_ms, _ = queued_ms(
-                lambda: flash_attention_cuda.split(q, k, v, parts), reps=5,
+                lambda: flash_attention_cuda.split(k, v, parts), reps=5,
                 calls=3)
             log("4 times", f"{rate} (bf16x6: QK^T 6 + PV 6 passes); the "
-                f"split pre-pass alone {split_ms:.3f} ms of the call "
-                f"({1e-9 * (4 + 6) * H * hd * (Sq + 2 * Sk) / split_ms:.2f}"
-                f" TB/s on its f32 reads and bf16 writes); on the FFMA "
-                f"pipes the bound would be {k4_ffma_ms(H, Sq, Sk, hd):.3f} "
-                f"ms")
+                f"split of k and v alone {split_ms:.3f} ms of the call "
+                f"({1e-9 * (4 + 6) * H * hd * 2 * Sk / split_ms:.2f} TB/s "
+                f"on its f32 reads and bf16 writes); on the FFMA pipes the "
+                f"bound would be {k4_ffma_ms(H, Sq, Sk, hd):.3f} ms")
             out[name]["split_ms"] = split_ms
             del parts
         else:

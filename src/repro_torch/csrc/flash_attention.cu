@@ -73,22 +73,22 @@
 // both products on the FFMA pipes).  Each product's passes go smallest
 // term first, so a tensor-core accumulator that truncates its adds meets
 // the small terms while it is small.
-//   * the parts of q, k and v come from a pre-pass (`split_kernel`, one
-//     launch for all three) into scratch that the wrapper allocates,
-//     [3][H][S][hd] bf16 each (0.60 GB at chameleon-34b's shape); the main
-//     kernel TMA-loads parts exactly as the bf16 leg loads its inputs, the
+//   * the parts of k and v come from a pre-pass (`split_kernel`, one
+//     launch for both) into scratch that the wrapper allocates,
+//     [3][H][Sk][hd] bf16 each (0.40 GB at chameleon-34b's shape); the
+//     main kernel TMA-loads them as the bf16 leg loads its inputs, the
 //     part index folded into the tensor map's head axis;
-//   * shared memory: Q's three parts for 128 rows take 96 KiB at hd = 128,
-//     one key tile's three parts 768 bytes a key.  Key tiles of 32 rows,
-//     K and V in separate 2-slot rings (4 x 24 KiB): a K slot frees once
-//     its QK^T has landed and a V slot once its P V has, so every load has
-//     a whole iteration to land; a 64-key tile with two slots would not
-//     fit beside Q (288 KiB);
-//   * QK^T is register-A wgmma m64n32k16, 6 terms x hd/16 k-steps into S
-//     (16 f32 a thread): each consumer thread reads its fragments of q's
-//     three parts once from the Q tile (96 registers at hd = 128); p's
-//     parts are 24 registers.  In trials Q from shared memory ran 3-8%
-//     slower, and q's hi part alone in registers level with all three;
+//   * q takes no shared memory: each consumer thread loads its A fragments
+//     of q (f32) once and splits them in registers, 96 at hd = 128, and
+//     QK^T is register-A wgmma m64n32k16, 6 terms x hd/16 k-steps into S
+//     (16 f32 a thread), K from shared memory.  In trials q's parts as
+//     wgmma's A from shared memory ran 3-8% slower, and q split by the
+//     pre-pass and TMA-loaded 3-9% slower;
+//   * key tiles of 32 rows: S, p's parts (24 registers), q's parts and O
+//     (64) fit the consumers' 240 registers, where 64-key tiles (S 32, p
+//     48) would not.  K and V in separate 2-slot rings (4 x 24 KiB at hd =
+//     128): a K slot frees once its QK^T has landed and a V slot once its
+//     P V has, so every load has a whole iteration to land;
 //   * P V accumulates into O on the tensor cores through every key tile,
 //     O rescaled by alpha in f32 between tiles.  With truncating adds that
 //     accumulator drifts with depth: 8.3e-6 at chameleon-34b's shape, 0.18
@@ -97,9 +97,9 @@
 //     64 more registers a thread, past setmaxnreg's 240, and ptxas spilled
 //     (144 bytes; 208 at 232, 272 at 224), for no time gained.
 //   So two launches per call, the split and the attention.  A trial that
-//   split inside the kernel instead (the producer warpgroup loading f32
-//   rows, splitting them and storing the swizzled parts, no scratch) ran
-//   15-20% slower than the pre-pass and this kernel together.
+//   split k and v inside the kernel instead (the producer warpgroup
+//   loading f32 rows, splitting them and storing the swizzled parts, no
+//   scratch) ran 10-20% slower than the pre-pass and the kernel together.
 // Later work: a persistent grid (each block's first QK^T and last PV are
 // not overlapped); for the f32 leg, a split inside the kernel that keeps
 // more loads in flight than that trial did.
@@ -468,19 +468,16 @@ constexpr int kBK = 32;           // key rows per tile
 constexpr int kStages = 2;        // slots of the K ring and of the V ring
 constexpr int kThreads = kConsumers + 128;  // and a producer warpgroup
 
-// Shared-memory layout of one head dim: Q's three parts, the ring of K
-// tiles, the ring of V tiles (each tile its three parts), the barriers.
+// Shared-memory layout of one head dim: the ring of K tiles, the ring of
+// V tiles (each tile its three parts), the barriers.
 template <int HD>
 struct Geometry : Panels<HD> {
-  static constexpr int kQPanel = kBQ * Panels<HD>::kRowBytes;   // bytes
-  static constexpr int kQPart = Panels<HD>::kCount * kQPanel;
-  static constexpr int kKPanel = kBK * Panels<HD>::kRowBytes;
+  static constexpr int kKPanel = kBK * Panels<HD>::kRowBytes;   // bytes
   static constexpr int kPart = Panels<HD>::kCount * kKPanel;  // of a tile
   static constexpr int kTile = 3 * kPart;
-  static constexpr int kBarBytes = 8 * (1 + 4 * kStages);
+  static constexpr int kBarBytes = 8 * 4 * kStages;
   // + 1024 to align the tiles to the 128-byte swizzle's 1024-byte atom
-  static constexpr int kSmem = 1024 + 3 * kQPart + 2 * kStages * kTile +
-                               kBarBytes;
+  static constexpr int kSmem = 1024 + 2 * kStages * kTile + kBarBytes;
 };
 
 // The six kept terms a_i b_j of two split operands, smallest first (a2 b0,
@@ -493,16 +490,13 @@ __device__ __forceinline__ constexpr int term_right(int term) {
   return (0x010120 >> (4 * term)) & 0xF;
 }
 
-// q, k and v -> their bf16 parts, [3][H][S][hd] each, q's then k's then
-// v's: blockIdx.y picks the tensor, each thread splits float4s.
+// k and v -> their bf16 parts, [3][H][Sk][hd] each, k's then v's:
+// blockIdx.y picks the tensor, each thread splits float4s.
 __global__ void __launch_bounds__(256)
-split_kernel(const float4* __restrict__ q, const float4* __restrict__ k,
-             const float4* __restrict__ v, uint2* __restrict__ parts,
-             long long nq4, long long nk4) {
-  const int y = blockIdx.y;
-  const float4* src = y == 0 ? q : y == 1 ? k : v;
-  const long long n4 = y == 0 ? nq4 : nk4;
-  uint2* dst = parts + (y == 0 ? 0 : 3 * nq4 + (y - 1) * 3 * nk4);
+split_kernel(const float4* __restrict__ k, const float4* __restrict__ v,
+             uint2* __restrict__ parts, long long n4) {
+  const float4* src = blockIdx.y == 0 ? k : v;
+  uint2* dst = parts + blockIdx.y * 3 * n4;
   for (long long i = blockIdx.x * 256LL + threadIdx.x; i < n4;
        i += 256LL * gridDim.x) {
     const float4 x = src[i];
@@ -537,32 +531,26 @@ __device__ __forceinline__ void issue_qk(float (&sc)[kBK / 2],
     }
 }
 
-// q's three parts as register-A fragments of the warpgroup's 64 rows (from
-// row 0 of q_w), read from the swizzled panels TMA wrote: the 16-byte
-// chunk b of row r lies at chunk b ^ (r * row bytes / 128 mod row bytes /
-// 16).  For k-step kk, register e holds row lane / 4 + 8 (e % 2) of the
-// warp's 16, columns 16 kk + 2 t + 8 (e / 2) and the next.
+// q's three parts as register-A fragments of the warpgroup's 64 rows
+// from q_w (head h's row q0 + 64 wg, row stride HD), split in registers;
+// rows at or past `valid` as zeros.  For k-step kk, register e holds row
+// lane / 4 + 8 (e % 2) of the warp's 16, columns 16 kk + 2 t + 8 (e / 2)
+// and the next.
 template <int HD>
 __device__ __forceinline__ void load_q(uint32_t (&qa)[3][HD / 16][4],
-                                       const uint8_t* q_w, int warp,
+                                       const float* q_w, int valid, int warp,
                                        int lane) {
-  using G = Geometry<HD>;
 #pragma unroll
-  for (int part = 0; part < 3; ++part)
+  for (int kk = 0; kk < HD / 16; ++kk)
 #pragma unroll
-    for (int kk = 0; kk < HD / 16; ++kk)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const int r = warp * 16 + lane / 4 + 8 * (e % 2);
-        const int col = 16 * kk + 2 * (lane % 4) + 8 * (e / 2);
-        const int b = (col % G::kCols) * 2;   // byte in the panel's row
-        const int off = part * G::kQPart + col / G::kCols * G::kQPanel +
-                        r * G::kRowBytes +
-                        (((b >> 4) ^ ((r * G::kRowBytes >> 7) &
-                                      (G::kRowBytes / 16 - 1))) << 4) +
-                        (b & 15);
-        qa[part][kk][e] = *reinterpret_cast<const uint32_t*>(q_w + off);
-      }
+    for (int e = 0; e < 4; ++e) {
+      const int r = warp * 16 + lane / 4 + 8 * (e % 2);
+      const int col = 16 * kk + 2 * (lane % 4) + 8 * (e / 2);
+      const float2 x =
+          r < valid ? *reinterpret_cast<const float2*>(q_w + r * HD + col)
+                    : make_float2(0.0f, 0.0f);
+      split3(x.x, x.y, qa[0][kk][e], qa[1][kk][e], qa[2][kk][e]);
+    }
 }
 
 // O += P V for one key tile, the six terms of p's parts (registers) and
@@ -618,19 +606,17 @@ __device__ __forceinline__ void load_tile(uint8_t* dst, const CUtensorMap* map,
 // bf16 parts, then P V in 6 register-A passes.
 template <int HD>
 __global__ void __launch_bounds__(kThreads, 1)
-flash_attention_f32_kernel(const __grid_constant__ CUtensorMap tq,
+flash_attention_f32_kernel(const float* __restrict__ q,
                            const __grid_constant__ CUtensorMap tk,
                            const __grid_constant__ CUtensorMap tv,
                            float* __restrict__ out, int H, int Sq, int Sk,
                            float scale_log2) {
   using G = Geometry<HD>;
   extern __shared__ uint8_t smem_raw[];
-  uint8_t* s_q = reinterpret_cast<uint8_t*>(
+  uint8_t* s_k = reinterpret_cast<uint8_t*>(
       (reinterpret_cast<uintptr_t>(smem_raw) + 1023) & ~uintptr_t(1023));
-  uint8_t* s_k = s_q + 3 * G::kQPart;
   uint8_t* s_v = s_k + kStages * G::kTile;
-  uint64_t* q_full = reinterpret_cast<uint64_t*>(s_v + kStages * G::kTile);
-  uint64_t* k_full = q_full + 1;
+  uint64_t* k_full = reinterpret_cast<uint64_t*>(s_v + kStages * G::kTile);
   uint64_t* k_empty = k_full + kStages;
   uint64_t* v_full = k_empty + kStages;
   uint64_t* v_empty = v_full + kStages;
@@ -641,7 +627,6 @@ flash_attention_f32_kernel(const __grid_constant__ CUtensorMap tq,
   const int h = blockIdx.y;
 
   if (tid == 0) {
-    mbar_init(q_full, 1);
     for (int s = 0; s < kStages; ++s) {
       mbar_init(&k_full[s], 1);
       mbar_init(&v_full[s], 1);
@@ -658,11 +643,6 @@ flash_attention_f32_kernel(const __grid_constant__ CUtensorMap tq,
     setmaxnreg_dec<24>();
     if (tid == kConsumers) {
       const int n_kt = (min(Sk, q0 + kBQ) + kBK - 1) / kBK;
-      mbar_arrive_expect_tx(q_full, 3 * G::kQPart);
-      for (int part = 0; part < 3; ++part)
-        for (int c = 0; c < G::kCount; ++c)
-          tma_load_3d(s_q + part * G::kQPart + c * G::kQPanel, &tq, q_full,
-                      c * G::kCols, q0, part * H + h);
       for (int j = 0; j < n_kt; ++j) {
         const int s = j % kStages;
         if (j >= kStages) mbar_wait(&k_empty[s], ((j / kStages) - 1) & 1);
@@ -682,7 +662,6 @@ flash_attention_f32_kernel(const __grid_constant__ CUtensorMap tq,
   const int row0 = q0 + wg * 64 + warp * 16 + lane / 4;   // and row0 + 8
   const int wg_first = q0 + wg * 64;
   const int n_kt = (min(Sk, wg_first + 64) + kBK - 1) / kBK;
-  const uint8_t* q_w = s_q + wg * 64 * G::kRowBytes;
 
   float o[HD / 2];
 #pragma unroll
@@ -704,9 +683,9 @@ flash_attention_f32_kernel(const __grid_constant__ CUtensorMap tq,
   // Tile j's QK^T and tile j-1's P V are issued together; tile j's
   // softmax runs while P V is on the tensor cores, and O is rescaled by
   // tile j's alpha once P V has landed.
-  mbar_wait(q_full, 0);
   uint32_t qa[3][HD / 16][4];   // q's parts, register-A fragments
-  load_q<HD>(qa, q_w, warp, lane);
+  load_q<HD>(qa, q + ((long long)h * Sq + wg_first) * HD, Sq - wg_first,
+             warp, lane);
   mbar_wait(&k_full[0], 0);
   fence_regs(sc);
   wgmma_fence();
@@ -766,29 +745,25 @@ flash_attention_f32_kernel(const __grid_constant__ CUtensorMap tq,
   }
 }
 
-cudaError_t split(const void* q, const void* k, const void* v, void* parts,
-                  int H, int Sq, int Sk, int hd, cudaStream_t stream) {
-  const long long nq4 = (long long)H * Sq * hd / 4;
-  const long long nk4 = (long long)H * Sk * hd / 4;
-  const long long blocks = ((nq4 > nk4 ? nq4 : nk4) + 255) / 256;
-  dim3 grid((unsigned)(blocks < 132 * 8 ? blocks : 132 * 8), 3);
+cudaError_t split(const void* k, const void* v, void* parts, int H, int Sk,
+                  int hd, cudaStream_t stream) {
+  const long long n4 = (long long)H * Sk * hd / 4;
+  const long long blocks = (n4 + 255) / 256;
+  dim3 grid((unsigned)(blocks < 132 * 8 ? blocks : 132 * 8), 2);
   split_kernel<<<grid, 256, 0, stream>>>(
-      static_cast<const float4*>(q), static_cast<const float4*>(k),
-      static_cast<const float4*>(v), static_cast<uint2*>(parts), nq4, nk4);
+      static_cast<const float4*>(k), static_cast<const float4*>(v),
+      static_cast<uint2*>(parts), n4);
   return cudaGetLastError();
 }
 
 template <int HD>
-cudaError_t launch(const void* parts, void* out, int H, int Sq, int Sk,
-                   float scale, cudaStream_t stream) {
+cudaError_t launch(const void* q, const void* parts, void* out, int H,
+                   int Sq, int Sk, float scale, cudaStream_t stream) {
   using G = Geometry<HD>;
-  const __nv_bfloat16* pq = static_cast<const __nv_bfloat16*>(parts);
-  const __nv_bfloat16* pk = pq + 3LL * H * Sq * HD;
+  const __nv_bfloat16* pk = static_cast<const __nv_bfloat16*>(parts);
   const __nv_bfloat16* pv = pk + 3LL * H * Sk * HD;
-  CUtensorMap tq, tk, tv;
-  cudaError_t err = encode_tiled_3d(&tq, pq, HD, Sq, 3 * H, G::kCols, kBQ);
-  if (err == cudaSuccess)
-    err = encode_tiled_3d(&tk, pk, HD, Sk, 3 * H, G::kCols, kBK);
+  CUtensorMap tk, tv;
+  cudaError_t err = encode_tiled_3d(&tk, pk, HD, Sk, 3 * H, G::kCols, kBK);
   if (err == cudaSuccess)
     err = encode_tiled_3d(&tv, pv, HD, Sk, 3 * H, G::kCols, kBK);
   if (err != cudaSuccess) return err;
@@ -798,7 +773,8 @@ cudaError_t launch(const void* parts, void* out, int H, int Sq, int Sk,
   if (err != cudaSuccess) return err;
   dim3 grid((Sq + kBQ - 1) / kBQ, H);
   kern<<<grid, kThreads, G::kSmem, stream>>>(
-      tq, tk, tv, static_cast<float*>(out), H, Sq, Sk, scale * kLog2e);
+      static_cast<const float*>(q), tk, tv, static_cast<float*>(out), H, Sq,
+      Sk, scale * kLog2e);
   return cudaGetLastError();
 }
 
@@ -806,19 +782,20 @@ cudaError_t launch(const void* parts, void* out, int H, int Sq, int Sk,
 
 }  // namespace
 
-// The parts of float32 q, k and v into `parts` (bf16, 3 * H * (Sq + 2 Sk)
-// * hd elements): the f32 leg's pre-pass, launched alone.
-extern "C" int flash_attention_split(const void* q, const void* k,
-                                     const void* v, void* parts, int H,
-                                     int Sq, int Sk, int hd, void* stream) {
-  if (H <= 0 || Sq <= 0 || Sk <= 0 || hd % 4 != 0 || parts == nullptr)
+// The parts of float32 k and v into `parts` (bf16, 6 * H * Sk * hd
+// elements): the f32 leg's pre-pass, launched alone.
+extern "C" int flash_attention_split(const void* k, const void* v,
+                                     void* parts, int H, int Sk, int hd,
+                                     void* stream) {
+  if (H <= 0 || Sk <= 0 || hd % 4 != 0 || parts == nullptr)
     return (int)cudaErrorInvalidValue;
-  return (int)f32_leg::split(q, k, v, parts, H, Sq, Sk, hd,
+  return (int)f32_leg::split(k, v, parts, H, Sk, hd,
                              static_cast<cudaStream_t>(stream));
 }
 
 // One call of the op: bf16 q, k, v in one launch; float32 in two, the
-// split into `parts` (as `flash_attention_split`), then the attention.
+// split of k and v into `parts` (as `flash_attention_split`), then the
+// attention.
 extern "C" int flash_attention_launch(const void* q, const void* k,
                                       const void* v, void* out, void* parts,
                                       int H, int Sq, int Sk, int hd, int bq,
@@ -842,16 +819,16 @@ extern "C" int flash_attention_launch(const void* q, const void* k,
                                                  scale, st);
     }
   }
-  int err = flash_attention_split(q, k, v, parts, H, Sq, Sk, hd, stream);
+  int err = flash_attention_split(k, v, parts, H, Sk, hd, stream);
   if (err != 0) return err;
   switch (hd) {
-    case 16: return (int)f32_leg::launch<16>(parts, out, H, Sq, Sk, scale,
+    case 16: return (int)f32_leg::launch<16>(q, parts, out, H, Sq, Sk, scale,
                                              st);
-    case 32: return (int)f32_leg::launch<32>(parts, out, H, Sq, Sk, scale,
+    case 32: return (int)f32_leg::launch<32>(q, parts, out, H, Sq, Sk, scale,
                                              st);
-    case 64: return (int)f32_leg::launch<64>(parts, out, H, Sq, Sk, scale,
+    case 64: return (int)f32_leg::launch<64>(q, parts, out, H, Sq, Sk, scale,
                                              st);
-    default: return (int)f32_leg::launch<128>(parts, out, H, Sq, Sk, scale,
-                                              st);
+    default: return (int)f32_leg::launch<128>(q, parts, out, H, Sq, Sk,
+                                              scale, st);
   }
 }

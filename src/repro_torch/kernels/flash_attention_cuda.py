@@ -1,8 +1,9 @@
 """Load and launch the Hopper causal flash-attention kernels
 (`csrc/flash_attention.cu`, both on the tensor cores through TMA tensor
 maps, `csrc/hopper.cuh`): bfloat16 inputs in one launch; float32 inputs
-in two, a pre-pass that splits q, k and v exactly into three bfloat16
-parts each (into scratch allocated here) and the attention on the parts.
+in two, a pre-pass that splits k and v exactly into three bfloat16 parts
+each (into scratch allocated here) and the attention, which splits q in
+registers.
 
 The source compiles at first use into
 `build/repro_torch/libflash_attention.so` (`repro_torch.kernels.build`).
@@ -32,7 +33,7 @@ def _bind(lib: ctypes.CDLL) -> None:
         ctypes.c_float, ctypes.c_void_p]
     fn.restype = ctypes.c_int
     fn = lib.flash_attention_split
-    fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 4 + [
+    fn.argtypes = [ctypes.c_void_p] * 3 + [ctypes.c_int] * 3 + [
         ctypes.c_void_p]
     fn.restype = ctypes.c_int
 
@@ -65,29 +66,27 @@ def check(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, bq: int,
         raise ValueError(f"bq and bk must be in {TILES}, got {bq} and {bk}")
 
 
-def parts_numel(H: int, Sq: int, Sk: int, hd: int) -> int:
+def parts_numel(H: int, Sk: int, hd: int) -> int:
     """bfloat16 elements of the float32 leg's scratch: three parts each of
-    q [H,Sq,hd], k and v [H,Sk,hd]."""
-    return 3 * H * (Sq + 2 * Sk) * hd
+    k and v [H,Sk,hd]."""
+    return 6 * H * Sk * hd
 
 
 def _aligned(*ts: torch.Tensor):
     """The operands, each copied if it does not start on 16 bytes, as a TMA
-    tensor map (and the split's float4 loads) need."""
+    tensor map and the split's float4 loads need."""
     return tuple(t if t.data_ptr() % 16 == 0 else t.clone() for t in ts)
 
 
-def split(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-          parts: torch.Tensor) -> None:
-    """Enqueue the float32 leg's pre-pass alone: q, k and v (checked,
+def split(k: torch.Tensor, v: torch.Tensor, parts: torch.Tensor) -> None:
+    """Enqueue the float32 leg's pre-pass alone: k and v (checked,
     contiguous, float32, on the card) into `parts` (bfloat16,
     `parts_numel` elements)."""
-    q, k, v = _aligned(q, k, v)
-    H, Sq, hd = q.shape
-    stream = torch.cuda.current_stream(q.device).cuda_stream
+    k, v = _aligned(k, v)
+    H, Sk, hd = k.shape
+    stream = torch.cuda.current_stream(k.device).cuda_stream
     err = load().flash_attention_split(
-        q.data_ptr(), k.data_ptr(), v.data_ptr(), parts.data_ptr(), H, Sq,
-        k.shape[1], hd, stream)
+        k.data_ptr(), v.data_ptr(), parts.data_ptr(), H, Sk, hd, stream)
     if err != 0:
         raise RuntimeError(f"flash_attention split failed: cudaError {err}")
 
@@ -103,7 +102,7 @@ def launch(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     Sk = k.shape[1]
     bf16 = q.dtype == torch.bfloat16
     parts = None if bf16 else torch.empty(
-        parts_numel(H, Sq, Sk, hd), dtype=torch.bfloat16, device=q.device)
+        parts_numel(H, Sk, hd), dtype=torch.bfloat16, device=q.device)
     stream = torch.cuda.current_stream(q.device).cuda_stream
     err = load().flash_attention_launch(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
