@@ -806,7 +806,7 @@ def k4_bound_ms(H, Sq, Sk, hd, elem_bytes):
 
 def k4_ffma_ms(H, Sq, Sk, hd):
     """Both products of f32 attention on the FFMA pipes (true f32
-    products, as PR 13's kernel ran them): 2 x 2*H*hd operations per
+    products, as an FFMA kernel runs them): 2 x 2*H*hd operations per
     causal pair at 67 TFLOP/s, in ms."""
     return 2 * 2 * H * hd * k4_pairs(Sq, Sk) / PEAK_F32_FLOPS * 1e3
 

@@ -335,48 +335,44 @@ __device__ __forceinline__ void wgmma_rs<32>(float (&d)[16],
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(accumulate));
 }
 
-// D (+)= A B, m64nNk16, A from registers (four bf16x2 per thread, in the
+// D += A B, m64nNk16, A from registers (four bf16x2 per thread, in the
 // accumulator's fragment layout of a 64 x 16 tile), B from shared memory
-// MN-major (the transpose bit set: B is stored [K][N], N contiguous);
-// `accumulate` 0 overwrites D.
+// MN-major (the transpose bit set: B is stored [K][N], N contiguous).
 template <int N>
 __device__ __forceinline__ void wgmma_rs_tb(float (&d)[N / 2],
                                             const uint32_t (&a)[4],
-                                            uint64_t db, int accumulate = 1);
+                                            uint64_t db);
 
 template <>
 __device__ __forceinline__ void wgmma_rs_tb<16>(float (&d)[8],
                                                 const uint32_t (&a)[4],
-                                                uint64_t db,
-                                                int accumulate) {
+                                                uint64_t db) {
   asm volatile(
       "{\n.reg .pred p;\nsetp.ne.b32 p, %13, 0;\n"
       "wgmma.mma_async.sync.aligned.m64n16k16.f32.bf16.bf16 "
       "{%0, %1, %2, %3, %4, %5, %6, %7}, {%8, %9, %10, %11}, %12, p, 1, 1, "
       "1;\n}\n"
       : HOPPER_D8(0)
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(accumulate));
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
 }
 
 template <>
 __device__ __forceinline__ void wgmma_rs_tb<32>(float (&d)[16],
                                                 const uint32_t (&a)[4],
-                                                uint64_t db,
-                                                int accumulate) {
+                                                uint64_t db) {
   asm volatile(
       "{\n.reg .pred p;\nsetp.ne.b32 p, %21, 0;\n"
       "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 "
       "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, "
       "%15}, {%16, %17, %18, %19}, %20, p, 1, 1, 1;\n}\n"
       : HOPPER_D8(0), HOPPER_D8(8)
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(accumulate));
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
 }
 
 template <>
 __device__ __forceinline__ void wgmma_rs_tb<64>(float (&d)[32],
                                                 const uint32_t (&a)[4],
-                                                uint64_t db,
-                                                int accumulate) {
+                                                uint64_t db) {
   asm volatile(
       "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
       "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
@@ -384,14 +380,13 @@ __device__ __forceinline__ void wgmma_rs_tb<64>(float (&d)[32],
       "%15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, "
       "%29, %30, %31}, {%32, %33, %34, %35}, %36, p, 1, 1, 1;\n}\n"
       : HOPPER_D8(0), HOPPER_D8(8), HOPPER_D8(16), HOPPER_D8(24)
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(accumulate));
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
 }
 
 template <>
 __device__ __forceinline__ void wgmma_rs_tb<128>(float (&d)[64],
                                                  const uint32_t (&a)[4],
-                                                 uint64_t db,
-                                                 int accumulate) {
+                                                 uint64_t db) {
   asm volatile(
       "{\n.reg .pred p;\nsetp.ne.b32 p, %69, 0;\n"
       "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 "
@@ -403,7 +398,7 @@ __device__ __forceinline__ void wgmma_rs_tb<128>(float (&d)[64],
       "1, 1;\n}\n"
       : HOPPER_D8(0), HOPPER_D8(8), HOPPER_D8(16), HOPPER_D8(24),
         HOPPER_D8(32), HOPPER_D8(40), HOPPER_D8(48), HOPPER_D8(56)
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(accumulate));
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
 }
 
 #undef HOPPER_D8

@@ -149,8 +149,8 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                     ) -> torch.Tensor:
     """Causal flash attention: q [H,Sq,hd], k/v [H,Sk,hd] (float32 or
     bfloat16, one dtype) -> [H,Sq,hd] in q's dtype, in one kernel call on
-    the card (bfloat16: one launch; float32: two, a split of q, k and v
-    into bfloat16 parts, then the attention), counted once.  Both kernels
+    the card (bfloat16: one launch; float32: two, a split of k and v into
+    bfloat16 parts, then the attention), counted once.  Both kernels
     run on the tensor cores and compute in float32 as the plain version
     does.  `bq`/`bk` mirror the JAX wrapper's signature: they are checked
     (32 or 64) but pick nothing in either kernel, whose tiles are their own
