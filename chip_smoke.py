@@ -99,13 +99,18 @@ PEAK_BYTES_PER_S = 3.35e12
 PEAK_F32_FLOPS = 67e12          # FFMA, outside the tensor cores
 PEAK_TF32_FLOPS = 495e12        # tensor cores, f32 operands
 PEAK_BF16_FLOPS = 989e12        # tensor cores, bf16 operands
-# int32 instructions (add, xor, funnel shift): at most one per FP32 lane
-# (128 per SM) and clock, integer adds issuing as IMAD on the FMA pipe
-# beside the ALU's; the FFMA rate counts two flops per lane: 67e12 / 2
-PEAK_INT32_OPS = PEAK_F32_FLOPS / 2
-# special-function unit (exp2): 16 per SM and clock (Hopper architecture
-# white paper), 132 SMs at the 1.98 GHz boost clock
-PEAK_MUFU_OPS = 16 * 132 * 1.98e9
+# Instructions per SM and clock by pipe, 132 SMs at the 1.98 GHz boost
+# clock (the clock of PEAK_F32_FLOPS: 128 x 2 x 132 x 1.98e9).  CUDA C++
+# Programming Guide, "Throughput of Native Arithmetic Instructions",
+# compute capability 9.0: 32-bit integer add, shift (the funnel shift
+# among them), bitwise AND/OR/XOR and compare 64 (the ALU pipe, 16 lanes a
+# sub-partition); 32-bit integer multiply-add 64 (IMAD, on the FMA pipe,
+# where the compiler also issues adds); 32-bit float add, multiply and
+# multiply-add 128; reciprocal, exp2 and the type conversions 16 (MUFU).
+# Issue: one warp instruction per sub-partition and clock, 128 per SM.
+SM_CLOCKS_PER_S = 132 * 1.98e9
+PIPE_RATE = {"alu": 64, "imad": 64, "fma": 128, "mufu": 16, "issue": 128}
+PEAK_MUFU_OPS = PIPE_RATE["mufu"] * SM_CLOCKS_PER_S
 
 # full-width geometry of yolo_irc.proposed(): 576x1024 images, stem /2
 S0_ROWS_PER_IMAGE = 288 * 512
@@ -1001,17 +1006,66 @@ def fma_layouts(gen):
 
 
 # the die-sampling kernel (csrc/threefry.cu): the first layer's periphery
-# draw, 4 chips x (2 images of s0) x 60 columns, its largest
+# draw, 4 chips x (2 images of s0) x 60 columns, its largest, and one
+# 512-die layer chunk's variation mask, the layer path's largest
 THREEFRY_KEYS = 4
 THREEFRY_SHAPE = (2 * S0_ROWS_PER_IMAGE, N_COLS)
-# int32 operations of one threefry block: 20 rounds of add, rotate and
-# xor, and 12 key additions
-THREEFRY_BLOCK_OPS = 72
-# float32 operations per word of each tail (fused multiply-adds counted
-# once, erf_inv on its cheaper branch, as XLA_OPS)
-THREEFRY_TAIL_OPS = {"bits": 0, "uniform": 2, "normal": 36,
-                     "lognormal": 49, "bernoulli": 3}
+THREEFRY_MASK_KEYS = 512
+THREEFRY_MASK_SHAPE = (R_ROWS, N_COLS)
 SIGMA_LRS = 0.4245
+# The fewest instructions a bit-identical word needs, by kind: "alu" issue
+# only on the ALU pipe (funnel shifts, xors, compares, selects), "adds" on
+# the ALU or as IMAD on the FMA pipe, "fma" are float32 on the FMA pipe,
+# "mufu" reciprocals and conversions.  A threefry block is 20 rounds of an
+# add, a funnel shift and an xor, and six key injections of 2 adds each;
+# an add into x0 folds into the next round's add (a three-input IADD3), and
+# the partitionable scheme's x0 = 0 + k0 needs none: 27 adds and 20 + 20 + 1
+# (o0 ^ o1) ALU instructions per word; the original scheme's block (x0 =
+# j + k0) has 28 adds and 40 ALU instructions for its two words.
+THREEFRY_BLOCK = {True: {"alu": 41, "adds": 27},
+                  False: {"alu": 20, "adds": 14}}
+# Per word of each tail, on its cheaper branches (log1p's rational one,
+# erf_inv's lower polynomial) and without the special cases that a draw's
+# inputs never reach: the float of the top 23 bits (one LEA.HI) and its
+# uniform (an add and a fused multiply-add; no clamp: u never falls below
+# lo); the normal's x = -u^2, log1p (Q 6, P 6, x^2 and x^3 2, a correctly
+# rounded division: a reciprocal and 5 FMA-pipe steps, 3 more), erf_inv
+# (9), the two scales and two compares for the branches; exp (12, a floor,
+# a float-to-int conversion and a shift into the exponent); bernoulli an
+# integer compare and a select.
+THREEFRY_TAIL = {
+    "bits": {},
+    "uniform": {"alu": 1, "fma": 2},
+    "normal": {"alu": 3, "fma": 36, "mufu": 1},
+    "lognormal": {"alu": 4, "fma": 48, "mufu": 3},
+    "bernoulli": {"alu": 2}}
+# the tails held on all 2^23 of their inputs (a word's top 23 bits):
+# (tail, draw arguments); bernoulli also at p on and around its edges
+THREEFRY_TAIL_CASES = (
+    ("normal", dict(scale=1.0)), ("normal", dict(scale=SIGMA_LRS)),
+    ("lognormal", dict(scale=SIGMA_LRS)),
+    ("uniform", dict(minval=-0.3, maxval=2.5)),
+    ("bernoulli", dict(p=0.5)), ("bernoulli", dict(p=0.3))) + tuple(
+    ("bernoulli", dict(p=p)) for p in (0.0, -1.0, float("nan"), 1.0, 1.5,
+                                       1 - 2**-24, 2**-23, 2**-24, 0.75))
+# the kernel instantiations whose SASS phase 4 reads: (mode, original)
+THREEFRY_SASS = (("normal", False), ("bernoulli", False), ("normal", True),
+                 ("lognormal", False))
+
+
+def threefry_words(source):
+    """Counters a thread of a threefry.cu build takes per step (its
+    `kWords`, 1 where it has none)."""
+    import re
+    m = re.search(r"constexpr int kWords = (\d+);", source.read_text())
+    return int(m.group(1)) if m else 1
+
+
+def threefry_layout_n(words):
+    """Draw sizes across the kernel's layout of counters: n at every
+    residue modulo 2 x `words` (counter pairs under the original
+    scheme)."""
+    return tuple(2 * words * 37 + r for r in range(2 * words))
 
 
 def threefry_calls(key, shape):
@@ -1032,6 +1086,14 @@ def threefry_calls(key, shape):
                       lambda: prng.bernoulli_plain(key, 0.5, shape))}
 
 
+def threefry_args(mode):
+    """(lo, span, factor, p) of a mode as `threefry_calls` draws it."""
+    from repro_torch import prng
+    lo, span = prng.tail_consts(mode, -0.3, 2.5)
+    return lo, span, prng.normal_factor(
+        SIGMA_LRS if mode == "lognormal" else 1.0), 0.5
+
+
 def same_values(a, b) -> bool:
     """Bit-identical: float32 bit patterns, or equal integers."""
     import torch
@@ -1046,18 +1108,25 @@ def phase_threefry_checks(ops_):
     keys and data, split into 2, 3 and 5, and every draw at the periphery
     shape [4, 294912, 60], the proposed variation mask [4, 572, 60], the
     baseline's reference-line mask [4, 636, 1], odd and single-word draws,
-    one key and several (contiguous and strided): bit-identical, one
-    launch per call."""
+    one key and several (contiguous, strided and one expanded over three
+    rows), n at every residue modulo twice the counters a thread takes
+    (rows off 16-byte alignment): bit-
+    identical, one launch per call; then every draw written 4, 8 and 12
+    bytes past a 16-byte boundary."""
     import torch
     from repro_torch import prng
+    from repro_torch.kernels import threefry as kern
     root = prng.PRNGKey(2024, device="cuda")
     ids = torch.arange(THREEFRY_KEYS, device="cuda")
     chips = prng.fold_in(root, ids)
     strided = prng.split(chips, 3)[:, 2, :]
     one = prng.fold_in(root, 7)
+    expanded = one[None].expand(3, 2)
+    layout_n = threefry_layout_n(threefry_words(kern.SOURCE))
     draws = ((chips, THREEFRY_SHAPE), (chips, (R_ROWS, N_COLS)),
              (chips, (636, 1)), (one, (7,)), (one, (1,)), (one, (2,)),
-             (strided, (1001,)), (one, (R_ROWS, N_COLS)))
+             (strided, (1001,)), (one, (R_ROWS, N_COLS))) + tuple(
+        (k, (n,)) for n in layout_n for k in (chips, expanded))
     t0 = time.perf_counter()
     for flag in (True, False):
         with prng.threefry_partitionable(flag):
@@ -1077,81 +1146,403 @@ def phase_threefry_checks(ops_):
                           f"threefry split {num} {tuple(k.shape)}: differs")
                     calls += 1
             for k, shape in draws:
-                for mode, (kern, plain) in threefry_calls(k, shape).items():
-                    got, want = kern(), plain()
+                for mode, (call, plain) in threefry_calls(k, shape).items():
+                    got, want = call(), plain()
                     torch.cuda.synchronize()
                     check(same_values(got, want),
-                          f"threefry {mode} keys {tuple(k.shape)} shape "
-                          f"{shape}, partitionable={flag}: "
-                          f"{int((got != want).sum())} of {want.numel()} "
-                          f"differ")
+                          f"threefry {mode} keys {tuple(k.shape)} (stride "
+                          f"{k.stride(0)}) shape {shape}, partitionable="
+                          f"{flag}: {int((got != want).sum())} of "
+                          f"{want.numel()} differ")
                     calls += 1
                     del got, want
             check(ops_.LAUNCHES["threefry"] == calls,
                   f"threefry launches {ops_.LAUNCHES['threefry']} for "
                   f"{calls} calls")
+            offsets = 0
+            for n in (299, 300):
+                for mode, (_, plain) in threefry_calls(chips, (n,)).items():
+                    want = plain()
+                    for off in (1, 2, 3):
+                        buf = torch.full((want.numel() + off,), -1,
+                                         dtype=want.dtype, device="cuda")
+                        got = buf[off:].view(want.shape)
+                        code = kern.TAILS[mode][0]
+                        err = kern.load().threefry_draw_launch(
+                            chips.data_ptr(), chips.stride(0),
+                            got.data_ptr(), THREEFRY_KEYS, n, int(not flag),
+                            code, *threefry_args(mode),
+                            torch.cuda.current_stream().cuda_stream)
+                        torch.cuda.synchronize()
+                        check(err == 0 and same_values(got, want),
+                              f"threefry {mode} n={n} written "
+                              f"{off * got.element_size()} bytes off "
+                              f"16-byte alignment, partitionable={flag}: "
+                              f"error {err} or differs")
+                        offsets += 1
             scheme = "partitionable" if flag else "original"
-            shapes = [tuple(k.shape[:-1]) + s for k, s in draws]
+            shapes = [tuple(k.shape[:-1]) + s for k, s in draws[:8]]
             log("3 kernels", f"threefry, {scheme} scheme: {calls} calls "
                 f"(fold_in, split 2/3/5, bits, uniform, normal, log-normal "
-                f"mask, bernoulli at {shapes}) bit-identical to the plain "
-                f"version, one launch each")
+                f"mask, bernoulli at {shapes}, n = "
+                f"{layout_n[0]}..{layout_n[-1]} under 4 "
+                f"keys and one key expanded over 3 rows) bit-identical to "
+                f"the plain version, one launch each; {offsets} draws "
+                f"written 4-24 bytes off 16-byte alignment bit-identical")
     torch.cuda.empty_cache()
     log("3 kernels", f"threefry checks: {time.perf_counter() - t0:.1f}s")
 
 
+def phase_threefry_tails():
+    """Phase 3, each float32 tail of the die-sampling kernel on all 2^23 of
+    its inputs: words k << 9 for every k < 2^23, with low bits that the
+    tails ignore, through `threefry_tail_launch` (the draw kernel's own
+    tail code, whole warps at a time) in order and shuffled (so that warps
+    mix lanes that take each branch), against `prng.tail_plain` on the
+    card, bit for bit."""
+    import torch
+    from repro_torch import prng
+    from repro_torch.kernels import threefry as kern
+    t0 = time.perf_counter()
+    k = torch.arange(1 << 23, dtype=torch.int64, device="cuda")
+    words = (k << 9) | ((k * 0x9E3779B1) >> 7 & 511)
+    perm = torch.randperm(1 << 23, device="cuda",
+                          generator=torch.Generator(device="cuda")
+                          .manual_seed(57))
+    for tail, kw in THREEFRY_TAIL_CASES:
+        lo, span = prng.tail_consts(tail, kw.get("minval", 0.0),
+                                    kw.get("maxval", 1.0))
+        args = (lo, span, prng.normal_factor(kw.get("scale", 1.0)),
+                kw.get("p", 0.5))
+        want = prng.tail_plain(words, tail, **kw)
+        for order, w, ref in (("in order", words, want),
+                              ("shuffled", words[perm], want[perm])):
+            got = kern.launch_tail(w, tail, *args)
+            torch.cuda.synchronize()
+            check(same_bits(got, ref),
+                  f"threefry tail {tail} {kw} {order}: "
+                  f"{int((got.view(torch.int32) != ref.view(torch.int32)).sum())}"
+                  f" of 2^23 inputs differ from tail_plain")
+        log("3 kernels", f"threefry tail {tail} {kw}: all 2^23 inputs, in "
+            f"order and shuffled, bit-identical to tail_plain")
+    del k, words, perm
+    torch.cuda.empty_cache()
+    log("3 kernels", f"threefry tail checks: {time.perf_counter() - t0:.1f}s")
+
+
+def phase_xla_all_floats(ops_):
+    """Phase 3, `xla_erf_inv` (scale 1) and `xla_exp`, whose shared code
+    the die sampling calls too, on every float32 bit pattern (NaNs,
+    infinities and subnormals included), in chunks of 2^26, against their
+    plain versions on the card, bit for bit."""
+    import torch
+    from repro_torch import xla_order as xo
+    t0 = time.perf_counter()
+    chunk = 1 << 26
+    for name, call, plain in (
+            ("xla_erf_inv", lambda x: ops_.xla_erf_inv(x, 1.0),
+             lambda x: xo.erf_inv_plain(x, 1.0)),
+            ("xla_exp", ops_.xla_exp, xo.exp_plain)):
+        bad, first = 0, []
+        for lo in range(-2**31, 2**31, chunk):
+            x = torch.arange(lo, lo + chunk, dtype=torch.int32,
+                             device="cuda").view(torch.float32)
+            got, want = call(x), plain(x)
+            diff = got.view(torch.int32) != want.view(torch.int32)
+            n = int(diff.sum())
+            if n and len(first) < 5:
+                i = diff.nonzero()[:5 - len(first), 0]
+                first += [(hex(int(x.view(torch.int32)[j]) & 0xFFFFFFFF),
+                           float(got[j]), float(want[j])) for j in i]
+            bad += n
+            del x, got, want, diff
+        check(bad == 0, f"{name}: {bad} of 2^32 float32 inputs differ from "
+              f"the plain version, first (input bits, kernel, plain): "
+              f"{first}")
+        log("3 kernels", f"{name}: all 2^32 float32 inputs bit-identical to "
+            f"the plain version")
+    torch.cuda.empty_cache()
+    log("3 kernels", f"xla_math all-float checks: "
+        f"{time.perf_counter() - t0:.1f}s")
+
+
+def threefry_work(mode, partitionable):
+    """The instructions one word of a draw needs, by kind: its share of a
+    threefry block and its tail."""
+    work = dict(THREEFRY_BLOCK[partitionable])
+    for kind, count in THREEFRY_TAIL[mode].items():
+        work[kind] = work.get(kind, 0) + count
+    return work
+
+
 def threefry_bound_ms(mode, n_keys, n, partitionable):
     """Least time for one draw of n words under each of n_keys keys: the
-    threefry blocks (one per word, or per counter pair under the original
-    scheme) at the int32 instruction rate plus the tail's float32
-    operations at the FFMA rate (both on the same lanes, so the times add),
-    against the keys read and the output written once.
-    Returns (ms, "bytes" | "operations")."""
-    blocks = n_keys * (n if partitionable else (n + 1) // 2)
-    t_ops = (THREEFRY_BLOCK_OPS * blocks / PEAK_INT32_OPS
-             + 2 * THREEFRY_TAIL_OPS[mode] * n_keys * n / PEAK_F32_FLOPS
-             ) * 1e3
+    largest of each pipe's time for the instructions `threefry_work`
+    counts (ALU-only at 64 per SM and clock; those and the adds on the ALU
+    and IMAD together, 128; float32 on the FMA pipe, 128; MUFU, 16; all of
+    them through issue, 128) and of the keys read and the output written
+    once at 3.35 TB/s.  Returns (ms, "bytes" | "operations", the pipe or
+    "bytes")."""
+    w = threefry_work(mode, partitionable)
+    alu, adds, fma, mufu = (w.get(k, 0) for k in ("alu", "adds", "fma",
+                                                  "mufu"))
+    per_word = {"alu": alu / PIPE_RATE["alu"],
+                "alu+imad": (alu + adds) / (PIPE_RATE["alu"]
+                                            + PIPE_RATE["imad"]),
+                "fma": fma / PIPE_RATE["fma"],
+                "mufu": mufu / PIPE_RATE["mufu"],
+                "issue": (alu + adds + fma + mufu) / PIPE_RATE["issue"]}
+    pipe = max(per_word, key=per_word.get)
+    t_ops = per_word[pipe] * n_keys * n / SM_CLOCKS_PER_S * 1e3
     out_bytes = 8 if mode == "bits" else 4
     t_bytes = (16 * n_keys + out_bytes * n_keys * n) / PEAK_BYTES_PER_S * 1e3
-    return (t_ops, "operations") if t_ops >= t_bytes else (t_bytes, "bytes")
+    if t_ops >= t_bytes:
+        return t_ops, "operations", pipe
+    return t_bytes, "bytes", "bytes"
 
 
-def phase_threefry_times(ops_):
-    """Phase 4, the die-sampling kernel at the periphery draw [4, 294912,
-    60]: the normal (both schemes) and bernoulli(0.5), against the int64
-    plain version, torch.randn / torch.rand with a CUDA generator (other
-    bits; the one torch call of the same kind) and the bound."""
+# SASS opcodes (their first dotted part) by the pipe they issue on;
+# anything else counts as "other"
+SASS_CLASSES = {
+    "alu": ("SHF", "LOP3", "IADD3", "ISETP", "FSETP", "FSEL", "SEL", "FMNMX",
+            "IMNMX", "PRMT", "LEA", "MOV", "PLOP3", "IABS", "FCHK", "VIADD",
+            "P2R", "R2P"),
+    "fma": ("FFMA", "FADD", "FMUL", "IMAD", "FMUL32I", "FADD32I",
+            "FFMA32I", "IMAD32I"),
+    "mufu/cvt": ("MUFU", "I2F", "F2I", "FRND", "F2F", "I2FP", "F2IP"),
+    "memory": ("LDG", "STG", "LD", "ST", "LDS", "STS", "LDC", "LDL", "STL",
+               "ATOM", "RED"),
+    "control": ("BRA", "EXIT", "BSSY", "BSYNC", "WARPSYNC", "VOTE", "NOP",
+                "RET", "CALL", "BAR", "YIELD", "BREAK", "JMP")}
+
+
+def sass_functions(library):
+    """{mangled function name: [(address, opcode, branch target or None,
+    predicated)]} from `cuobjdump -sass` of a built library."""
+    from repro_torch.kernels import build
+    tool = Path(build.nvcc_path()).parent / "cuobjdump"
+    return parse_sass(subprocess.run(
+        [str(tool), "-sass", str(library)], capture_output=True, text=True,
+        check=True).stdout)
+
+
+def parse_sass(sass):
+    """`sass_functions` of `cuobjdump -sass`'s text."""
+    import re
+    line_re = re.compile(r"^\s*/\*([0-9a-f]+)\*/\s+(@!?U?P\w+\s+)?"
+                         r"([A-Z][A-Z0-9_.]*)([^;]*);")
+    funcs, name = {}, None
+    for line in sass.splitlines():
+        if "Function :" in line:
+            name = line.split("Function :", 1)[1].strip()
+            funcs[name] = []
+            continue
+        m = line_re.match(line)
+        if name is None or not m:
+            continue
+        op = m.group(3)
+        target = None
+        if op.split(".")[0] == "BRA":
+            hexes = re.findall(r"0x([0-9a-f]+)", m.group(4))
+            target = int(hexes[-1], 16) if hexes else None
+        funcs[name].append((int(m.group(1), 16), op, target,
+                            m.group(2) is not None))
+    return funcs
+
+
+def sass_loop(instrs):
+    """The main loop: the innermost loop (the range of a conditional
+    backward branch; the unconditional jumps back from out-of-line code are
+    no loops) that holds a store.  Returns [(opcode, voted)], `voted` for
+    the instructions that run only where a warp vote (VOTE.ANY, then a
+    conditional forward branch that skips them or jumps to them over an
+    unconditional jump past them) asks for them."""
+    loops = [(t, a) for a, op, t, pred in instrs
+             if t is not None and t <= a and pred]
+
+    def inside(r, s):
+        return s[0] <= r[0] and r[1] <= s[1] and r != s
+
+    stores = [ins[0] for ins in instrs if ins[1].startswith("STG")]
+    main = [r for r in loops if any(r[0] <= x <= r[1] for x in stores)]
+    main = [r for r in main if not any(inside(s, r) for s in main)]
+    if not main:
+        return []
+    t, a = max(main, key=lambda r: r[1] - r[0])
+    body = [ins for ins in instrs if t <= ins[0] <= a]
+    at = {ins[0]: i for i, ins in enumerate(body)}
+    voted = set()
+    for i, (_, op, _, _) in enumerate(body):
+        if not op.startswith("VOTE.ANY"):
+            continue
+        guard = next((b for b in body[i + 1:i + 4]
+                      if b[2] is not None and b[3] and b[2] > b[0]), None)
+        j = at.get(guard[2]) if guard else None
+        if j is None:
+            continue
+        if body[j - 1][1] == "BRA" and not body[j - 1][3]:
+            voted.update(b[0] for b in body[j:] if b[0] < body[j - 1][2])
+        else:
+            voted.update(b[0] for b in body if guard[0] < b[0] < guard[2])
+    return [(op, addr in voted) for addr, op, _, _ in body]
+
+
+def sass_classes(ops):
+    """{class: count} and {opcode head: count} of a list of opcodes."""
+    heads, classes = {}, {}
+    for op in ops:
+        head = op.split(".")[0]
+        heads[head] = heads.get(head, 0) + 1
+        cls = next((c for c, names in SASS_CLASSES.items() if head in names),
+                   "other")
+        classes[cls] = classes.get(cls, 0) + 1
+    return classes, heads
+
+
+def resource_usage(library):
+    """{mangled function name: (registers, stack bytes)} from `cuobjdump
+    -res-usage`."""
+    import re
+    from repro_torch.kernels import build
+    tool = Path(build.nvcc_path()).parent / "cuobjdump"
+    text = subprocess.run([str(tool), "-res-usage", str(library)],
+                          capture_output=True, text=True, check=True).stdout
+    out, name = {}, None
+    for line in text.splitlines():
+        m = re.search(r"Function ([^\s:]+):", line)
+        if m:
+            name = m.group(1)
+        m = re.search(r"REG:(\d+) STACK:(\d+)", line)
+        if m and name:
+            out[name] = (int(m.group(1)), int(m.group(2)))
+    return out
+
+
+def occupancy_warps(registers, threads=256):
+    """Resident warps per SM of a kernel that uses `registers` a thread in
+    blocks of `threads` (registers allocated 256 a warp; 65,536 per SM; at
+    most 64 warps and 32 blocks)."""
+    per_warp = -(-registers * 32 // 256) * 256
+    warps = min(64, 65536 // per_warp)
+    return min(32, warps // (threads // 32)) * (threads // 32)
+
+
+def threefry_sass(source):
+    """Phase 4: for each instantiation in THREEFRY_SASS of the library
+    built from `source` (a threefry.cu), its main loop's SASS per word by
+    class (the loop's trip takes `kWords` counters, 1 where the source has
+    none, each a word, or two under the original scheme), its registers
+    and its occupancy; logs them and returns {tag: per-word classes}."""
+    from repro_torch.kernels import build, threefry as kern
+    per_trip = threefry_words(source)
+    lib = build.library_path(source)
+    funcs, usage = sass_functions(lib), resource_usage(lib)
+    out = {}
+    for mode, original in THREEFRY_SASS:
+        key = f"draw_kernelILb{int(original)}ELi{kern.TAILS[mode][0]}E"
+        name = next((n for n in funcs if key in n), None)
+        res = next((v for n, v in usage.items() if key in n), None)
+        check(name is not None and res is not None,
+              f"threefry SASS: no function {key} in {lib}")
+        words = per_trip * (2 if original else 1)
+        loop = sass_loop(funcs[name])
+        classes, heads = sass_classes([op for op, v in loop if not v])
+        voted = sum(v for _, v in loop) / words
+        regs, stack = res
+        tag = f"{mode}{' original' if original else ''}"
+        per_word = {c: v / words for c, v in sorted(classes.items())}
+        out[tag] = dict(per_word=per_word, voted=voted, registers=regs,
+                        stack=stack, warps=occupancy_warps(regs))
+        top = sorted(heads.items(), key=lambda kv: -kv[1])[:14]
+        log("4 times", f"threefry SASS {source.name} draw_kernel<"
+            f"{str(original).lower()}, {mode}>: main loop "
+            f"{len(loop)} instructions for {words} words; per word "
+            f"{sum(per_word.values()):.2f} outside the blocks a warp vote "
+            f"guards ({voted:.2f} in them): "
+            + ", ".join(f"{c} {v:.2f}" for c, v in per_word.items())
+            + f"; opcodes {dict(top)}; {regs} registers, {stack} bytes "
+            f"stack, {occupancy_warps(regs)} of 64 warps per SM")
+    return out
+
+
+def threefry_timed(keys, mask_keys):
+    """Phase 4's draws: (tag, mode, partitionable, keys, shape)."""
+    return (("normal", "normal", True, keys, THREEFRY_SHAPE),
+            ("bernoulli", "bernoulli", True, keys, THREEFRY_SHAPE),
+            ("normal original", "normal", False, keys, THREEFRY_SHAPE),
+            ("lognormal mask", "lognormal", True, mask_keys,
+             THREEFRY_MASK_SHAPE))
+
+
+def phase_threefry_times(ops_, baselines=()):
+    """Phase 4, the die-sampling kernel: its SASS per word (and that of
+    each build of threefry.cu in `baselines`), then the periphery draw [4,
+    294912, 60] (the normal under both schemes and bernoulli(0.5)) and one
+    512-die chunk's variation mask [512, 572, 60] against the int64 plain
+    version, torch.randn / torch.rand with a CUDA generator (other bits;
+    the one torch call of the same kind) and the bound; each baseline's
+    library timed on the same draws in turns with the tree's (baseline,
+    kernel, kernel, baseline), its output bit-identical to the kernel's."""
     import math
     import torch
     from repro_torch import prng
+    from repro_torch.kernels import build, threefry as kern
     gen = torch.Generator(device="cuda").manual_seed(58)
-    keys = prng.fold_in(prng.PRNGKey(5, device="cuda"),
-                        torch.arange(THREEFRY_KEYS, device="cuda"))
-    n = math.prod(THREEFRY_SHAPE)
-    full = (THREEFRY_KEYS,) + THREEFRY_SHAPE
+    sass = {"tree": threefry_sass(kern.SOURCE)}
+    libs = {}
+    for src in baselines:
+        sass[src.name] = threefry_sass(src)
+        libs[src.name] = kern.load(src)
+    root = prng.PRNGKey(5, device="cuda")
+    keys = prng.fold_in(root, torch.arange(THREEFRY_KEYS, device="cuda"))
+    mask_keys = prng.fold_in(root, torch.arange(THREEFRY_MASK_KEYS,
+                                                device="cuda"))
     out = {}
-    for mode, flag in (("normal", True), ("bernoulli", True),
-                       ("normal", False)):
+    for tag, mode, flag, k, shape in threefry_timed(keys, mask_keys):
+        n = math.prod(shape)
+        full = (k.shape[0],) + shape
         with prng.threefry_partitionable(flag):
-            kern, plain = threefry_calls(keys, THREEFRY_SHAPE)[mode]
-            got, want = kern(), plain()
+            call, plain = threefry_calls(k, shape)[mode]
+            got, want = call(), plain()
             err = float((got - want).abs().max())
-            del got, want
-            ms, host = queued_ms(kern, reps=7, calls=20)
+            del want
+            base_calls = {
+                name: (lambda lib=lib: kern.launch_draw(
+                    k, n, not flag, mode, *threefry_args(mode), lib=lib))
+                for name, lib in libs.items()}
+            for name, base in base_calls.items():
+                check(same_bits(base().view(got.shape), got),
+                      f"threefry {tag}: {name} differs from the kernel")
+            del got
+            before = {name: queued_ms(b, reps=7, calls=20)[0]
+                      for name, b in base_calls.items()}
+            ms, host = queued_ms(call, reps=7, calls=20)
+            again, _ = queued_ms(call, reps=7, calls=20)
+            after = {name: queued_ms(b, reps=7, calls=20)[0]
+                     for name, b in reversed(base_calls.items())}
             plain_ms = cuda_ms(plain, reps=3)
         lib = ((lambda: torch.randn(full, generator=gen, device="cuda"))
-               if mode == "normal" else
+               if mode in ("normal", "lognormal") else
                (lambda: torch.rand(full, generator=gen, device="cuda")))
         lib_ms, _ = queued_ms(lib, reps=7, calls=20)
-        b_ms, b_by = threefry_bound_ms(mode, THREEFRY_KEYS, n, flag)
-        tag = f"{mode}{'' if flag else ' original'}"
+        b_ms, b_by, pipe = threefry_bound_ms(mode, k.shape[0], n, flag)
         out[tag] = dict(ms=ms, plain_ms=plain_ms, library_ms=lib_ms,
                         bound_ms=b_ms, bound_by=b_by, max_abs_err=err)
-        lib_name = "randn" if mode == "normal" else "rand"
-        log("4 times", f"threefry {tag} {full}: kernel {ms:.4f} ms, plain "
-            f"{plain_ms:.3f} ms, torch.{lib_name} {lib_ms:.4f} ms, bound "
-            f"{b_ms:.4f} ms ({b_by}), share of bound {b_ms / ms:.3f}, host "
-            f"enqueue {host:.4f} ms per call")
+        lib_name = "randn" if mode in ("normal", "lognormal") else "rand"
+        per_word = sum(sass["tree"][tag.replace(" mask", "")]["per_word"]
+                       .values())
+        log("4 times", f"threefry {tag} {full}: kernel {ms:.4f} ms (again "
+            f"{again:.4f}), plain {plain_ms:.3f} ms, torch.{lib_name} "
+            f"{lib_ms:.4f} ms, bound {b_ms:.4f} ms ({b_by}, {pipe}: "
+            f"{threefry_work(mode, flag)} per word), share of bound "
+            f"{b_ms / ms:.3f}, {per_word:.2f} SASS instructions per word in "
+            f"the main loop outside the vote-guarded blocks, host enqueue "
+            f"{host:.4f} ms per call")
+        for name in base_calls:
+            log("4 times", f"threefry {tag} {full}: baseline {name} "
+                f"{before[name]:.4f} ms before the kernel, "
+                f"{after[name]:.4f} ms after, share of bound "
+                f"{b_ms / max(before[name], after[name]):.3f}")
         torch.cuda.empty_cache()
     return out
 
@@ -1662,48 +2053,24 @@ def phase_network(ops_):
           f"network: agreement {frac}, mAP diff {dmap}")
 
 
-def phase_profile():
-    """`--only profile`: where one full-width chunk's device time goes (4
-    chips x 2 images, all effects): the chunk's span on CUDA events, its
-    host enqueue, and torch.profiler's device time and launches by kernel
-    name, the threefry kernel's beside the int64 elementwise ops that the
+def profile_breakdown(tag, fn):
+    """One `fn()` (a chunk) on the card: its span on CUDA events, its host
+    enqueue, and torch.profiler's device time and launches by kernel name,
+    the threefry kernel's split into its draw launches and its pairs
+    (fold_in, split) launches, beside the int64 elementwise ops that the
     plain sampling ran as."""
     import torch
     from torch.profiler import ProfilerActivity, profile
-    from repro_torch import prng
-    from repro_torch.configs import yolo_irc
-    from repro_torch.core.nonideal import NonidealConfig
-    from repro_torch.data.detection import SyntheticDetectionData
-    from repro_torch.mc.detector_mc import (_sample_and_forward,
-                                            detector_planes)
-    from repro_torch.models.detector import IRCDetector
-    cfg = yolo_irc.proposed()
-    det = IRCDetector(cfg)
-    data = SyntheticDetectionData(img_hw=cfg.img_hw, stride=cfg.strides)
-    params = det.init(prng.PRNGKey(0, device="cuda"), device="cuda")
-    params = det.calibrate_bn(
-        params, torch.from_numpy(data.batch_for_step(999, 8).images).cuda())
-    images = torch.from_numpy(data.batch_for_step(1000, 2).images).cuda()
-    planes, meta = detector_planes(det, params)
-    key = prng.PRNGKey(0, device="cuda")
-    ids = torch.arange(4, device="cuda")
-
-    def chunk():
-        return _sample_and_forward(
-            params, images, key, ids, planes, det_cfg=cfg, spec=det.spec,
-            cfg_ni=NonidealConfig.all(), sa_extra=0.0, meta=meta)
-
-    ms = cuda_ms(chunk, reps=3)
+    ms = cuda_ms(fn, reps=3)
     t0 = time.perf_counter()
-    chunk()
+    fn()
     enqueue_s = time.perf_counter() - t0
     torch.cuda.synchronize()
-    log("9 profile", f"one chunk (4 chips x 2 images, all effects): "
-        f"{ms:.2f} ms device span (CUDA events, median of 3), host enqueue "
-        f"{enqueue_s * 1e3:.1f} ms")
+    log("9 profile", f"{tag}: {ms:.2f} ms device span (CUDA events, median "
+        f"of 3), host enqueue {enqueue_s * 1e3:.1f} ms")
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
-        chunk()
+        fn()
         torch.cuda.synchronize()
 
     def dev_us(e):
@@ -1716,31 +2083,79 @@ def phase_profile():
                   key=dev_us, reverse=True)
     total = sum(dev_us(e) for e in rows)
     if total <= 0:
-        log("9 profile", "the profiler saw no device time: breakdown not "
-            "measured")
+        log("9 profile", f"{tag}: the profiler saw no device time: "
+            f"breakdown not measured")
         return
-    irc = sum(dev_us(e) for e in rows if "irc_mvm_chips_kernel" in e.key)
-    sampling = [e for e in rows
-                if "draw_kernel" in e.key or "pairs_kernel" in e.key]
-    tf = sum(dev_us(e) for e in sampling)
-    # int64 elementwise ops: the plain threefry's (PR 15: 554.40 ms); what
-    # is left names what still runs as int64 torch ops
-    int64 = [e for e in rows if "<long" in e.key]
-    i64 = sum(dev_us(e) for e in int64)
-    log("9 profile", f"device kernels {total / 1e3:.2f} ms in "
+
+    def part(pred):
+        picked = [e for e in rows if pred(e.key)]
+        return sum(dev_us(e) for e in picked), sum(e.count for e in picked)
+
+    irc, irc_n = part(lambda k: "irc_mvm_chips_kernel" in k)
+    draws, draws_n = part(lambda k: "draw_kernel" in k)
+    pairs, pairs_n = part(lambda k: "pairs_kernel" in k)
+    # int64 elementwise ops: the plain threefry's (PR 15: 554.40 ms a
+    # detector chunk); what is left names what still runs as int64 ops
+    i64, i64_n = part(lambda k: "<long" in k)
+    tf = draws + pairs
+    log("9 profile", f"{tag}: device kernels {total / 1e3:.3f} ms in "
         f"{sum(e.count for e in rows)} launches: irc_mvm_chips "
-        f"{irc / 1e3:.2f} ms ({100 * irc / total:.1f}%), threefry kernel "
-        f"{tf / 1e3:.2f} ms ({100 * tf / total:.1f}%) in "
-        f"{sum(e.count for e in sampling)} launches, int64 elementwise "
-        f"{i64 / 1e3:.2f} ms ({100 * i64 / total:.1f}%) in "
-        f"{sum(e.count for e in int64)} launches, rest "
-        f"{(total - irc - tf - i64) / 1e3:.2f} ms")
-    for e in int64[:5]:
-        log("9 profile", f"int64 left: {dev_us(e) / 1e3:9.2f} ms "
-            f"x{e.count:<5d} {e.key[:90]}")
+        f"{irc / 1e3:.3f} ms ({100 * irc / total:.1f}%, {irc_n} launches), "
+        f"threefry kernel {tf / 1e3:.3f} ms ({100 * tf / total:.1f}%): "
+        f"draws {draws / 1e3:.3f} ms in {draws_n} launches, pairs "
+        f"{pairs / 1e3:.3f} ms in {pairs_n}; int64 elementwise "
+        f"{i64 / 1e3:.3f} ms ({100 * i64 / total:.1f}%) in {i64_n} "
+        f"launches, rest {(total - irc - tf - i64) / 1e3:.3f} ms")
     for e in rows[:12]:
-        log("9 profile", f"{dev_us(e) / 1e3:9.2f} ms "
+        log("9 profile", f"{tag}: {dev_us(e) / 1e3:9.3f} ms "
             f"{100 * dev_us(e) / total:5.1f}%  x{e.count:<5d} {e.key[:90]}")
+
+
+def phase_profile():
+    """`--only profile`: where the device time of one chunk of each main
+    path goes: the full-width detector chunk (4 chips x 2 images, all
+    effects) and one 512-die proposed layer chunk (540x60, all effects,
+    through K1), each broken down by `profile_breakdown`."""
+    import torch
+    from repro_torch import prng
+    from repro_torch.configs import yolo_irc
+    from repro_torch.core.nonideal import NonidealConfig
+    from repro_torch.data.detection import SyntheticDetectionData
+    from repro_torch.launch.mc import build_layer
+    from repro_torch.mc.detector_mc import (_sample_and_forward,
+                                            detector_planes)
+    from repro_torch.mc.engine import ensemble_apply_kernel
+    from repro_torch.mc.ensemble import sample_ensemble
+    from repro_torch.models.detector import IRCDetector
+    cfg = yolo_irc.proposed()
+    det = IRCDetector(cfg)
+    data = SyntheticDetectionData(img_hw=cfg.img_hw, stride=cfg.strides)
+    params = det.init(prng.PRNGKey(0, device="cuda"), device="cuda")
+    params = det.calibrate_bn(
+        params, torch.from_numpy(data.batch_for_step(999, 8).images).cuda())
+    images = torch.from_numpy(data.batch_for_step(1000, 2).images).cuda()
+    planes, meta = detector_planes(det, params)
+    key = prng.PRNGKey(0, device="cuda")
+    ids = torch.arange(4, device="cuda")
+
+    def detector_chunk():
+        return _sample_and_forward(
+            params, images, key, ids, planes, det_cfg=cfg, spec=det.spec,
+            cfg_ni=NonidealConfig.all(), sa_extra=0.0, meta=meta)
+
+    profile_breakdown("detector chunk (4 chips x 2 images, all effects)",
+                      detector_chunk)
+    del params, planes, meta, images
+    torch.cuda.empty_cache()
+    mapped, x, _ = build_layer(layer_args(), "cuda")
+    cfg_ni = NonidealConfig.all()
+
+    def layer_chunk():
+        ens = sample_ensemble(key, mapped, LAYER_CHUNK, cfg=cfg_ni)
+        return ensemble_apply_kernel(ens, x, cfg=cfg_ni)
+
+    profile_breakdown(f"layer chunk ({LAYER_CHUNK} dies, 540x60, all "
+                      f"effects, K1)", layer_chunk)
 
 
 def phase_cli():
@@ -1784,10 +2199,19 @@ def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--only", default=",".join(PHASES),
                     help=f"comma list of phases to run, of {PHASES}, plus "
-                         "'profile' (device-time breakdown of one chunk, "
-                         "never run by default)")
-    only = set(ap.parse_args(argv).only.split(","))
-    unknown = only - set(PHASES) - {"profile"}
+                         "'profile' (device-time breakdown of one chunk of "
+                         "each main path) and 'threefry' (the die-sampling "
+                         "kernel's checks and times alone), never run by "
+                         "default")
+    ap.add_argument("--threefry-baseline", default="",
+                    help="comma list of other builds of threefry.cu (the "
+                         "same C interface, e.g. the parent commit's) that "
+                         "phase 4 times in turns with the tree's")
+    args = ap.parse_args(argv)
+    only = set(args.only.split(","))
+    baselines = tuple(Path(p).resolve()
+                      for p in args.threefry_baseline.split(",") if p)
+    unknown = only - set(PHASES) - {"profile", "threefry"}
     if unknown:
         ap.error(f"unknown phases {sorted(unknown)}")
     if not torch.cuda.is_available():
@@ -1807,7 +2231,7 @@ def main(argv=None) -> int:
                                      irc_mvm, ops, ternary_matmul, threefry,
                                      xla_math)
     mods = (irc_mvm, ternary_matmul, flash, xla_math, threefry)
-    sources = tuple(m.SOURCE for m in mods)
+    sources = tuple(m.SOURCE for m in mods) + baselines
     build.build(*sources)
     for src in sources:
         log("2 build", f"nvcc sm_90a build of {src.name}: "
@@ -1819,15 +2243,18 @@ def main(argv=None) -> int:
                   or "Performance Loss" in line):
                 log("2 build", "ptxas: " + line.strip())
     # the tensor-core kernels serialize every wgmma if ptxas spills or
-    # cannot prove a warpgroup's wgmmas uniform (C7520)
-    for src in (ternary_matmul.SOURCE, flash.SOURCE):
+    # cannot prove a warpgroup's wgmmas uniform (C7520); the die sampling
+    # and the elementwise math keep every value in registers
+    for src in (ternary_matmul.SOURCE, flash.SOURCE, threefry.SOURCE,
+                xla_math.SOURCE):
         text = build.BUILD_LOG.get(src.name, "")
         spills = [ln.strip() for ln in text.splitlines()
                   if "spill" in ln and not ln.strip().startswith(
                       "0 bytes stack frame, 0 bytes spill stores, 0 bytes "
                       "spill loads")]
         check("C7520" not in text and not spills,
-              f"{src.name}: ptxas serialized wgmma or spilled: {spills}")
+              f"{src.name}: ptxas serialized wgmma, spilled or kept a "
+              f"stack frame: {spills}")
     for mod in mods:
         mod.load()
 
@@ -1838,14 +2265,16 @@ def main(argv=None) -> int:
         phase_k3_checks(ops)
         k4_err = phase_k4_checks(ops)
         phase_xla_checks(ops)
+        phase_xla_all_floats(ops)
         phase_threefry_checks(ops)
+        phase_threefry_tails()
     times, k3_times, k4_times, xla_times, tf_times = {}, {}, {}, {}, {}
     if "times" in only:
         times = phase_times(ops)
         k3_times = phase_k3_times(ops)
         k4_times = phase_k4_times(ops)
         xla_times = phase_xla_times(ops)
-        tf_times = phase_threefry_times(ops)
+        tf_times = phase_threefry_times(ops, baselines)
     launches, single, layer, k4_launches, baseline = {}, {}, {}, {}, {}
     if "main" in only:
         launches, single = phase_main_path(ops)
@@ -1857,6 +2286,10 @@ def main(argv=None) -> int:
         phase_layer_network(ops)
     if "cli" in only:
         phase_cli()
+    if "threefry" in only:
+        phase_threefry_checks(ops)
+        phase_threefry_tails()
+        phase_threefry_times(ops, baselines)
     if "profile" in only:
         phase_profile()
     if only != set(PHASES):

@@ -7,12 +7,11 @@
 // the SA offsets and fallback bits of `resolve_sa` and the engine), which
 // XLA fuses into the sweep.  The port's plain version (repro_torch/prng.py,
 // `*_plain`) runs the 20-round block function as ~170 int64 elementwise
-// torch ops per call, with `& 0xFFFFFFFF` masks, then the uniform, XLA's
-// erf_inv and exp as passes of their own; on the card that was most of a
-// detector chunk's launches and kernel time.  Here one thread runs the block
-// function in uint32 registers (rotations as `__funnelshift_l`) and carries
-// its words on through the float tail to the output, so each draw is one
-// launch that reads its keys and writes its output once.
+// torch ops per call, with `& 0xFFFFFFFF` masks, then the tail
+// (`prng.tail_plain`: the uniform, XLA's erf_inv and exp) as passes of its
+// own.  Here one thread runs the block function in uint32 registers and
+// carries its words on through the float tail to the output, so each draw
+// is one launch that reads its keys and writes its output once.
 //
 // Calls (keys [L, 2] int64, the two 32-bit words of each of L keys):
 //   * threefry_pairs_launch: fold_in, out[l] = block(key l, counters (0,
@@ -22,31 +21,66 @@
 //     words);
 //   * threefry_draw_launch: n words per key in either scheme's counter layout
 //     (repro_torch/prng.py's docstring): partitionable, one block per word i
-//     at counters (i >> 32, i & mask), word = o0 ^ o1; original, one block
-//     per counter pair j < h = ceil(n / 2) at (j, j + h), or (j, 0) for the
+//     at counters (0, i) (i < 2^32), word = o0 ^ o1; original, one block
+//     per counter pair j < m = ceil(n / 2) at (j, j + m), or (j, 0) for the
 //     padded last pair of an odd n, writing o0 to word j and o1 to word
-//     j + h.  Each word then goes through one tail: the raw word (int64);
+//     j + m.  Each word then goes through one tail: the raw word (int64);
 //     uniform fma(f, hi - lo, lo) clamped below at lo, f the top 23 bits as
 //     a float in [0, 1); normal, factor * erf_inv(uniform on (nextafter(-1,
 //     0), 1)); the log-normal mask exp(normal); bernoulli (uniform < p) as
-//     float32 {0, 1}.
+//     float32 {0, 1};
+//   * threefry_tail_launch (checks only): the same tails on given words.
 // Bit-identity with the plain version: the block function is exact integer
 // arithmetic; the uniform's f * (hi - lo) + lo is one `__fmaf_rn`, as XLA
 // contracts it inside `jax.random.uniform` and the plain version computes
 // it (`xla_order.fma_plain`); hi - lo and the normal's float32(scale *
 // float32(sqrt 2)) come from the host, rounded as the plain version rounds
 // them; erf_inv and exp are the shared `xla_math.cuh` functions that
-// xla_math.cu's kernels use, op for op the plain versions' order.
+// xla_math.cu's kernels use, op for op the plain versions' order.  The
+// tails take only the top 23 bits of a word, so `chip_smoke.py` phase 3
+// holds each of them on all 2^23 of its inputs (`threefry_tail_launch`
+// against `prng.tail_plain`).
 //
-// What bounds it on the H100: operations.  A word costs one block function
-// (20 rounds of add, rotate, xor, and 6 key injections: ~110 int32
-// operations) plus its tail (~60 float32 operations for a normal); at the
-// first layer's periphery draw (4 chips x 294,912 x 60 = 70.8 M words)
-// that is ~0.5 ms at the int32 rate against 0.085 ms to write the output.
-// A grid-stride loop over each key's words (blockIdx.y picks the key) keeps
-// every thread on independent blocks; nothing touches shared memory.
+// What bounds it on the H100: instruction issue, and for the integer-only
+// tails the ALU pipe.  A word needs one block function (20 rounds of an
+// add, a funnel shift and an xor, and the key injections: 68 int32
+// instructions a word in the partitionable scheme, 34 in the original)
+// plus its tail (36 float32 instructions for a normal on its cheaper
+// branches, 2 for bernoulli); the funnel shifts and xors issue only on the
+// ALU pipe (64 per SM and clock), the adds on the ALU or, as IMAD, on the
+// FMA pipe, every instruction through one issue slot of 128 per SM and
+// clock (`chip_smoke.py::threefry_bound_ms`).  `chip_smoke.py` phase 4
+// prints the SASS of each main loop per word: about 148 instructions for
+// the normal (25 more in the block that erf_inv's vote guards), 73 for
+// bernoulli, 112 for the normal under the original scheme and 173 for the
+// log-normal mask, against 216, 85, 196 and 241 of the one-word-a-thread
+// kernel before.  The design spends as few instructions a word as it can:
+//   * each thread takes kWords consecutive counters per step and stores
+//     them 16 bytes at a time (a row's words up to its first 16-byte
+//     boundary, and its last few, go through scalar stores); indices are
+//     32-bit within a key, and the partitionable scheme's high counter word
+//     is the constant 0, folded into the first key injection;
+//   * the normal and the log-normal mask write the block function's adds
+//     as IMAD (`kImadAdds`); the key's injection constants stay in
+//     registers (`pinned`) instead of being recomputed every step;
+//   * bernoulli turns the word into its float32 {0, 1} with an IMAD.WIDE
+//     against an integer threshold that the host derives from p, and an
+//     IMAD; the normal's uniform needs no clamp (u = 2 f + lo is exact and
+//     never below lo), and its constants are immediates;
+//   * the normal runs the main paths of log1p and erf_inv (no special case
+//     fires on its inputs, see `log1p_words`): log1p's rational branch
+//     divides with `div_rn_normal`, without `__fdiv_rn`'s range check, and
+//     erf_inv's upper polynomial and its square root run only in warps where
+//     some lane needs them (a vote a word; every loop's trip count is
+//     uniform over a warp, so every lane reaches it).
+// Tried and left out (PERF.md): all adds as IMAD for bernoulli (2.7%
+// slower than ptxas's own split), rotations on the FMA pipe as IMAD and
+// IMAD.HI (14-16% slower), log1p's inputs sorted by branch through shared
+// memory (5% slower).
+// Nothing touches shared memory.
 
 #include <cuda_runtime.h>
+#include <math.h>
 #include <stdint.h>
 
 #include "xla_math.cuh"
@@ -56,8 +90,11 @@ namespace {
 using namespace xla_math;
 
 constexpr int kThreads = 256;
+// counters a thread takes per step: two 16-byte stores of float32 words
+constexpr int kWords = 8;
 constexpr unsigned kMaxBlocksX = 132 * 16;
 constexpr unsigned kMaxBlocksY = 65535;
+constexpr unsigned kAllLanes = 0xFFFFFFFFu;
 
 // tails of a draw
 constexpr int kBits = 0;
@@ -66,97 +103,315 @@ constexpr int kNormal = 2;
 constexpr int kLogNormal = 3;
 constexpr int kBernoulli = 4;
 
+// the normal's uniform: lo = nextafter(-1, 0), span = 2
+constexpr float kNormalLo = -0x1.fffffep-1f;
+
 struct Tail {
   float lo;      // uniform: float32 minval
   float span;    // uniform: float32(maxval - minval)
   float factor;  // normal: float32(scale * float32(sqrt 2))
-  float p;       // bernoulli: float32 p
+  // bernoulli: word w gives the float32 bits hit + (w >= thr) * step, and
+  // w >= thr is the carry out of w + ge_bias, ge_bias = 2^32 - thr
+  unsigned long long ge_bias;
+  uint32_t hit, step;
+  uint32_t one;  // 1, passed at run time so that x + y * one stays an IMAD
 };
+
+// How a tail's block function adds.  The normal and the log-normal mask
+// write the adds as multiply-adds by a 1 that the compiler cannot see,
+// which issue as IMAD on the FMA pipe and leave the ALU pipe (64 per SM
+// and clock) to the funnel shifts, the xors and the tail's compares and
+// selects (2.6% faster than plain adds); the other tails keep plain adds,
+// which ptxas splits between IADD3 and IMAD itself (all IMAD was 2.7%
+// slower for bernoulli).  PERF.md has the trials.
+template <int kTail>
+constexpr bool kImadAdds = kTail == kNormal || kTail == kLogNormal;
+
+template <bool kImad>
+__device__ __forceinline__ uint32_t add(uint32_t x, uint32_t y,
+                                        uint32_t one) {
+  if constexpr (kImad)
+    return x + y * one;
+  else
+    return x + y;
+}
+
+// x, which the compiler must keep in a register from here on instead of
+// recomputing it on every trip of a loop
+__device__ __forceinline__ uint32_t pinned(uint32_t x) {
+  asm volatile("" : "+r"(x));
+  return x;
+}
 
 __device__ __forceinline__ uint32_t rotl(uint32_t x, int d) {
   return __funnelshift_l(x, x, d);
 }
 
-// The threefry-2x32 block function, 20 rounds, in place on the counters.
-__device__ __forceinline__ void threefry(uint32_t k0, uint32_t k1,
+// a key's words and the constants of its five later injections, pinned
+// in registers
+struct Key {
+  uint32_t k0, k1, k2, c1, c2, c3, c4, c5;
+};
+
+__device__ __forceinline__ Key make_key(const long long* key) {
+  Key k;
+  k.k0 = pinned((uint32_t)key[0]);
+  k.k1 = pinned((uint32_t)key[1]);
+  k.k2 = pinned(k.k0 ^ k.k1 ^ 0x1BD11BDAu);
+  k.c1 = pinned(k.k2 + 1u);
+  k.c2 = pinned(k.k0 + 2u);
+  k.c3 = pinned(k.k1 + 3u);
+  k.c4 = pinned(k.k2 + 4u);
+  k.c5 = pinned(k.k0 + 5u);
+  return k;
+}
+
+// The threefry-2x32 block function, 20 rounds, in place on counters that
+// already hold the first key injection (x0 + k0, x1 + k1).
+template <bool kImad>
+__device__ __forceinline__ void threefry(const Key& k, uint32_t one,
                                          uint32_t& x0, uint32_t& x1) {
-  const uint32_t k2 = k0 ^ k1 ^ 0x1BD11BDAu;
-#define TF_ROUND(r) \
-  x0 += x1;         \
+#define TF_ROUND(r)                 \
+  x0 = add<kImad>(x0, x1, one);     \
   x1 = rotl(x1, r) ^ x0;
 #define TF_ROUNDS_A TF_ROUND(13) TF_ROUND(15) TF_ROUND(26) TF_ROUND(6)
 #define TF_ROUNDS_B TF_ROUND(17) TF_ROUND(29) TF_ROUND(16) TF_ROUND(24)
-  x0 += k0;
-  x1 += k1;
+#define TF_INJECT(a, b)           \
+  x0 = add<kImad>(x0, k.a, one);  \
+  x1 = add<kImad>(x1, k.b, one);
   TF_ROUNDS_A
-  x0 += k1;
-  x1 += k2 + 1u;
+  TF_INJECT(k1, c1)
   TF_ROUNDS_B
-  x0 += k2;
-  x1 += k0 + 2u;
+  TF_INJECT(k2, c2)
   TF_ROUNDS_A
-  x0 += k0;
-  x1 += k1 + 3u;
+  TF_INJECT(k0, c3)
   TF_ROUNDS_B
-  x0 += k1;
-  x1 += k2 + 4u;
+  TF_INJECT(k1, c4)
   TF_ROUNDS_A
-  x0 += k2;
-  x1 += k0 + 5u;
+  TF_INJECT(k2, c5)
+#undef TF_INJECT
 #undef TF_ROUNDS_B
 #undef TF_ROUNDS_A
 #undef TF_ROUND
 }
 
-// Word w through the tail, written to element i of the output.
-template <int kTail>
-__device__ __forceinline__ void put(void* out, long long i, uint32_t w,
-                                    const Tail& t) {
-  if constexpr (kTail == kBits) {
-    static_cast<long long*>(out)[i] = (long long)w;
-  } else {
-    const float f = __fsub_rn(__uint_as_float((w >> 9) | 0x3F800000u), 1.0f);
-    float u = __fmaf_rn(f, t.span, t.lo);
-    u = u < t.lo ? t.lo : u;
-    float v = u;
-    if constexpr (kTail == kBernoulli) v = u < t.p ? 1.0f : 0.0f;
-    if constexpr (kTail == kNormal || kTail == kLogNormal)
-      v = __fmul_rn(t.factor, xla_erf_inv(u));
-    if constexpr (kTail == kLogNormal) v = xla_exp(v);
-    static_cast<float*>(out)[i] = v;
+// The blocks of kWords consecutive counters j = c, c + 1, ...:
+// partitionable, a[q] = o0 ^ o1 of the block at (0, j); original, a[q] = o0
+// and b[q] = o1 of the block at (j, j + m), or at (j, 0) from j = mb on
+// where kEdge says that the group may reach the padded pair.  The first
+// injection is added to c once; the counters step from it as IMADs.
+template <bool kOriginal, bool kImad, bool kEdge>
+__device__ __forceinline__ void blocks(const Key& k, uint32_t one,
+                                       uint32_t c, uint32_t m, uint32_t mb,
+                                       uint32_t (&a)[kWords],
+                                       uint32_t (&b)[kWords]) {
+  const uint32_t c0 = add<kImad>(c, k.k0, one);
+  const uint32_t c1 =
+      add<kImad>(kOriginal ? add<kImad>(c, m, one) : c, k.k1, one);
+#pragma unroll
+  for (int q = 0; q < kWords; ++q) {
+    uint32_t x0 = kOriginal ? add<true>(c0, q, one) : k.k0;
+    uint32_t x1 = add<true>(c1, q, one);
+    if (kOriginal && kEdge && c + q >= mb) x1 = k.k1;
+    threefry<kImad>(k, one, x0, x1);
+    a[q] = kOriginal ? x0 : x0 ^ x1;
+    b[q] = x1;
   }
 }
 
+// the top 23 bits of a word as a float in [0, 1)
+__device__ __forceinline__ float unit(uint32_t w) {
+  return __fsub_rn(__uint_as_float((w >> 9) | 0x3F800000u), 1.0f);
+}
+
+// log1p(x) for the normal's x = -u^2, u = 2 f + lo, in place.  u is exact
+// and lies in [-1 + 2^-24, 1 - 3 2^-24], so x lies in [-1 + 2^-23,
+// -2^-48]: x is never subnormal, 1 + x is a positive normal float, and |u|
+// is never 1.  Both branches run on every lane (the rational one on about
+// 64% of the inputs); sorting a warp's inputs by branch through shared
+// memory was slower (PERF.md).
+__device__ __forceinline__ void log1p_words(float (&x)[kWords]) {
+#pragma unroll
+  for (int q = 0; q < kWords; ++q) {
+    const float small = log1p_small(x[q]);
+    const float large = log_core(__fadd_rn(x[q], 1.0f));
+    x[q] = fabsf(x[q]) < kLog1pSmall ? small : large;
+  }
+}
+
+// factor * erf_inv(u) from l = log1p(-u^2), as xla_erf_inv computes it:
+// erf_inv's upper polynomial (w >= 5, |u| > 0.9966) runs only where a lane
+// of the warp needs it, so every lane of the warp must reach the vote.
+__device__ __forceinline__ float normal_word(float u, float l,
+                                             float factor) {
+  const float w = -l;
+  float p = erf_inv_lt5(w);
+  if (__any_sync(kAllLanes, !(w < kErfInvSplit))) {
+    const float upper = erf_inv_gt5(w);
+    if (!(w < kErfInvSplit)) p = upper;
+  }
+  return __fmul_rn(factor, __fmul_rn(p, u));
+}
+
+// Words through the tail, in place (float32 tails leave their bits).
+// Called by every lane of a warp together.
+template <int kTail>
+__device__ __forceinline__ void apply_tail(uint32_t (&w)[kWords],
+                                           const Tail& t) {
+  if constexpr (kTail == kBernoulli) {
+    // an IMAD.WIDE and an IMAD, on the FMA pipe
+#pragma unroll
+    for (int q = 0; q < kWords; ++q) {
+      const unsigned long long s = (unsigned long long)w[q] * t.one
+                                   + t.ge_bias;
+      w[q] = t.hit + (uint32_t)(s >> 32) * t.step;
+    }
+  } else if constexpr (kTail == kUniform) {
+#pragma unroll
+    for (int q = 0; q < kWords; ++q) {
+      const float v = __fmaf_rn(unit(w[q]), t.span, t.lo);
+      w[q] = __float_as_uint(v < t.lo ? t.lo : v);
+    }
+  } else if constexpr (kTail == kNormal || kTail == kLogNormal) {
+    // the normal's constants are fixed (the launcher checks them)
+    float u[kWords], l[kWords];
+#pragma unroll
+    for (int q = 0; q < kWords; ++q) {
+      u[q] = __fmaf_rn(unit(w[q]), 2.0f, kNormalLo);
+      l[q] = __fmul_rn(u[q], -u[q]);
+    }
+    log1p_words(l);
+#pragma unroll
+    for (int q = 0; q < kWords; ++q) {
+      float v = normal_word(u[q], l[q], t.factor);
+      if constexpr (kTail == kLogNormal) v = xla_exp(v);
+      w[q] = __float_as_uint(v);
+    }
+  }
+}
+
+// the element size of a tail's output: int64 words or float32
+template <int kTail>
+constexpr unsigned kElem = kTail == kBits ? 8 : 4;
+
+// kWords outputs at elements i.. of row; `vec`: 16-byte stores, which
+// need row + i on a 16-byte boundary
+template <int kTail>
+__device__ __forceinline__ void store(char* row, uint32_t i,
+                                      const uint32_t (&w)[kWords], bool vec) {
+  if constexpr (kTail == kBits) {
+    auto* p = reinterpret_cast<long long*>(row) + i;
+#pragma unroll
+    for (int q = 0; q < kWords; q += 2) {
+      if (vec)
+        *reinterpret_cast<uint4*>(p + q) = make_uint4(w[q], 0u, w[q + 1], 0u);
+      else
+        p[q] = (long long)w[q], p[q + 1] = (long long)w[q + 1];
+    }
+  } else {
+    auto* p = reinterpret_cast<uint32_t*>(row) + i;
+#pragma unroll
+    for (int q = 0; q < kWords; q += 4) {
+      if (vec)
+        *reinterpret_cast<uint4*>(p + q) =
+            make_uint4(w[q], w[q + 1], w[q + 2], w[q + 3]);
+      else
+        p[q] = w[q], p[q + 1] = w[q + 1], p[q + 2] = w[q + 2],
+        p[q + 3] = w[q + 3];
+    }
+  }
+}
+
+// the outputs of counters c + q in [lo, hi) at elements c + q of row
+template <int kTail>
+__device__ __forceinline__ void store_range(char* row, uint32_t c,
+                                            const uint32_t (&w)[kWords],
+                                            uint32_t lo, uint32_t hi) {
+#pragma unroll
+  for (int q = 0; q < kWords; ++q) {
+    const uint32_t i = c + q;
+    if (i < lo || i >= hi) continue;
+    if constexpr (kTail == kBits)
+      reinterpret_cast<long long*>(row)[i] = (long long)w[q];
+    else
+      reinterpret_cast<uint32_t*>(row)[i] = w[q];
+  }
+}
+
+// One row of n words per key.  Counters (words, or pairs under the
+// original scheme) [head, head + kWords * G) go in groups of kWords, one
+// group per lane and step, with 16-byte stores: `head` counters bring the
+// row to a 16-byte boundary.  The rest, fewer than kWords at each end,
+// go to lanes 0 and 1 of the row's first warp.  Every loop's trip count
+// is uniform over a warp.
 template <bool kOriginal, int kTail>
 __global__ void __launch_bounds__(kThreads)
 draw_kernel(const long long* __restrict__ keys, long long key_stride,
-            void* __restrict__ out, long long n_keys, unsigned long long n,
-            Tail t) {
-  // blocks per key: one per word, or one per counter pair
-  const unsigned long long m = kOriginal ? (n + 1) / 2 : n;
-  for (long long l = blockIdx.y; l < n_keys; l += gridDim.y) {
-    const uint32_t k0 = (uint32_t)keys[l * key_stride];
-    const uint32_t k1 = (uint32_t)keys[l * key_stride + 1];
-    const long long base = l * (long long)n;
-    for (unsigned long long j =
-             blockIdx.x * (unsigned long long)kThreads + threadIdx.x;
-         j < m; j += (unsigned long long)gridDim.x * kThreads) {
-      uint32_t x0, x1;
+            void* __restrict__ out, unsigned n_keys, uint32_t n, Tail t) {
+  constexpr unsigned kE = kElem<kTail>;
+  constexpr bool kImad = kImadAdds<kTail>;
+  const uint32_t one = t.one;
+  // counters per key; those whose every word lands in the row
+  const uint32_t m = kOriginal ? (uint32_t)(((unsigned long long)n + 1) / 2)
+                               : n;
+  const uint32_t full = kOriginal ? n - m : n;
+  const uint32_t lane = threadIdx.x & 31u;
+  const uint32_t first = blockIdx.x * kThreads + (threadIdx.x & ~31u);
+  const uint32_t step = gridDim.x * kThreads;
+  for (unsigned l = blockIdx.y; l < n_keys; l += gridDim.y) {
+    const Key k = make_key(keys + (long long)l * key_stride);
+    char* row = static_cast<char*>(out) + (size_t)l * n * kE;
+    char* row_b = row + (size_t)m * kE;  // the original scheme's o1 words
+    const uint32_t to16 = (uint32_t)((16u - ((uintptr_t)row & 15u)) & 15u) / kE;
+    const uint32_t head = to16 < full ? to16 : full;
+    const uint32_t groups = (full - head) / kWords;
+    const bool vec_b = (((uintptr_t)row_b + (uintptr_t)head * kE) & 15u) == 0;
+    for (uint32_t g0 = first; g0 < groups; g0 += step) {
+      const uint32_t g = g0 + lane;
+      const uint32_t c = head + g * kWords;
+      uint32_t a[kWords], b[kWords];
+      blocks<kOriginal, kImad, false>(k, one, c, m, full, a, b);
+      apply_tail<kTail>(a, t);
+      if (g < groups) store<kTail>(row, c, a, true);
       if constexpr (kOriginal) {
-        x0 = (uint32_t)j;
-        x1 = j + m < n ? (uint32_t)(j + m) : 0u;
-      } else {
-        x0 = (uint32_t)(j >> 32);
-        x1 = (uint32_t)j;
-      }
-      threefry(k0, k1, x0, x1);
-      if constexpr (kOriginal) {
-        put<kTail>(out, base + (long long)j, x0, t);
-        if (j + m < n) put<kTail>(out, base + (long long)(j + m), x1, t);
-      } else {
-        put<kTail>(out, base + (long long)j, x0 ^ x1, t);
+        apply_tail<kTail>(b, t);
+        if (g < groups) store<kTail>(row_b, c, b, vec_b);
       }
     }
+    if (blockIdx.x == 0 && threadIdx.x < 32) {
+      // lane 0: counters [0, head); lane 1: [head + kWords * groups, m)
+      const uint32_t tail0 = head + groups * kWords;
+      const uint32_t c = lane == 0 ? head - kWords : tail0;
+      uint32_t a[kWords], b[kWords];
+      blocks<kOriginal, kImad, true>(k, one, c, m, full, a, b);
+      const uint32_t lo = lane == 0 ? 0u : tail0;
+      apply_tail<kTail>(a, t);
+      if (lane < 2) store_range<kTail>(row, c, a, lo, lane == 0 ? head : m);
+      if constexpr (kOriginal) {
+        apply_tail<kTail>(b, t);
+        if (lane < 2)
+          store_range<kTail>(row_b, c, b, lo, lane == 0 ? head : full);
+      }
+    }
+  }
+}
+
+// The tails alone, on n words (n a multiple of kWords), for the checks.
+template <int kTail>
+__global__ void __launch_bounds__(kThreads)
+tail_kernel(const long long* __restrict__ words, float* __restrict__ out,
+            uint32_t n, Tail t) {
+  const uint32_t groups = n / kWords;
+  for (uint32_t g0 = blockIdx.x * kThreads + (threadIdx.x & ~31u);
+       g0 < groups; g0 += gridDim.x * kThreads) {
+    const uint32_t g = g0 + (threadIdx.x & 31u);
+    uint32_t w[kWords];
+#pragma unroll
+    for (int q = 0; q < kWords; ++q)
+      w[q] = g < groups ? (uint32_t)words[g * kWords + q] : 0u;
+    apply_tail<kTail>(w, t);
+    if (g < groups) store<kTail>(reinterpret_cast<char*>(out), g * kWords, w,
+                                 false);
   }
 }
 
@@ -170,76 +425,139 @@ pairs_kernel(const long long* __restrict__ keys, long long key_stride,
   for (long long e = blockIdx.x * (long long)kThreads + threadIdx.x;
        e < total; e += (long long)gridDim.x * kThreads) {
     const long long l = e / num;
-    uint32_t x0 = 0u;
+    const Key k = make_key(keys + l * key_stride);
+    uint32_t x0 = k.k0;
     uint32_t x1 =
-        data ? (uint32_t)data[e] : scalar + (uint32_t)(e - l * num);
-    threefry((uint32_t)keys[l * key_stride],
-             (uint32_t)keys[l * key_stride + 1], x0, x1);
+        (data ? (uint32_t)data[e] : scalar + (uint32_t)(e - l * num)) + k.k1;
+    threefry<false>(k, 1u, x0, x1);
     out[2 * e] = (long long)x0;
     out[2 * e + 1] = (long long)x1;
   }
 }
 
-unsigned blocks_for(unsigned long long m) {
-  const unsigned long long blocks = (m + kThreads - 1) / kThreads;
-  return (unsigned)(blocks < kMaxBlocksX ? blocks : kMaxBlocksX);
+unsigned blocks_for(unsigned long long items) {
+  const unsigned long long blocks = (items + kThreads - 1) / kThreads;
+  return (unsigned)(blocks < 1 ? 1 : blocks < kMaxBlocksX ? blocks
+                                                          : kMaxBlocksX);
+}
+
+// The tail's constants: bernoulli's u < p, u = k 2^-23 for the word's top
+// 23 bits k, holds for k < T = ceil(p 2^23), that is for words below thr =
+// T << 9, T clamped to [0, 2^23] (none for p <= 0 or NaN, all from T =
+// 2^23 on): 1.0 below thr, 0.0 from it on.
+Tail make_tail(float lo, float span, float factor, float p) {
+  const double x = ceil((double)p * 8388608.0);
+  const unsigned long long thr =
+      (unsigned long long)(x >= 8388608.0 ? 8388608.0 : x > 0.0 ? x : 0.0)
+      << 9;
+  return Tail{lo, span, factor, (1ull << 32) - thr, 0x3F800000u,
+              0u - 0x3F800000u, 1u};
+}
+
+template <bool kOriginal, int kTail>
+void launch_draw_tail(dim3 grid, const long long* keys, long long key_stride,
+                      void* out, unsigned n_keys, uint32_t n, const Tail& t,
+                      cudaStream_t stream) {
+  draw_kernel<kOriginal, kTail><<<grid, kThreads, 0, stream>>>(
+      keys, key_stride, out, n_keys, n, t);
 }
 
 template <bool kOriginal>
 void launch_draw(const long long* keys, long long key_stride, void* out,
-                 long long n_keys,
-                 unsigned long long n, int tail, const Tail& t,
+                 unsigned n_keys, uint32_t n, int tail, const Tail& t,
                  cudaStream_t stream) {
-  const unsigned long long m = kOriginal ? (n + 1) / 2 : n;
-  const dim3 grid(blocks_for(m),
-                  (unsigned)(n_keys < kMaxBlocksY ? n_keys : kMaxBlocksY));
+  const unsigned long long m = kOriginal ? (n + 1ull) / 2 : n;
+  const dim3 grid(blocks_for((m + kWords - 1) / kWords),
+                  n_keys < kMaxBlocksY ? n_keys : kMaxBlocksY);
   switch (tail) {
     case kBits:
-      draw_kernel<kOriginal, kBits><<<grid, kThreads, 0, stream>>>(
-          keys, key_stride, out, n_keys, n, t);
+      launch_draw_tail<kOriginal, kBits>(grid, keys, key_stride, out, n_keys,
+                                         n, t, stream);
       break;
     case kUniform:
-      draw_kernel<kOriginal, kUniform><<<grid, kThreads, 0, stream>>>(
-          keys, key_stride, out, n_keys, n, t);
+      launch_draw_tail<kOriginal, kUniform>(grid, keys, key_stride, out,
+                                            n_keys, n, t, stream);
       break;
     case kNormal:
-      draw_kernel<kOriginal, kNormal><<<grid, kThreads, 0, stream>>>(
-          keys, key_stride, out, n_keys, n, t);
+      launch_draw_tail<kOriginal, kNormal>(grid, keys, key_stride, out,
+                                           n_keys, n, t, stream);
       break;
     case kLogNormal:
-      draw_kernel<kOriginal, kLogNormal><<<grid, kThreads, 0, stream>>>(
-          keys, key_stride, out, n_keys, n, t);
+      launch_draw_tail<kOriginal, kLogNormal>(grid, keys, key_stride, out,
+                                              n_keys, n, t, stream);
       break;
     default:
-      draw_kernel<kOriginal, kBernoulli><<<grid, kThreads, 0, stream>>>(
-          keys, key_stride, out, n_keys, n, t);
+      launch_draw_tail<kOriginal, kBernoulli>(grid, keys, key_stride, out,
+                                              n_keys, n, t, stream);
       break;
   }
+}
+
+// the tails that take given constants: the normal's are fixed
+bool tail_ok(int tail, float lo, float span) {
+  if (tail < kBits || tail > kBernoulli) return false;
+  if (tail == kNormal || tail == kLogNormal)
+    return lo == kNormalLo && span == 2.0f;
+  return true;
 }
 
 }  // namespace
 
 // keys: n_keys pairs of int64 words, key_stride elements apart; out
 // [n_keys, n] (int64 for tail 0, float32 otherwise); original != 0 for the
-// original scheme; n < 2^32 words per key.
+// original scheme; n < 2^32 words per key, n_keys < 2^32; the normal and
+// log-normal tails take lo = nextafter(-1, 0) and span = 2 only.
 extern "C" int threefry_draw_launch(const void* keys, long long key_stride,
                                     void* out,
                                     long long n_keys, long long n,
                                     int original, int tail, float lo,
                                     float span, float factor, float p,
                                     void* stream) {
-  if (n_keys <= 0 || n <= 0 || n > 0xFFFFFFFFll || tail < kBits ||
-      tail > kBernoulli)
+  if (n_keys <= 0 || n_keys > 0xFFFFFFFFll || n <= 0 || n > 0xFFFFFFFFll ||
+      !tail_ok(tail, lo, span))
     return (int)cudaErrorInvalidValue;
-  const Tail t{lo, span, factor, p};
+  const Tail t = make_tail(lo, span, factor, p);
   const auto* k = static_cast<const long long*>(keys);
   auto* st = static_cast<cudaStream_t>(stream);
   if (original)
-    launch_draw<true>(k, key_stride, out, n_keys, (unsigned long long)n,
+    launch_draw<true>(k, key_stride, out, (unsigned)n_keys, (uint32_t)n,
                       tail, t, st);
   else
-    launch_draw<false>(k, key_stride, out, n_keys, (unsigned long long)n,
+    launch_draw<false>(k, key_stride, out, (unsigned)n_keys, (uint32_t)n,
                        tail, t, st);
+  return (int)cudaGetLastError();
+}
+
+// words: n int64 values whose low 32 bits are the words; out: n float32;
+// n a multiple of 4 below 2^32; tail 1-4 with the draw's constants.
+extern "C" int threefry_tail_launch(const void* words, void* out,
+                                    long long n, int tail, float lo,
+                                    float span, float factor, float p,
+                                    void* stream) {
+  if (n <= 0 || n > 0xFFFFFFFFll || n % kWords != 0 || tail == kBits ||
+      !tail_ok(tail, lo, span))
+    return (int)cudaErrorInvalidValue;
+  const Tail t = make_tail(lo, span, factor, p);
+  const auto* w = static_cast<const long long*>(words);
+  auto* o = static_cast<float*>(out);
+  const unsigned grid = blocks_for((unsigned long long)n / kWords);
+  auto* st = static_cast<cudaStream_t>(stream);
+  switch (tail) {
+    case kUniform:
+      tail_kernel<kUniform><<<grid, kThreads, 0, st>>>(w, o, (uint32_t)n, t);
+      break;
+    case kNormal:
+      tail_kernel<kNormal><<<grid, kThreads, 0, st>>>(w, o, (uint32_t)n, t);
+      break;
+    case kLogNormal:
+      tail_kernel<kLogNormal><<<grid, kThreads, 0, st>>>(w, o, (uint32_t)n,
+                                                         t);
+      break;
+    default:
+      tail_kernel<kBernoulli><<<grid, kThreads, 0, st>>>(w, o, (uint32_t)n,
+                                                         t);
+      break;
+  }
   return (int)cudaGetLastError();
 }
 

@@ -304,41 +304,22 @@ def threefry_draw(key: torch.Tensor, shape: Sequence[int], tail: str, *,
     axes lead `shape`; ONE launch of the threefry kernel on the card."""
     dev = _key_device(tail, key)
     shape = tuple(int(s) for s in shape)
+    lo, span = prng.tail_consts(tail, minval, maxval)
     if dev.type == "cpu":
-        return _draw_plain(key, shape, tail, minval, maxval, scale, p)
+        return prng.tail_plain(prng.random_bits_plain(key, shape), tail,
+                               minval=minval, maxval=maxval, scale=scale,
+                               p=p)
     from repro_torch.kernels import threefry as kern
-    if tail not in kern.TAILS:
-        raise ValueError(f"unknown draw {tail!r}, not one of "
-                         f"{sorted(kern.TAILS)}")
     n, lead = math.prod(shape), key.shape[:-1]
     prng.check_words(n)
     if n == 0 or math.prod(lead) == 0:
         return torch.empty(tuple(lead) + shape, dtype=kern.TAILS[tail][1],
                            device=key.device)
-    if tail in ("normal", "lognormal"):
-        minval, maxval = prng.NORMAL_LO, 1.0
-    elif tail == "bernoulli":
-        minval, maxval = 0.0, 1.0
-    lo, span = prng.uniform_consts(minval, maxval)
     out = kern.launch_draw(_key_rows(key, lead), n,
                            not prng.is_partitionable(), tail, lo, span,
                            prng.normal_factor(scale), p)
     LAUNCHES["threefry"] += 1
     return out.reshape(tuple(lead) + shape)
-
-
-def _draw_plain(key, shape, tail, minval, maxval, scale, p):
-    if tail == "bits":
-        return prng.random_bits_plain(key, shape)
-    if tail == "uniform":
-        return prng.uniform_plain(key, shape, minval, maxval)
-    if tail == "normal":
-        return prng.normal_plain(key, shape, scale)
-    if tail == "lognormal":
-        return prng.lognormal_plain(key, shape, scale)
-    if tail == "bernoulli":
-        return prng.bernoulli_plain(key, p, shape)
-    raise ValueError(f"unknown draw {tail!r}")
 
 
 def irc_mvm_from_mapped(key: torch.Tensor, x_bits: torch.Tensor, mapped,

@@ -8,11 +8,13 @@ checked and viewed as [L, 2] int64 on the card (words adjacent, keys
 `keys.stride(0)` elements apart: 0 for one key expanded), allocate the
 output and enqueue one launch on the current CUDA stream; they raise if the
 launch is refused and never fall back to the plain versions
-(`repro_torch.prng`).
+(`repro_torch.prng`).  `launch_tail` runs a draw's tail alone on given
+words, for the checks that hold it against `prng.tail_plain`.
 """
 from __future__ import annotations
 
 import ctypes
+from pathlib import Path
 from typing import Optional
 
 import torch
@@ -32,13 +34,19 @@ def _bind(lib: ctypes.CDLL) -> None:
     lib.threefry_draw_launch.argtypes = [p, ll, p, ll, ll, i, i, f, f, f, f,
                                          p]
     lib.threefry_pairs_launch.argtypes = [p, ll, p, u, p, ll, ll, p]
-    for fn in (lib.threefry_draw_launch, lib.threefry_pairs_launch):
+    fns = [lib.threefry_draw_launch, lib.threefry_pairs_launch]
+    if hasattr(lib, "threefry_tail_launch"):  # builds before it have none
+        lib.threefry_tail_launch.argtypes = [p, p, ll, i, f, f, f, f, p]
+        fns.append(lib.threefry_tail_launch)
+    for fn in fns:
         fn.restype = ctypes.c_int
 
 
-def load() -> ctypes.CDLL:
-    """Build (if needed) and load the kernel library once per process."""
-    return build.load(SOURCE, _bind)
+def load(source: Path = SOURCE) -> ctypes.CDLL:
+    """Build (if needed) and load the kernel library once per process;
+    `source` may name another build of `threefry.cu` with the same C
+    interface (`chip_smoke.py --threefry-baseline`)."""
+    return build.load(source, _bind)
 
 
 def _raise(name: str, err: int) -> None:
@@ -52,13 +60,28 @@ def _stream(dev: torch.device) -> int:
 
 def launch_draw(keys: torch.Tensor, n: int, original: bool, tail: str,
                 lo: float = 0.0, span: float = 1.0, factor: float = 1.0,
-                p: float = 0.5) -> torch.Tensor:
-    """n words under each of the keys [L, 2] through `tail` -> [L, n]."""
+                p: float = 0.5, lib: Optional[ctypes.CDLL] = None
+                ) -> torch.Tensor:
+    """n words under each of the keys [L, 2] through `tail` -> [L, n]
+    (by `lib`, another build's library, where given)."""
     code, dtype = TAILS[tail]
     out = torch.empty((keys.shape[0], n), dtype=dtype, device=keys.device)
-    _raise("draw", load().threefry_draw_launch(
+    _raise("draw", (lib or load()).threefry_draw_launch(
         keys.data_ptr(), keys.stride(0), out.data_ptr(), keys.shape[0], n,
         int(original), code, lo, span, factor, p, _stream(keys.device)))
+    return out
+
+
+def launch_tail(words: torch.Tensor, tail: str, lo: float = 0.0,
+                span: float = 1.0, factor: float = 1.0, p: float = 0.5
+                ) -> torch.Tensor:
+    """A float32 tail alone on words (int64 [n] on the card, n a multiple
+    of 4) -> float32 [n]; the draw's constants as `launch_draw` takes
+    them."""
+    out = torch.empty(words.shape, dtype=torch.float32, device=words.device)
+    _raise("tail", load().threefry_tail_launch(
+        words.data_ptr(), out.data_ptr(), words.numel(), TAILS[tail][0], lo,
+        span, factor, p, _stream(words.device)))
     return out
 
 

@@ -284,35 +284,77 @@ def normal_factor(scale: float) -> float:
     return float(np.float32(np.float32(scale) * np.float32(_SQRT2_F32)))
 
 
+#: the draws' tails: what each word becomes
+TAILS = ("bits", "uniform", "normal", "lognormal", "bernoulli")
+
+
+def tail_consts(tail: str, minval: float = 0.0, maxval: float = 1.0
+                ) -> Tuple[float, float]:
+    """`uniform_consts` of a draw's tail: the normal's uniform is on
+    (nextafter(-1, 0), 1), bernoulli's on [0, 1); raises for an unknown
+    tail."""
+    if tail not in TAILS:
+        raise ValueError(f"unknown draw {tail!r}, not one of {TAILS}")
+    if tail in ("normal", "lognormal"):
+        minval, maxval = NORMAL_LO, 1.0
+    elif tail == "bernoulli":
+        minval, maxval = 0.0, 1.0
+    return uniform_consts(minval, maxval)
+
+
+def tail_plain(words: torch.Tensor, tail: str, *, minval: float = 0.0,
+               maxval: float = 1.0, scale: float = 1.0,
+               p: float = 0.5) -> torch.Tensor:
+    """Words (int64 values in [0, 2**32)) through one draw's tail, on any
+    device; every tail but "bits" reads only a word's top 23 bits:
+      * "uniform": f * (hi - lo) + lo as one fused multiply-add (XLA
+        contracts it inside `jax.random.uniform`'s jit; with lo = 0 that is
+        the product's own rounding), clamped below at lo, f the top 23 bits
+        as a float in [0, 1);
+      * "normal": `scale * jax.random.normal`, the uniform on
+        (nextafter(-1, 0), 1) through XLA's float32 erf_inv
+        (`xla_order.erf_inv_plain`) times float32(scale * float32(sqrt 2));
+      * "lognormal": exp of the normal at scale = sigma
+        (`xla_order.exp_plain`), the device-variation mask;
+      * "bernoulli": the uniform on [0, 1) below p, as float32 {0, 1};
+      * "bits": the words themselves."""
+    lo, span = tail_consts(tail, minval, maxval)
+    if tail == "bits":
+        return words
+    floats = _bits_to_unit_float(words)
+    lo_t = torch.tensor(lo, dtype=torch.float32, device=words.device)
+    u = floats * span if lo == 0.0 else xo.fma_plain(floats, span, lo)
+    u = torch.maximum(lo_t, u)
+    if tail == "uniform":
+        return u
+    if tail == "bernoulli":
+        return (u < torch.tensor(p, dtype=torch.float32,
+                                 device=words.device)).float()
+    v = xo.erf_inv_plain(u, normal_factor(scale))
+    return xo.exp_plain(v) if tail == "lognormal" else v
+
+
 def uniform_plain(key: torch.Tensor, shape: Sequence[int],
                   minval: float = 0.0, maxval: float = 1.0) -> torch.Tensor:
-    """Plain version of `uniform`, on any device: f * (hi - lo) + lo as one
-    fused multiply-add (XLA contracts it inside `jax.random.uniform`'s
-    jit; with lo = 0 that is the product's own rounding), clamped below at
-    lo."""
-    floats = _bits_to_unit_float(random_bits_plain(key, shape))
-    lo, span = uniform_consts(minval, maxval)
-    lo_t = torch.tensor(lo, dtype=torch.float32, device=key.device)
-    u = floats * span if lo == 0.0 else xo.fma_plain(floats, span, lo)
-    return torch.maximum(lo_t, u)
+    """Plain version of `uniform`, on any device."""
+    return tail_plain(random_bits_plain(key, shape), "uniform",
+                      minval=minval, maxval=maxval)
 
 
 def normal_plain(key: torch.Tensor, shape: Sequence[int],
                  scale: float = 1.0) -> torch.Tensor:
     """Plain version of `normal`, on any device."""
-    u = uniform_plain(key, shape, NORMAL_LO, 1.0)
-    return xo.erf_inv_plain(u, normal_factor(scale))
+    return tail_plain(random_bits_plain(key, shape), "normal", scale=scale)
 
 
 def lognormal_plain(key: torch.Tensor, shape: Sequence[int],
                     sigma: float) -> torch.Tensor:
     """Plain version of `lognormal`, on any device."""
-    return xo.exp_plain(normal_plain(key, shape, scale=sigma))
+    return tail_plain(random_bits_plain(key, shape), "lognormal",
+                      scale=sigma)
 
 
 def bernoulli_plain(key: torch.Tensor, p: float, shape: Sequence[int]
                     ) -> torch.Tensor:
     """Plain version of `bernoulli`, on any device."""
-    u = uniform_plain(key, shape)
-    return (u < torch.tensor(p, dtype=torch.float32, device=key.device)
-            ).float()
+    return tail_plain(random_bits_plain(key, shape), "bernoulli", p=p)

@@ -100,3 +100,85 @@ def test_kernel_matches_plain_version_on_the_card(threefry_scheme, n_keys):
         assert _same(prng.fold_in(k, d), prng.fold_in_plain(k, d))
         calls += 1
     assert ops.LAUNCHES["threefry"] == calls
+
+
+def _smoke():
+    import sys
+    from pathlib import Path
+    sys.path.insert(0, str(Path(__file__).resolve().parent))
+    from torch_smoke_loader import chip_smoke
+    return chip_smoke()
+
+
+@pytest.mark.parametrize("mode,partitionable,n_keys,shape,ms,pipe", [
+    ("normal", True, 4, (294912, 60), 0.22850, "issue"),
+    ("bernoulli", True, 4, (294912, 60), 0.18195, "alu"),
+    ("normal", False, 4, (294912, 60), 0.15656, "issue"),
+    ("lognormal", True, 512, (572, 60), 0.06461, "issue"),
+    ("bits", False, 4, (294912, 60), 0.16904, "bytes")])
+def test_threefry_bound_is_per_pipe(mode, partitionable, n_keys, shape, ms,
+                                    pipe):
+    """`chip_smoke.threefry_bound_ms`: the largest of the pipes' times for
+    the instructions a word needs, and of its bytes."""
+    smoke = _smoke()
+    n = int(np.prod(shape))
+    got, by, got_pipe = smoke.threefry_bound_ms(mode, n_keys, n,
+                                                partitionable)
+    assert got == pytest.approx(ms, rel=1e-4) and got_pipe == pipe
+    assert by == ("bytes" if pipe == "bytes" else "operations")
+    work = smoke.threefry_work(mode, partitionable)
+    per_word = (sum(work.values()) / smoke.PIPE_RATE["issue"],
+                work["alu"] / smoke.PIPE_RATE["alu"])
+    if pipe != "bytes":
+        assert got == pytest.approx(max(per_word) * n_keys * n
+                                    / smoke.SM_CLOCKS_PER_S * 1e3)
+
+
+def test_sass_helpers_find_the_main_loop():
+    """The innermost loop (conditional backward branch) that holds a store
+    is the main loop: not a loop around it, a loop inside it without a
+    store, or an unconditional jump back from out-of-line code; the block
+    that a warp vote guards is marked, in either layout."""
+    smoke = _smoke()
+    ins = [(0x00, "MOV", None, False), (0x10, "SHF.L.W.U32.HI", None, False),
+           (0x20, "VOTE.ANY", None, False), (0x30, "BRA", 0x50, True),
+           (0x40, "BRA", 0x70, False), (0x50, "MUFU.RSQ", None, False),
+           (0x60, "FSEL", None, False), (0x70, "MUFU.RCP", None, False),
+           (0x80, "BRA", 0x70, True), (0x90, "STG.E.128", None, False),
+           (0xa0, "BRA", 0x10, True), (0xb0, "FFMA", None, False),
+           (0xc0, "BRA", 0xb0, True), (0xd0, "BRA", 0x00, True),
+           (0xe0, "IMAD", None, False), (0xf0, "BRA", 0x20, False),
+           (0x100, "EXIT", None, False)]
+    loop = smoke.sass_loop(ins)
+    assert [op for op, _ in loop] == [
+        "SHF.L.W.U32.HI", "VOTE.ANY", "BRA", "BRA", "MUFU.RSQ", "FSEL",
+        "MUFU.RCP", "BRA", "STG.E.128", "BRA"]
+    assert [op for op, v in loop if v] == ["MUFU.RSQ", "FSEL"]
+    # a vote guard that skips its block
+    ins2 = [(0x00, "VOTE.ANY", None, False), (0x10, "BRA", 0x40, True),
+            (0x20, "MUFU.RSQ", None, False), (0x30, "FFMA", None, False),
+            (0x40, "STG.E", None, False), (0x50, "BRA", 0x00, True)]
+    assert [op for op, v in smoke.sass_loop(ins2) if v] == [
+        "MUFU.RSQ", "FFMA"]
+    classes, heads = smoke.sass_classes([op for op, _ in loop] + ["S2R"])
+    assert classes == {"alu": 2, "control": 5, "mufu/cvt": 2, "memory": 1,
+                       "other": 1}
+    assert heads["BRA"] == 4 and smoke.sass_loop(ins[:3]) == []
+
+
+@pytest.mark.parametrize("registers,warps", [(28, 64), (32, 64), (40, 48),
+                                             (64, 32), (72, 24), (128, 16),
+                                             (255, 8)])
+def test_occupancy_from_registers(registers, warps):
+    assert _smoke().occupancy_warps(registers) == warps
+
+
+def test_layout_sizes_cover_every_residue():
+    """Phase 3's draw sizes meet the kernel's groups of counters at every
+    offset: each residue modulo twice its counters per thread once."""
+    smoke = _smoke()
+    from repro_torch.kernels import threefry as kern
+    words = smoke.threefry_words(kern.SOURCE)
+    assert words >= 1 and words % 4 == 0
+    sizes = smoke.threefry_layout_n(words)
+    assert sorted(n % (2 * words) for n in sizes) == list(range(2 * words))

@@ -1,0 +1,157 @@
+"""The die sampling's float tails on their whole input domain.
+
+Every draw but raw bits reads only a word's top 23 bits, so each tail has
+2^23 inputs.  `prng.tail_plain` (the port's plain tails, which the card's
+kernel is held against bit for bit) is held here, on all of them, against
+a jitted jnp transcription of `jax.random`'s uniform and normal tails and
+of the device-variation mask `jnp.exp(sigma * normal)`
+(`src/repro/core/nonideal.py:64-65`); the transcription is tied to JAX
+itself on the bits of real keys.
+"""
+import numpy as np
+import pytest
+
+torch = pytest.importorskip("torch")
+
+import jax  # noqa: E402
+import jax.numpy as jnp  # noqa: E402
+from jax import lax  # noqa: E402
+
+from repro.core import nonideal  # noqa: E402
+from repro_torch import prng  # noqa: E402
+
+torch.set_num_threads(2)
+
+SIGMA = 0.4245
+N_MANT = 1 << 23
+
+
+def _uniform_tail(bits, minval, maxval):
+    """`jax.random._uniform` from its 32-bit words on (float32)."""
+    minval = lax.convert_element_type(minval, jnp.float32)
+    maxval = lax.convert_element_type(maxval, jnp.float32)
+    float_bits = lax.shift_right_logical(bits, jnp.array(32 - 23,
+                                                         jnp.uint32))
+    float_bits = lax.bitwise_or(float_bits, jnp.asarray(
+        np.array(1.0, np.float32).view(np.uint32), dtype=jnp.uint32))
+    floats = lax.bitcast_convert_type(float_bits, jnp.float32) - jnp.array(
+        1.0, jnp.float32)
+    return lax.max(minval, floats * (maxval - minval) + minval)
+
+
+def _normal_tail(bits):
+    """`jax.random._normal_real` from its words on."""
+    lo = np.nextafter(np.array(-1.0, np.float32), np.array(0.0, np.float32),
+                      dtype=np.float32)
+    u = _uniform_tail(bits, lo, np.array(1.0, np.float32))
+    return lax.mul(np.array(np.sqrt(2), np.float32), lax.erf_inv(u))
+
+
+def _bernoulli_tail(p):
+    return lambda bits: (_uniform_tail(bits, 0.0, 1.0)
+                         < jnp.float32(p)).astype(jnp.float32)
+
+
+# (id, tail, tail_plain arguments, transcription of words, jax on a key)
+CASES = [
+    ("normal", "normal", dict(scale=1.0), _normal_tail,
+     lambda k, s: jax.random.normal(k, s)),
+    ("normal_sigma", "normal", dict(scale=SIGMA),
+     lambda b: SIGMA * _normal_tail(b),
+     lambda k, s: SIGMA * jax.random.normal(k, s)),
+    ("lognormal_mask", "lognormal", dict(scale=SIGMA),
+     lambda b: jnp.exp(SIGMA * _normal_tail(b)),
+     lambda k, s: nonideal.sample_variation_mask(k, s, SIGMA)),
+    ("uniform", "uniform", dict(minval=-0.3, maxval=2.5),
+     lambda b: _uniform_tail(b, -0.3, 2.5),
+     lambda k, s: jax.random.uniform(k, s, jnp.float32, -0.3, 2.5)),
+    ("bernoulli_0.5", "bernoulli", dict(p=0.5), _bernoulli_tail(0.5),
+     lambda k, s: jax.random.bernoulli(k, 0.5, s).astype(jnp.float32)),
+    ("bernoulli_0.3", "bernoulli", dict(p=0.3), _bernoulli_tail(0.3),
+     lambda k, s: jax.random.bernoulli(k, 0.3, s).astype(jnp.float32)),
+]
+# bernoulli at p on and around the edges of its integer threshold
+EDGE_P = [0.0, 1.0, 1 - 2**-24, 2**-23, 2**-24, 0.75]
+
+
+def _differ(got, want):
+    got, want = np.asarray(got), np.asarray(want)
+    assert got.shape == want.shape and got.dtype == want.dtype == np.float32
+    return int(np.sum(got.view(np.uint32) != want.view(np.uint32)))
+
+
+def _all_words():
+    """Every 23-bit mantissa k as the word k << 9."""
+    return np.arange(N_MANT, dtype=np.uint32) << np.uint32(9)
+
+
+def _tail_plain(words, tail, kw):
+    """`prng.tail_plain` on numpy words, in four slices."""
+    parts = [prng.tail_plain(torch.from_numpy(w.astype(np.int64)), tail,
+                             **kw) for w in np.array_split(words, 4)]
+    return torch.cat(parts).numpy()
+
+
+@pytest.mark.parametrize("case", CASES, ids=[c[0] for c in CASES])
+def test_transcription_is_jax_random(case):
+    """The transcription of a tail, on `jax.random.bits` of real keys,
+    gives what `jax.random` draws from the same keys (each under one
+    jit, both threefry schemes)."""
+    _, _, _, on_words, on_key = case
+    shape = (3, 4096)
+    for flag in (True, False):
+        with jax.threefry_partitionable(flag):
+            for seed in (0, 2024):
+                key = jax.random.fold_in(jax.random.PRNGKey(seed), 7)
+                bits = jax.jit(lambda k: jax.random.bits(k, shape))(key)
+                assert bits.dtype == jnp.uint32
+                want = jax.jit(lambda k: on_key(k, shape))(key)
+                assert _differ(jax.jit(on_words)(bits), want) == 0
+
+
+@pytest.mark.parametrize("case", CASES, ids=[c[0] for c in CASES])
+def test_tail_plain_is_jax_on_every_input(case):
+    """`prng.tail_plain` on all 2^23 inputs of the tail, bit for bit."""
+    _, tail, kw, on_words, _ = case
+    words = _all_words()
+    want = jax.jit(on_words)(words)
+    n = _differ(_tail_plain(words, tail, kw), want)
+    assert n == 0, f"{n} of 2^23 inputs differ"
+
+
+@pytest.mark.parametrize("p", EDGE_P)
+def test_bernoulli_tail_at_edges_of_p(p):
+    words = _all_words()
+    want = jax.jit(_bernoulli_tail(p))(words)
+    assert _differ(_tail_plain(words, "bernoulli", dict(p=p)), want) == 0
+
+
+def test_tails_ignore_the_low_nine_bits():
+    """The word's low 9 bits never reach a float tail."""
+    rng = np.random.default_rng(20)
+    k = rng.integers(0, N_MANT, 50_000, dtype=np.uint32)
+    low = rng.integers(1, 512, k.size, dtype=np.uint32)
+    for _, tail, kw, _, _ in CASES:
+        a = _tail_plain(k << np.uint32(9), tail, kw)
+        b = _tail_plain((k << np.uint32(9)) | low, tail, kw)
+        assert _differ(a, b) == 0, tail
+
+
+def test_plain_draws_are_tails_of_the_bits():
+    """Each `*_plain` draw is `tail_plain` of `random_bits_plain`."""
+    key = prng.fold_in(prng.PRNGKey(5, device="cpu"), torch.arange(3))
+    shape = (7, 5)
+    bits = prng.random_bits_plain(key, shape)
+    pairs = [(prng.uniform_plain(key, shape, -0.3, 2.5),
+              prng.tail_plain(bits, "uniform", minval=-0.3, maxval=2.5)),
+             (prng.normal_plain(key, shape, 0.7),
+              prng.tail_plain(bits, "normal", scale=0.7)),
+             (prng.lognormal_plain(key, shape, SIGMA),
+              prng.tail_plain(bits, "lognormal", scale=SIGMA)),
+             (prng.bernoulli_plain(key, 0.3, shape),
+              prng.tail_plain(bits, "bernoulli", p=0.3))]
+    for got, want in pairs:
+        assert _differ(got.numpy(), want.numpy()) == 0
+    assert torch.equal(prng.tail_plain(bits, "bits"), bits)
+    with pytest.raises(ValueError, match="unknown draw"):
+        prng.tail_plain(bits, "poisson")
