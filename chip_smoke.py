@@ -578,20 +578,13 @@ def k3_bound_ms(B, K, N, x_bytes):
 
 def hgmma_count(source, function=""):
     """HGMMA (wgmma) instructions in the SASS of the library built from
-    `source` (`cuobjdump -sass` beside nvcc), in the functions whose
-    (mangled) name holds `function`: all of them by default."""
+    `source`, in the functions whose (mangled) name holds `function`: all
+    of them by default."""
     from repro_torch.kernels import build
-    tool = Path(build.nvcc_path()).parent / "cuobjdump"
-    sass = subprocess.run(
-        [str(tool), "-sass", str(build.library_path(source))],
-        capture_output=True, text=True, check=True).stdout
-    count, name = 0, ""
-    for line in sass.splitlines():
-        if "Function :" in line:
-            name = line.split("Function :", 1)[1]
-        elif function in name:
-            count += line.count("HGMMA")
-    return count
+    return sum(op.startswith("HGMMA")
+               for name, ins in sass_functions(
+                   build.library_path(source)).items()
+               if function in name for _, op, _, _ in ins)
 
 
 def k3_path_times(x, w, calls):
@@ -1110,9 +1103,8 @@ def phase_threefry_checks(ops_):
     baseline's reference-line mask [4, 636, 1], odd and single-word draws,
     one key and several (contiguous, strided and one expanded over three
     rows), n at every residue modulo twice the counters a thread takes
-    (rows off 16-byte alignment): bit-
-    identical, one launch per call; then every draw written 4, 8 and 12
-    bytes past a 16-byte boundary."""
+    (rows off 16-byte alignment): bit-identical, one launch per call; then
+    every draw written 4, 8 and 12 elements past a 16-byte boundary."""
     import torch
     from repro_torch import prng
     from repro_torch.kernels import threefry as kern
@@ -1188,7 +1180,7 @@ def phase_threefry_checks(ops_):
                 f"{layout_n[0]}..{layout_n[-1]} under 4 "
                 f"keys and one key expanded over 3 rows) bit-identical to "
                 f"the plain version, one launch each; {offsets} draws "
-                f"written 4-24 bytes off 16-byte alignment bit-identical")
+                f"written 1-3 elements past a 16-byte boundary bit-identical")
     torch.cuda.empty_cache()
     log("3 kernels", f"threefry checks: {time.perf_counter() - t0:.1f}s")
 
