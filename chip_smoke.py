@@ -2086,8 +2086,9 @@ def profile_breakdown(tag, fn):
     irc, irc_n = part(lambda k: "irc_mvm_chips_kernel" in k)
     draws, draws_n = part(lambda k: "draw_kernel" in k)
     pairs, pairs_n = part(lambda k: "pairs_kernel" in k)
-    # int64 elementwise ops: the plain threefry's (PR 15: 554.40 ms a
-    # detector chunk); what is left names what still runs as int64 ops
+    # int64 elementwise ops: what the sampling ran as before the threefry
+    # kernel (554.40 ms of a detector chunk); what is left names
+    # what still runs as int64 ops
     i64, i64_n = part(lambda k: "<long" in k)
     tf = draws + pairs
     log("9 profile", f"{tag}: device kernels {total / 1e3:.3f} ms in "
