@@ -65,19 +65,28 @@ Phases, each printing its own lines:
      route (no K1 launch, as in the reference); every path that samples
      dies must launch the threefry kernel (and no longer the erf_inv and
      exp kernels), and the plain route's paths the fused multiply-add too;
+     the QAT path of `yolo_irc.proposed()` at full width, 2 images: K1 on
+     the ensemble step's deviation planes (signed, every effect off,
+     output="diff", per-chip word lines) bit-identical to its plain
+     version, one single-draw step's loss and gradients on the card against
+     the same step on the CPU, the single-draw and 2-chip ensemble steps
+     timed with launches per step and peak memory, and `quick_qat` over 3
+     ensemble steps with its launches counted from 0 (K1 14 a step);
   6. one whole-network chunk through the kernel and through the plain
      route; 512-die layer chunks through both routes (proposed, calibrated
      per-chip planes, binary single-shot), flips only at near-ties;
   7. the CLIs `python -m repro_torch.launch.mc --network detector --chips 4`
      (the proposed design; the baseline, `--det-scheme binary --ablation
-     table2`) and `--network layer --chips 64 --ablation table2 --backend
-     kernel`, the three processes run side by side;
+     table2`), `--network layer --chips 64 --ablation table2 --backend
+     kernel`, and the detector after QAT, `--chips 16 --ablation table2
+     --det-steps 3` (and 20) and `--chips 16 --det-steps 2 --train-chips
+     2`, the six processes run side by side;
   8. a JSON line of every ported kernel, the card's name and power limit,
      and the final `{"ok": true, ...}` line.
 `--only profile` instead breaks one full-width chunk's device time down by
 kernel (torch.profiler), with the threefry kernel's share beside what is
-left of int64 elementwise ops; it is a measurement, not part of the smoke
-run.
+left of int64 elementwise ops, and so one QAT step of each kind; it is a
+measurement, not part of the smoke run.
 It exits non-zero, printing no result, when no CUDA device is visible or
 when the repository's sources are missing beside it.
 """
@@ -1294,13 +1303,16 @@ def threefry_bound_ms(mode, n_keys, n, partitionable):
 
 
 # SASS opcodes (their first dotted part) by the pipe they issue on;
-# anything else counts as "other"
+# anything else counts as "other".  VIADD, sm_90's 32-bit add, issues on
+# the FMA pipe as IMAD does: counted on the ALU pipe, it would put the
+# bernoulli draw's instructions a word above what its measured time allows
+# at 64 a clock
 SASS_CLASSES = {
     "alu": ("SHF", "LOP3", "IADD3", "ISETP", "FSETP", "FSEL", "SEL", "FMNMX",
-            "IMNMX", "PRMT", "LEA", "MOV", "PLOP3", "IABS", "FCHK", "VIADD",
-            "P2R", "R2P"),
+            "IMNMX", "PRMT", "LEA", "MOV", "PLOP3", "IABS", "FCHK", "P2R",
+            "R2P"),
     "fma": ("FFMA", "FADD", "FMUL", "IMAD", "FMUL32I", "FADD32I",
-            "FFMA32I", "IMAD32I"),
+            "FFMA32I", "IMAD32I", "VIADD"),
     "mufu/cvt": ("MUFU", "I2F", "F2I", "FRND", "F2F", "I2FP", "F2IP"),
     "memory": ("LDG", "STG", "LD", "ST", "LDS", "STS", "LDC", "LDL", "STL",
                "ATOM", "RED"),
@@ -2045,6 +2057,189 @@ def phase_network(ops_):
           f"network: agreement {frac}, mAP diff {dmap}")
 
 
+# the QAT path at full width: timed steps per configuration (after one
+# warm-up step), the chips of the ensemble-aware step, and the card-vs-CPU
+# bars of one single-draw step's loss and gradients
+TRAIN_STEPS = 3
+TRAIN_CHIPS = 2
+TRAIN_LOSS_RTOL = 1e-4
+TRAIN_GRAD_RTOL = 1e-3
+
+
+def _tree_cpu(tree):
+    if isinstance(tree, dict):
+        return {k: _tree_cpu(v) for k, v in tree.items()}
+    return tree.detach().cpu()
+
+
+def _named_leaves(tree, path=""):
+    """(path, leaf) of a nested dict, sorted keys, depth first."""
+    if isinstance(tree, dict):
+        for k in sorted(tree):
+            yield from _named_leaves(tree[k], f"{path}/{k}" if path else k)
+    else:
+        yield path, tree
+
+
+def phase_train(ops_):
+    """Phase 5, the QAT path of `yolo_irc.proposed()` at 576x1024, 2
+    images, random weights from PRNGKey(0): K1 on the ensemble step's
+    deviation planes (signed ep/en, every effect off, output="diff", per-chip
+    word lines from s0b0's train-ensemble output) bit-identical to its plain
+    version; one single-draw step with every effect on, its loss and each
+    gradient leaf on the card against the same step on the CPU (relative L2
+    error per leaf <= TRAIN_GRAD_RTOL, loss within TRAIN_LOSS_RTOL: the
+    convolutions and BN statistics sum in other orders, and a near-tie
+    activation may flip); then the single-draw step (no effects, all
+    effects) and the TRAIN_CHIPS-chip ensemble step timed over TRAIN_STEPS
+    steps each, with launches per step and peak memory; last, `quick_qat`
+    with train_chips=TRAIN_CHIPS for TRAIN_STEPS steps, the launch counts
+    of the path from 0.  Returns {"k1": K1's deviation-plane check, "grad":
+    the card-vs-CPU errors, "steps": per configuration, "launches": the
+    quick_qat run's}."""
+    import torch
+    from repro_torch import prng
+    from repro_torch.configs import yolo_irc
+    from repro_torch.core.nonideal import NonidealConfig
+    from repro_torch.core.ternary import binary_activation
+    from repro_torch.data.detection import SyntheticDetectionData
+    from repro_torch.mc.detector_mc import build_train_ensemble
+    from repro_torch.mc.engine import ensemble_apply_kernel
+    from repro_torch.models.detector import (IRCDetector, _batch_norm,
+                                             _stem_conv)
+    from repro_torch.optim.adamw import adamw_init, tree_leaves
+    from repro_torch.train.det_qat import batch_tensors, quick_qat
+    from repro_torch.train.steps import (ensemble_key_for_step,
+                                         make_det_qat_grad,
+                                         make_det_qat_step)
+    cfg = yolo_irc.proposed()
+    det = IRCDetector(cfg)
+    data = SyntheticDetectionData(img_hw=cfg.img_hw, stride=cfg.strides,
+                                  n_classes=cfg.n_classes,
+                                  n_anchors=cfg.n_anchors)
+    dev = torch.device("cuda")
+    params = det.init(prng.PRNGKey(0, device=dev), device=dev)
+    images, targets = batch_tensors(data.batch_for_step(0, 2), dev)
+    root = prng.PRNGKey(1, device=dev)
+    key, ens_key = prng.fold_in(root, 0), ensemble_key_for_step(root, 0)
+    noise, none = NonidealConfig.all(), NonidealConfig.none()
+    out = {}
+
+    # K1 on deviation planes, at s0b1's shapes
+    with torch.no_grad():
+        ens = build_train_ensemble(ens_key, det, params, TRAIN_CHIPS,
+                                   cfg=noise)
+        bn = params["stem_bn"]
+        x0 = binary_activation(_batch_norm(
+            _stem_conv(images, params["stem"]), bn["gamma"], bn["beta"]))
+        x1 = det._gconv_train_ensemble(
+            params["s0b0"], ens.layers["s0b0"], x0, 60, 60,
+            key=prng.fold_in(key, 0), cfg_ni=noise)
+        x_bits = det._im2col_groups(x1, 60, 1)[..., 0, :].reshape(
+            TRAIN_CHIPS, -1, 540)
+        del x0, x1
+        g = ens.layers["s0b1"][0]
+        got = ensemble_apply_kernel(g, x_bits, cfg=none, output="diff",
+                                    per_chip_x=True)
+        want = ensemble_apply_kernel(g, x_bits, cfg=none, output="diff",
+                                     per_chip_x=True, impl="ref")
+        err = float((got - want).abs().max())
+        signed = bool((g.ep < 0).any() and (g.ep > 0).any()
+                      and (g.en < 0).any())
+        log("5 train", f"K1 on s0b1's deviation planes: C={TRAIN_CHIPS} "
+            f"B={x_bits.shape[1]} R={g.rows} N={g.n_out}, per-chip word "
+            f"lines (density {float(x_bits.mean()):.4f}), signed ep/en "
+            f"{signed}, effects off, diff: bit-identical "
+            f"{torch.equal(got, want)}, max |err| {err}, |diff| up to "
+            f"{float(want.abs().max()):.4f}")
+        check(torch.equal(got, want) and signed,
+              "K1 on deviation planes differs from its plain version")
+        out["k1"] = dict(max_abs_err=err)
+        del ens, x_bits, got, want, g
+    torch.cuda.empty_cache()
+
+    # one single-draw step, every effect on: the card against the CPU
+    grad_fn = make_det_qat_grad(det, cfg_ni=noise)
+    loss_d, g_d = grad_fn(params, images, targets, key, ens_key)
+    t0 = time.perf_counter()
+    loss_h, g_h = grad_fn(_tree_cpu(params), images.cpu(),
+                          _tree_cpu(targets), key.cpu(), ens_key.cpu())
+    cpu_s = time.perf_counter() - t0
+    errs = {}
+    for (name, a), (_, b) in zip(_named_leaves(g_d), _named_leaves(g_h)):
+        if name.endswith(("/mean", "/var")):     # no gradient: zeros
+            continue
+        a, b = a.cpu().double(), b.double()
+        errs[name] = float((a - b).norm() / b.norm().clamp(min=1e-30))
+    loss_err = abs(float(loss_d) - float(loss_h)) / abs(float(loss_h))
+    log("5 train", f"single-draw step, all effects, card vs CPU ({cpu_s:.1f}"
+        f"s on the CPU): loss {float(loss_d):.6f} vs {float(loss_h):.6f} "
+        f"(rel {loss_err:.2e}, <= {TRAIN_LOSS_RTOL}); gradient rel L2 "
+        f"error per leaf (<= {TRAIN_GRAD_RTOL}): "
+        + ", ".join(f"{k} {v:.2e}" for k, v in errs.items()))
+    check(loss_err <= TRAIN_LOSS_RTOL
+          and max(errs.values()) <= TRAIN_GRAD_RTOL,
+          f"QAT step: card and CPU disagree: loss {loss_err}, grads {errs}")
+    out["grad"] = dict(loss_rel=loss_err, grad_rel=max(errs.values()))
+    del g_d, g_h, grad_fn
+    torch.cuda.empty_cache()
+
+    # step times, launches and peak memory
+    lr = torch.tensor(3e-3, dtype=torch.float32, device=dev)
+    out["steps"] = {}
+    for tag, chips, c in (("single-draw, no effects", 1, None),
+                          ("single-draw, all effects", 1, noise),
+                          (f"ensemble {TRAIN_CHIPS} chips, all effects",
+                           TRAIN_CHIPS, noise)):
+        step = make_det_qat_step(det, train_chips=chips, cfg_ni=c)
+        p, opt, loss = step(params, adamw_init(params), images, targets, lr,
+                            key, ens_key)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        ops_.reset_launches()
+        t0 = time.perf_counter()
+        for s in range(1, TRAIN_STEPS + 1):
+            p, opt, loss = step(p, opt, images, targets, lr,
+                                prng.fold_in(root, s),
+                                ensemble_key_for_step(root, s))
+        torch.cuda.synchronize()
+        ms = (time.perf_counter() - t0) / TRAIN_STEPS * 1e3
+        per_step = {k: v / TRAIN_STEPS for k, v in ops_.LAUNCHES.items()
+                    if v}
+        peak = torch.cuda.max_memory_allocated() / 2**30
+        ok = bool(torch.isfinite(loss)) and all(
+            bool(torch.isfinite(t).all()) for t in tree_leaves(p))
+        log("5 train", f"{tag}: {ms:.2f} ms per step over {TRAIN_STEPS} "
+            f"steps (host clock to a synchronize), loss {float(loss):.5f}, "
+            f"launches per step {per_step}, peak device memory "
+            f"{peak:.2f} GiB")
+        check(ok, f"{tag}: non-finite loss or params")
+        out["steps"][tag] = dict(ms=ms, launches=per_step, peak_gib=peak)
+        del p, opt, step
+        torch.cuda.empty_cache()
+
+    # the entry point a user calls, counts from 0
+    ops_.reset_launches()
+    trained = quick_qat(det, data, TRAIN_STEPS, 2, train_chips=TRAIN_CHIPS,
+                        cfg_ni=noise, device=dev)
+    torch.cuda.synchronize()
+    launches = dict(ops_.LAUNCHES)
+    want = 14 * TRAIN_STEPS
+    log("5 train", f"quick_qat(train_chips={TRAIN_CHIPS}, all effects, "
+        f"{TRAIN_STEPS} steps, 2 images): kernel launches {launches} (want "
+        f"irc_mvm_chips = 14 groups x {TRAIN_STEPS} = {want}, threefry and "
+        f"xla_fma >= 1)")
+    check(launches["irc_mvm_chips"] == want and launches["threefry"] >= 1
+          and launches["xla_fma"] >= 1
+          and all(bool(torch.isfinite(t).all())
+                  for t in tree_leaves(trained)),
+          f"quick_qat launches {launches}")
+    out["launches"] = launches
+    del trained, params
+    torch.cuda.empty_cache()
+    return out
+
+
 def profile_breakdown(tag, fn):
     """One `fn()` (a chunk) on the card: its span on CUDA events, its host
     enqueue, and torch.profiler's device time and launches by kernel name,
@@ -2149,6 +2344,36 @@ def phase_profile():
 
     profile_breakdown(f"layer chunk ({LAYER_CHUNK} dies, 540x60, all "
                       f"effects, K1)", layer_chunk)
+    del x, mapped
+    torch.cuda.empty_cache()
+    qat_profile(det, data)
+
+
+def qat_profile(det, data):
+    """`--only profile`, the QAT path: one single-draw step and one
+    TRAIN_CHIPS-chip ensemble step (all effects, 2 images, full width),
+    each broken down by `profile_breakdown`."""
+    import torch
+    from repro_torch import prng
+    from repro_torch.core.nonideal import NonidealConfig
+    from repro_torch.optim.adamw import adamw_init
+    from repro_torch.train.det_qat import batch_tensors
+    from repro_torch.train.steps import (ensemble_key_for_step,
+                                         make_det_qat_step)
+    dev = torch.device("cuda")
+    params = det.init(prng.PRNGKey(0, device=dev), device=dev)
+    opt = adamw_init(params)
+    images, targets = batch_tensors(data.batch_for_step(0, 2), dev)
+    lr = torch.tensor(3e-3, dtype=torch.float32, device=dev)
+    root = prng.PRNGKey(1, device=dev)
+    key, ens_key = prng.fold_in(root, 0), ensemble_key_for_step(root, 0)
+    for chips in (1, TRAIN_CHIPS):
+        step = make_det_qat_step(det, train_chips=chips,
+                                 cfg_ni=NonidealConfig.all())
+        profile_breakdown(
+            f"QAT step, train_chips={chips} (2 images, all effects)",
+            lambda: step(params, opt, images, targets, lr, key, ens_key))
+        torch.cuda.empty_cache()
 
 
 def phase_cli():
@@ -2164,11 +2389,18 @@ def phase_cli():
                      ["--network", "detector", "--det-scheme", "binary",
                       "--chips", "4", "--ablation", "table2"],
                      ["--network", "layer", "--chips", "64", "--ablation",
-                      "table2", "--backend", "kernel"])]
+                      "table2", "--backend", "kernel"],
+                     ["--network", "detector", "--chips", "16", "--ablation",
+                      "table2", "--det-steps", "3"],
+                     ["--network", "detector", "--chips", "16", "--ablation",
+                      "table2", "--det-steps", "20"],
+                     ["--network", "detector", "--chips", "16", "--det-steps",
+                      "2", "--train-chips", "2"])]
     try:
         for argv, proc in procs:
             out, err = proc.communicate(timeout=600)
-            for line in out.strip().splitlines()[-9:]:
+            lines = out.strip().splitlines()
+            for line in (lines if "--det-steps" in argv else lines[-9:]):
                 log("7 cli", line)
             check(proc.returncode == 0, err[-2000:])
             log("7 cli", f"{' '.join(argv)}: exit 0 within "
@@ -2180,7 +2412,7 @@ def phase_cli():
                 proc.wait()
 
 
-PHASES = ("kernels", "times", "main", "network", "cli")
+PHASES = ("kernels", "times", "main", "train", "network", "cli")
 
 
 def main(argv=None) -> int:
@@ -2274,6 +2506,9 @@ def main(argv=None) -> int:
         layer = phase_layer_path(ops)
         k4_launches = phase_k4_path(ops)
         baseline = phase_baseline_detector(ops)
+    train = {}
+    if "train" in only:
+        train = phase_train(ops)
     if "network" in only:
         phase_network(ops)
         phase_layer_network(ops)
@@ -2290,9 +2525,10 @@ def main(argv=None) -> int:
         return 1
 
     kernels = []
+    qat = train["launches"]
     for name, replaces, n in (
             ("irc_mvm_chips", "src/repro/kernels/irc_mvm.py:228",
-             launches["irc_mvm_chips"]),
+             launches["irc_mvm_chips"] + qat["irc_mvm_chips"]),
             ("irc_mvm", "src/repro/kernels/irc_mvm.py:184",
              single["irc_mvm"])):
         t = times[name]
@@ -2300,7 +2536,8 @@ def main(argv=None) -> int:
             "name": name, "route": "cuda",
             "source": "src/repro_torch/csrc/irc_mvm.cu",
             "replaces": replaces, "launches": n,
-            "max_abs_err": t["max_abs_err"], "ms": t["ms"],
+            "max_abs_err": max(t["max_abs_err"], train["k1"]["max_abs_err"]),
+            "ms": t["ms"],
             "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],
             "bound_by": t["bound_by"], "library_ms": t["library_ms"]})
     # K3 at the layer path's shape; its launches are the two layer runs'
@@ -2326,30 +2563,37 @@ def main(argv=None) -> int:
             "bound_ms": t["bound_ms"], "bound_by": t["bound_by"],
             "library_ms": t["library_ms"]})
     # the elementwise kernels; their launches are the two detector runs'
+    # and the QAT path's
     for name, t in xla_times.items():
         kernels.append({
             "name": name, "route": "cuda",
             "source": "src/repro_torch/csrc/xla_math.cu",
             "replaces": XLA_REPLACES[name],
-            "launches": launches[name] + baseline[name],
+            "launches": launches[name] + baseline[name] + qat[name],
             "max_abs_err": t["max_abs_err"], "ms": t["ms"],
             "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],
             "bound_by": t["bound_by"], "library_ms": t["library_ms"]})
     # the die sampling at the periphery draw; its launches are the two
-    # detector runs'
+    # detector runs' and the QAT path's
     t = tf_times["normal"]
     kernels.append({
         "name": "threefry", "route": "cuda",
         "source": "src/repro_torch/csrc/threefry.cu",
         "replaces": "src/repro/core/nonideal.py:64",
-        "launches": launches["threefry"] + baseline["threefry"],
+        "launches": launches["threefry"] + baseline["threefry"]
+        + qat["threefry"],
         "max_abs_err": max(v["max_abs_err"] for v in tf_times.values()),
         "ms": t["ms"], "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],
         "bound_by": t["bound_by"], "library_ms": t["library_ms"]})
     log("8 summary", "threefry launches by path: detector proposed "
         f"{launches['threefry']}, detector baseline {baseline['threefry']}, "
         f"layer {dict((d, c['threefry']) for d, c in layer.items())}, "
-        f"single-chip layer {single['threefry']}")
+        f"single-chip layer {single['threefry']}, QAT (quick_qat, "
+        f"{TRAIN_STEPS} ensemble steps) {qat['threefry']}")
+    log("8 summary", f"QAT path launches ({TRAIN_STEPS} ensemble steps of "
+        f"quick_qat): {qat}; per step by configuration: "
+        + "; ".join(f"{k}: {v['launches']}"
+                    for k, v in train["steps"].items()))
     flips = sum(f for _, f in checks.values())
     log("8 summary", f"binary flips of K1/K2 in phase 3: {flips}; total "
         f"{time.perf_counter() - t_start:.1f}s")

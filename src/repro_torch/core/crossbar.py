@@ -12,11 +12,17 @@ whole column in one analog step; "partial_sum" (baseline) splits it into
 nonlinearity.  `ideal_ternary_matmul` is the ideal digital reference,
 through the ternary matmul kernel on the card.  The multi-macro
 `sensed_diff` readout comes with the multi-macro `IRCLinear` slice.
+
+QAT surrogate: `irc_linear_train` is the differentiable layer (STE
+quantizers, a plain matmul) with the structural sim's noise to first order
+(`variation_noise_std`, the SA's required difference) drawn fresh per step;
+`add_noise` adds such a draw as the reference's jitted step rounds it.
 """
 from __future__ import annotations
 
 from typing import Tuple
 
+import numpy as np
 import torch
 import torch.nn.functional as F
 
@@ -25,6 +31,8 @@ from repro_torch import xla_order as xo
 from repro_torch.core import nonideal as ni
 from repro_torch.core.macro import MacroSpec, DEFAULT_MACRO
 from repro_torch.core.mapping import MappedLayer, extend_inputs
+from repro_torch.core.ternary import (binary_activation, binary_quantize,
+                                     soft_sa_output, ternary_quantize)
 from repro_torch.kernels import ops
 
 
@@ -191,3 +199,72 @@ def ideal_ternary_matmul(x_bits: torch.Tensor, w_t: torch.Tensor
     if not bool(((w_t == 0) | (w_t.abs() == 1)).all()):
         raise ValueError("ideal_ternary_matmul needs weights in {-1, 0, +1}")
     return ops.ternary_matmul(x_bits.float(), w_t.to(torch.int8))
+
+
+# ------------------------------------------------------------------ QAT surrogate
+
+def variation_noise_std(p: torch.Tensor, sigma: float) -> torch.Tensor:
+    """First-order std of a p-cell accumulated current under per-cell
+    log-normal variation: sqrt(max(p, 0) * (e^s2 - 1) e^s2), s2 = sigma^2,
+    the cell variance a float32 constant."""
+    e = np.exp(np.float32(sigma * sigma))
+    cell_var = float((e - np.float32(1.0)) * e)
+    return xo.sqrt(torch.clamp(p, min=0.0) * cell_var)
+
+
+class _AddNoise(torch.autograd.Function):
+    """pre + std * eps rounded once, as XLA contracts it inside the
+    reference's jitted step; the gradient passes to `pre` alone (std and
+    eps carry none)."""
+
+    @staticmethod
+    def forward(ctx, pre, std, eps):
+        return xo.fma(std, eps, pre)
+
+    @staticmethod
+    def backward(ctx, grad):
+        return grad, None, None
+
+
+def add_noise(pre: torch.Tensor, std: torch.Tensor, eps: torch.Tensor
+              ) -> torch.Tensor:
+    """pre + std * eps (std and eps broadcast to pre's shape) in one
+    fused multiply-add, differentiable in `pre`."""
+    return _AddNoise.apply(pre, std.detach(), eps.detach())
+
+
+def irc_linear_train(key: torch.Tensor, x: torch.Tensor,
+                     w_latent: torch.Tensor, *,
+                     cfg: ni.NonidealConfig = ni.NonidealConfig.none(),
+                     spec: MacroSpec = DEFAULT_MACRO,
+                     scheme: str = "ternary", binarize_input: bool = True,
+                     sa_beta: float = 4.0, output: str = "binary"
+                     ) -> torch.Tensor:
+    """Differentiable QAT layer: quantized matmul plus reparametrized
+    noise.  The current-difference noise from device variation has std
+    sqrt(p_pair) * std_cell and the SA offset std 0.5 * g(p_pair), p_pair
+    the expected activated-LRS count; both are added to the pre-activation
+    with a fresh draw keyed `split(key)[0]`.  output="diff" returns the
+    pre-activation, "binary" the SA surrogate `soft_sa_output`."""
+    if binarize_input:
+        x = binary_activation(x)
+    if scheme == "ternary":
+        w_q = ternary_quantize(w_latent)
+    elif scheme == "binary":
+        w_q = binary_quantize(w_latent)
+    else:
+        raise ValueError(scheme)
+    pre = x @ w_q
+    if cfg.device_variation or cfg.sa_variation:
+        k1 = prng.split(key)[0]
+        lrs_frac = torch.mean(torch.abs(w_q.detach()))
+        p_pair = torch.sum(x.detach(), dim=-1, keepdim=True) * lrs_frac
+        std = 0.0
+        if cfg.device_variation:
+            std = std + variation_noise_std(p_pair, spec.sigma_lrs)
+        if cfg.sa_variation:
+            std = std + 0.5 * ni.sa_required_diff(p_pair, spec)
+        pre = add_noise(pre, std, prng.normal(k1, pre.shape))
+    if output == "diff":
+        return pre
+    return soft_sa_output(pre, beta=sa_beta)

@@ -16,15 +16,21 @@
   plain batched route, as the reference does.
 
   python -m repro_torch.launch.mc --network detector --chips 16 \\
-      --ablation table2 [--det-scheme binary]
+      --ablation table2 [--det-scheme binary] [--det-steps 50 \\
+      [--train-chips 4 --resample-every 5]]
 
-Random weights from the seed, drawn through the port's threefry as the
+Weights from the seed, drawn through the port's threefry as the
 reference's CLI draws them (the detector's by `IRCDetector.init(PRNGKey(
 seed))`, the reference's `materialize`), so both CLIs sweep the same
-network at the same seed; the analytic device model.  The layer's ideal reference bits go through the
-ternary matmul kernel on the card.  `--device cpu` runs the plain PyTorch
-path on the CPU.  QAT (`--det-steps`), the measured and aged device models,
-and run directories come in later slices.
+network at the same seed; the analytic device model.  The detector sweeps
+one checkpoint per training setting, as the JAX CLI does: `init` without
+QAT; `qat` after `--det-steps` single-draw QAT steps (`quick_qat`); with
+`--train-chips N`, `single` and `ensN`, single-draw and N-chip
+ensemble-aware QAT from the same root key PRNGKey(seed + 1) with the
+surrogate noise of every effect on.  The layer's ideal reference bits go
+through the ternary matmul kernel on the card.  `--device cpu` runs the
+plain PyTorch path on the CPU.  The measured and aged device models and
+run directories come in later slices.
 """
 from __future__ import annotations
 
@@ -105,7 +111,10 @@ def build_layer(args, device):
         mapped = binary_planes(w)
     x = (prng.uniform(k_x, (args.batch, args.fan_in))
          > 1.0 - args.density).to(torch.float32)
-    ref_bits = (ideal_ternary_matmul(x, w) > 0).to(torch.float32)
+    # the STE's forward value can sit an ulp off +-1; the kernel's int8
+    # weights take the exact value
+    ref_bits = (ideal_ternary_matmul(x, torch.round(w)) > 0).to(
+        torch.float32)
     return mapped, x, ref_bits
 
 
@@ -140,9 +149,42 @@ def run_layer(args) -> dict:
     return _finish(args, {"args": vars(args), "results": rows})
 
 
+def _train_checkpoints(args, det, data, dev) -> dict:
+    """The checkpoints to sweep: {"init": the seed's weights} without QAT;
+    {"qat": ...} after `--det-steps` single-draw steps; with
+    `--train-chips N`, {"single", "ensN"}: single-draw and N-chip
+    ensemble-aware QAT from the same root key PRNGKey(seed + 1) with the
+    surrogate noise of every effect on, so the sweep isolates what the
+    chips axis buys."""
+    from repro_torch import prng
+    from repro_torch.core.nonideal import NonidealConfig
+    from repro_torch.train.det_qat import quick_qat
+    if args.train_chips <= 1:
+        if args.det_steps:
+            return {"qat": quick_qat(det, data, args.det_steps,
+                                     args.det_batch, seed=args.seed,
+                                     device=dev)}
+        return {"init": det.init(prng.PRNGKey(args.seed, device=dev),
+                                 device=dev)}
+    if not args.det_steps:
+        raise SystemExit("--train-chips needs --det-steps > 0 "
+                         "(it compares QAT'd checkpoints)")
+    common = dict(seed=args.seed, key=prng.PRNGKey(args.seed + 1, device=dev),
+                  cfg_ni=NonidealConfig.all(), device=dev)
+    return {
+        "single": quick_qat(det, data, args.det_steps, args.det_batch,
+                            train_chips=1, **common),
+        f"ens{args.train_chips}": quick_qat(
+            det, data, args.det_steps, args.det_batch,
+            train_chips=args.train_chips,
+            resample_every=args.resample_every, **common)}
+
+
 def run_detector(args) -> dict:
-    """Population mAP@0.5 per ablation column; prints a table, returns the
-    report."""
+    """Population mAP@0.5 per checkpoint and ablation column; prints a
+    table per checkpoint, returns the report (`results[checkpoint]
+    [column]`)."""
+    import time
     import torch
     from repro_torch import prng
     from repro_torch.configs import yolo_irc
@@ -159,26 +201,40 @@ def run_detector(args) -> dict:
     data = SyntheticDetectionData(img_hw=cfg.img_hw, stride=cfg.strides,
                                   n_classes=cfg.n_classes,
                                   n_anchors=cfg.n_anchors)
-    key = prng.PRNGKey(args.seed, device=dev)
-    params = det.init(key, device=dev)
+    ops.reset_launches()
+    t0 = time.perf_counter()
+    checkpoints = _train_checkpoints(args, det, data, dev)
+    if dev.type == "cuda":
+        torch.cuda.synchronize(dev)
+    qat_s = time.perf_counter() - t0
+    qat_launches = dict(ops.LAUNCHES)
     calib = data.batch_for_step(999, args.det_batch * 4)
     ev = data.batch_for_step(1000, args.det_batch)
-    params = det.calibrate_bn(params, torch.from_numpy(calib.images).to(dev))
     images = torch.from_numpy(ev.images).to(dev)
+    key = prng.PRNGKey(args.seed, device=dev)
     mc = McConfig(n_chips=args.chips, chunk_size=args.chunk)
     columns = _ablation_columns(args.ablation, TABLE2_ABLATION)
 
     print(f"# detector {args.det_scheme} {cfg.img_hw[0]}x{cfg.img_hw[1]} "
           f"batch={args.det_batch} chips={args.chips} chunk={args.chunk} "
+          f"qat_steps={args.det_steps} train_chips={args.train_chips} "
           f"device={dev} pipeline={not args.no_pipeline}")
+    print(f"# qat {qat_s:.2f}s, kernel launches {json.dumps(qat_launches)}")
     ops.reset_launches()
-    results = {name: run_mc_detector(key, det, params, images, ev.boxes,
-                                     ev.classes,
-                                     mc=dataclasses.replace(mc, cfg=cfg_ni),
-                                     pipeline=not args.no_pipeline)
-               for name, cfg_ni in columns}
-    return _finish(args, {"args": vars(args),
-                          "results": _table(results, "map50")})
+    results = {}
+    for ck, params in checkpoints.items():
+        params = det.calibrate_bn(params,
+                                  torch.from_numpy(calib.images).to(dev))
+        print(f"# checkpoint {ck}")
+        results[ck] = _table(
+            {name: run_mc_detector(key, det, params, images, ev.boxes,
+                                   ev.classes,
+                                   mc=dataclasses.replace(mc, cfg=cfg_ni),
+                                   pipeline=not args.no_pipeline)
+             for name, cfg_ni in columns}, "map50")
+    return _finish(args, {"args": vars(args), "qat_s": qat_s,
+                          "qat_kernel_launches": qat_launches,
+                          "results": results})
 
 
 def main(argv=None) -> None:
@@ -197,8 +253,13 @@ def main(argv=None) -> None:
     ap.add_argument("--det-batch", type=int, default=2,
                     help="detector eval batch size")
     ap.add_argument("--det-steps", type=int, default=0,
-                    help="QAT steps before the detector sweep (only 0, "
-                         "random init, in this slice)")
+                    help="QAT steps before the detector sweep (0: sweep "
+                         "the initial weights)")
+    ap.add_argument("--train-chips", type=int, default=1,
+                    help="> 1: compare single-draw with ensemble-aware QAT "
+                         "over this many chips (needs --det-steps > 0)")
+    ap.add_argument("--resample-every", type=int, default=1,
+                    help="QAT steps between chip-population resamples")
     ap.add_argument("--no-pipeline", action="store_true",
                     help="detector: serial chunk loop instead of the "
                          "overlapped one")
@@ -234,7 +295,8 @@ def main(argv=None) -> None:
     other = (("scheme", "fan_in", "n_out", "density", "bias_rows",
               "accumulation", "backend", "calibrate", "batch")
              if args.network == "detector"
-             else ("det_scheme", "det_batch", "det_steps", "no_pipeline"))
+             else ("det_scheme", "det_batch", "det_steps", "train_chips",
+                   "resample_every", "no_pipeline"))
     misused = [f"--{n.replace('_', '-')}" for n in other
                if getattr(args, n) != ap.get_default(n)]
     if misused:
@@ -243,9 +305,6 @@ def main(argv=None) -> None:
     if args.network == "layer":
         run_layer(args)
         return
-    if args.det_steps:
-        raise SystemExit("--det-steps > 0 needs QAT, which comes in a later "
-                         "slice of the port")
     run_detector(args)
 
 

@@ -9,6 +9,9 @@ device (every group conv one launch of the fused IRC MVM kernel), then its
 predictions come back to the host, where each chip's mAP folds into
 streaming Welford/quantile accumulators.
 
+`build_train_ensemble` draws the same dies as deviation planes for
+ensemble-aware QAT.
+
 The pipelined sweep overlaps the two: chunk k's predictions are copied into
 pinned host memory with `non_blocking=True` and an event is recorded, and
 only then is chunk k+1 enqueued, so the host waits on chunk k alone and
@@ -27,7 +30,8 @@ from repro_torch.core import nonideal as ni
 from repro_torch.core.macro import MacroSpec
 from repro_torch.core.mapping import MappedLayer
 from repro_torch.mc.engine import McConfig, McResult, TABLE2_ABLATION
-from repro_torch.mc.ensemble import ChipEnsemble, sample_ensemble_with_keys
+from repro_torch.mc.ensemble import (ChipEnsemble, deviation_planes,
+                                     sample_ensemble_with_keys)
 from repro_torch.mc.stats import StreamingMoments
 from repro_torch.obs.timers import PhaseTimer
 
@@ -76,6 +80,24 @@ def build_detector_ensemble(key: torch.Tensor, det, params, n_chips: int = 0,
             for g, mapped in enumerate(det.group_mappings(params[name], cin,
                                                           ch)))
     return DetectorEnsemble(layers=layers, chip_ids=chip_ids)
+
+
+def build_train_ensemble(key: torch.Tensor, det, params, n_chips: int = 0,
+                         *, chip_ids: Optional[torch.Tensor] = None,
+                         cfg: ni.NonidealConfig = ni.NonidealConfig.all(),
+                         device=None) -> DetectorEnsemble:
+    """Train-time chip population: every layer's `deviation_planes`, from
+    the same dies as `build_detector_ensemble` (chip c here is chip c
+    there), so `mode="train_ensemble"` can add each chip's frozen variation
+    error to the QAT pre-activation.  The QAT step rebuilds it from the
+    current weights every step; the dies change only with `key`."""
+    ens = build_detector_ensemble(key, det, params, n_chips,
+                                  chip_ids=chip_ids, cfg=cfg, device=device)
+    return DetectorEnsemble(
+        layers={name: tuple(deviation_planes(g, det.spec, device)
+                            for g in groups)
+                for name, groups in ens.layers.items()},
+        chip_ids=ens.chip_ids)
 
 
 def detector_planes(det, params):

@@ -6,7 +6,9 @@ Chip `c` of `sample_ensemble(key, ...)` carries exactly the state that
 chips axis so one batched computation (or one kernel launch) serves the
 whole population.  `calibrate_ensemble_bias` is the paper's per-die
 deployment flow (Sec. IV-B.4): each chip's own variation draw gives it its
-own best extra-bias row count.
+own best extra-bias row count.  `deviation_planes` turns an uncalibrated
+ensemble into the (effective - nominal) conductance deltas that
+ensemble-aware QAT adds to its pre-activations.
 """
 from __future__ import annotations
 
@@ -107,6 +109,27 @@ def sample_ensemble_with_keys(keys: torch.Tensor, mapped: MappedLayer, *,
     return ChipEnsemble(ep=ep, en=en, gp=mapped.g_pos, gn=mapped.g_neg,
                         sa_keys=sa_keys, chip_ids=chip_ids,
                         scheme=mapped.scheme, fan_in=mapped.fan_in)
+
+
+def deviation_planes(ens: ChipEnsemble, spec: MacroSpec = DEFAULT_MACRO,
+                     device=None) -> ChipEnsemble:
+    """The ensemble with ep/en replaced by (effective - nominal) conductance
+    deltas, the train-time surrogate's planes.
+
+    The nominal planes are a variation-free chip's (LRS cells at unit
+    conductance, the HRS leak floor elsewhere, the same floor the chips were
+    sampled with), so the fused IRC MVM on them with every effect off and
+    output="diff" is each chip's frozen linear variation error; the deltas
+    are exactly zero when the chips were sampled without device variation.
+    Uncalibrated ensembles only (calibration floors conductances)."""
+    if ens.bias_units is not None:
+        raise ValueError("deviation_planes needs an uncalibrated ensemble")
+    leak = ni._device_or_analytic(device).hrs_leak_units(spec)
+    gp = ens.gp if ens.planes_per_chip() else ens.gp[None]
+    gn = ens.gn if ens.planes_per_chip() else ens.gn[None]
+    ep0 = gp + (1.0 - gp) * leak
+    en0 = gn + (1.0 - gn) * leak
+    return dataclasses.replace(ens, ep=ens.ep - ep0, en=ens.en - en0)
 
 
 def _chip_current_stats(x_ext: torch.Tensor, ep: torch.Tensor,

@@ -4,7 +4,14 @@ GROUP convolutions (group size 60) mapped onto IRC macros, in PyTorch.
 Both Table II designs run: the proposed one (ternary weights, no BN,
 single-shot accumulation, extra bias rows) and the baseline (binary weights
 against a shared reference line, in-memory BN folded into bias cells,
-partial-sum accumulation), in two modes:
+partial-sum accumulation), in four modes:
+  * mode="train": differentiable QAT: STE quantizers, a plain grouped conv,
+    batch-statistics BN, and (with effects on) the noise surrogate added to
+    each pre-activation, keyed fold_in(key, s*10+b);
+  * mode="train_ensemble": ensemble-aware QAT over a deviation population
+    (`mc.detector_mc.build_train_ensemble`): each chip's frozen variation
+    error from the fused IRC MVM (`output="diff"`, no gradient) plus a fresh
+    per-chip SA-offset draw;
   * mode="eval": single-chip structural crossbar sim per group (chip
     identity = `key`), through `crossbar_forward`;
   * mode="ensemble": every chip of a pre-sampled `DetectorEnsemble` at once.
@@ -14,7 +21,7 @@ partial-sum accumulation), in two modes:
 The stem and head are digital (`F.conv2d` / `matmul`, TF32 off).  Every
 public function keeps the reference's NHWC layout; params keep its layout
 too (stem HWIO, block weights [540, group, n_groups], the baseline's block
-BN as `bn` {gamma, beta, mean, var}).  QAT modes come in a later slice.
+BN as `bn` {gamma, beta, mean, var}).
 """
 from __future__ import annotations
 
@@ -29,7 +36,8 @@ import torch.nn.functional as F
 from repro_torch import prng
 from repro_torch import xla_order as xo
 from repro_torch.core import nonideal as ni
-from repro_torch.core.crossbar import crossbar_forward
+from repro_torch.core.crossbar import (add_noise, crossbar_forward,
+                                       variation_noise_std)
 from repro_torch.core.macro import MacroSpec, DEFAULT_MACRO
 from repro_torch.core.mapping import (MappedLayer, binary_planes,
                                      fold_bn_to_bias_units, ternary_planes)
@@ -100,6 +108,15 @@ def _max_pool_same(x: torch.Tensor) -> torch.Tensor:
     return y.permute(0, 2, 3, 1).reshape(lead + y.shape[2:] + (C,))
 
 
+def _batch_norm(x: torch.Tensor, gamma: torch.Tensor, beta: torch.Tensor
+                ) -> torch.Tensor:
+    """The train modes' BN over [N,H,W,C]: batch statistics over (N, H, W)
+    (population variance), differentiable through them."""
+    mu = torch.mean(x, dim=(0, 1, 2))
+    var = torch.var(x, dim=(0, 1, 2), correction=0)
+    return gamma * (x - mu) / xo.sqrt(var + 1e-5) + beta
+
+
 def _grouped_conv(x: torch.Tensor, wq: torch.Tensor) -> torch.Tensor:
     """Ideal 3x3 stride-1 "SAME" group conv, NHWC: x [B,H,W,ng*g] and
     quantized weights [3,3,g,g,ng] (HWIO per group) -> [B,H,W,ng*g]."""
@@ -111,8 +128,8 @@ def _grouped_conv(x: torch.Tensor, wq: torch.Tensor) -> torch.Tensor:
 
 class IRCDetector:
     """init/apply for the detector; `apply` returns raw head predictions
-    [B, gh, gw, A*(5+C)] (mode="eval") or [chips, B, gh, gw, A*(5+C)]
-    (mode="ensemble")."""
+    [B, gh, gw, A*(5+C)] (modes "train" and "eval") or [chips, B, gh, gw,
+    A*(5+C)] (modes "train_ensemble" and "ensemble")."""
 
     def __init__(self, cfg: DetectorConfig, spec: MacroSpec = DEFAULT_MACRO):
         self.cfg = cfg
@@ -209,6 +226,47 @@ class IRCDetector:
             wq = binary_quantize(blk["w"])
         return wq.reshape(3, 3, cfg.group, cfg.group, cout // cfg.group)
 
+    def _gconv_pre(self, blk, x4: torch.Tensor, cin: int, cout: int
+                   ) -> Tuple[torch.Tensor, torch.Tensor]:
+        """Differentiable QAT pre-activation of the train modes: quantized
+        grouped conv, and for the baseline its block BN on batch statistics
+        with |gamma| (the in-memory fold is sign-preserving only for
+        positive gamma).  [N,H,W,cin] -> ([N,H,W,cout], quantized kernel
+        [3,3,g,g,ng])."""
+        wq = self._gconv_weights(blk, cin, cout)
+        pre = _grouped_conv(x4, wq)
+        if self.cfg.use_bn:
+            bn = blk["bn"]
+            pre = _batch_norm(pre, bn["gamma"].abs(), bn["beta"])
+        return pre, wq
+
+    def _p_pair(self, x: torch.Tensor, wq: torch.Tensor, cin: int
+                ) -> torch.Tensor:
+        """Expected activated-LRS count on a group's differential pair, from
+        the word lines on at each pixel and the quantized weights' LRS
+        fraction (ternary ~0.4, binary ~1.0), left to right as the
+        reference writes it."""
+        lrs_frac = torch.mean(torch.abs(wq.detach()))
+        return (torch.sum(x.detach(), dim=-1, keepdim=True) * lrs_frac
+                * 9.0 / cin * self.cfg.group)
+
+    def _gconv_train(self, blk, x: torch.Tensor, cin: int, cout: int, *,
+                     key: torch.Tensor, cfg_ni: ni.NonidealConfig
+                     ) -> torch.Tensor:
+        """mode="train" group conv: the pre-activation plus (with device or
+        SA variation on) one noise draw `normal(key, pre.shape)` scaled by
+        the surrogate std, then the binary activation."""
+        pre, wq = self._gconv_pre(blk, x, cin, cout)
+        if cfg_ni.device_variation or cfg_ni.sa_variation:
+            p_pair = self._p_pair(x, wq, cin)
+            std = 0.0
+            if cfg_ni.device_variation:
+                std = std + variation_noise_std(p_pair, self.spec.sigma_lrs)
+            if cfg_ni.sa_variation:
+                std = std + 0.5 * ni.sa_required_diff(p_pair, self.spec)
+            pre = add_noise(pre, std, prng.normal(key, pre.shape))
+        return binary_activation(pre)
+
     def group_mappings(self, blk, cin: int, cout: int) -> List[MappedLayer]:
         """Per-group `MappedLayer`s of one block: im2col rows are
         spatial-major (9, group), after the scheme's leading rows (the
@@ -217,7 +275,7 @@ class IRCDetector:
         fold)."""
         cfg = self.cfg
         n_groups = cout // cfg.group
-        wq = self._gconv_weights(blk, cin, cout).reshape(
+        wq = self._gconv_weights(blk, cin, cout).detach().reshape(
             9, cfg.group, cfg.group, n_groups)
         maps = []
         for g in range(n_groups):
@@ -319,6 +377,44 @@ class IRCDetector:
         del xg
         return torch.cat(outs, dim=-1)
 
+    def _gconv_train_ensemble(self, blk, groups, x: torch.Tensor, cin: int,
+                              cout: int, *, key: torch.Tensor,
+                              cfg_ni: ni.NonidealConfig,
+                              kernel_impl: str = "kernel", device=None
+                              ) -> torch.Tensor:
+        """mode="train_ensemble" group conv (paper Sec. V at population
+        scale): the differentiable pre-activation, chips folded into the
+        batch so one conv serves every chip, plus for each chip of the
+        deviation population `groups`:
+          * its frozen linear device-variation error, the fused IRC MVM on
+            the (effective - nominal) conductance deltas with every effect
+            off (`output="diff"`), without gradient;
+          * a fresh SA-offset draw (std 0.5 g(p_pair)) keyed
+            fold_in(key, chip_id), so a chip's slice does not depend on the
+            ensemble it is evaluated in.
+        x is [B,H,W,cin] (chip-shared) or [chips,B,H,W,cin]; returns
+        [chips,B,H,W,cout] binary activations."""
+        n_chips = groups[0].n_chips
+        xf = x.reshape((-1,) + x.shape[-3:])
+        pre, wq = self._gconv_pre(blk, xf, cin, cout)
+        pre = pre.reshape(x.shape[:-1] + (cout,))
+        if cfg_ni.device_variation:
+            with torch.no_grad():
+                dev = self._gconv_ensemble(
+                    groups, x.detach(), cin, cout,
+                    cfg_ni=ni.NonidealConfig.none(), output="diff",
+                    kernel_impl=kernel_impl, device=device)
+            pre = pre + dev                    # adds the chips axis
+        if pre.ndim == 4:
+            pre = pre.expand((n_chips,) + pre.shape)
+        if cfg_ni.sa_variation:
+            std = 0.5 * ni.sa_required_diff(self._p_pair(x, wq, cin),
+                                            self.spec)
+            eps = prng.normal(prng.fold_in(key, groups[0].chip_ids),
+                              pre.shape[1:])
+            pre = add_noise(pre, std, eps)
+        return binary_activation(pre)
+
     # ------------------------------------------------------------ BN calib
     def calibrate_bn(self, params: Params, images: torch.Tensor) -> Params:
         """BN running stats (population mean/var) from a calibration batch.
@@ -366,21 +462,28 @@ class IRCDetector:
               kernel_impl: str = "kernel", device=None) -> torch.Tensor:
         """images [B,H,W,3] in [0,1] -> head predictions.
 
-        mode="eval": one chip (identity `key`, default PRNGKey(0) on the
-        images' device) -> [B,gh,gw,A*(5+C)]; mode="ensemble": every chip of
-        `ensemble` (a `DetectorEnsemble`) -> [chips,B,gh,gw,A*(5+C)], chip c
-        matching mode="eval" with key fold_in(base_key, c) up to float32
-        near-ties.  `device` is the device model (None: analytic)."""
-        cfg = self.cfg
-        if mode not in ("eval", "ensemble"):
-            raise NotImplementedError(
-                f"mode={mode!r} comes with the QAT slice")
+        mode="train": differentiable QAT -> [B,gh,gw,A*(5+C)], one noise
+        draw per block keyed fold_in(key, s*10+b); mode="train_ensemble":
+        ensemble-aware QAT over `ensemble`, a deviation population from
+        `build_train_ensemble` -> [chips,B,gh,gw,A*(5+C)]; mode="eval": one
+        chip (identity `key`) -> [B,gh,gw,A*(5+C)]; mode="ensemble": every
+        chip of `ensemble` (a `DetectorEnsemble`) ->
+        [chips,B,gh,gw,A*(5+C)], chip c matching mode="eval" with key
+        fold_in(base_key, c) up to float32 near-ties.  `key` defaults to
+        PRNGKey(0) on the images' device.  The train modes normalize the
+        stem with batch statistics, the others with `calibrate_bn`'s.
+        `device` is the device model (None: analytic)."""
+        if mode not in ("train", "train_ensemble", "eval", "ensemble"):
+            raise ValueError(f"unknown mode {mode!r}")
         if key is None:
             key = prng.PRNGKey(0, device=images.device)
         x = _stem_conv(images, params["stem"])
         bn = params["stem_bn"]
-        x = bn["gamma"] * (x - bn["mean"]) / xo.sqrt(bn["var"] + 1e-5) \
-            + bn["beta"]
+        if mode in ("train", "train_ensemble"):
+            x = _batch_norm(x, bn["gamma"], bn["beta"])
+        else:
+            x = bn["gamma"] * (x - bn["mean"]) / xo.sqrt(bn["var"] + 1e-5) \
+                + bn["beta"]
         x = binary_activation(x)
         last_stage = 0
         for name, layer_id, s, cin, ch in self.blocks():
@@ -394,6 +497,15 @@ class IRCDetector:
                 x = self._gconv_ensemble(
                     ensemble.layers[name], x, cin, ch, cfg_ni=cfg_ni,
                     sa_extra=sa_extra, kernel_impl=kernel_impl, device=device)
+            elif mode == "train_ensemble":
+                x = self._gconv_train_ensemble(
+                    params[name], ensemble.layers[name], x, cin, ch,
+                    key=prng.fold_in(key, layer_id), cfg_ni=cfg_ni,
+                    kernel_impl=kernel_impl, device=device)
+            elif mode == "train":
+                x = self._gconv_train(params[name], x, cin, ch,
+                                      key=prng.fold_in(key, layer_id),
+                                      cfg_ni=cfg_ni)
             else:
                 x = self._gconv_structural(
                     params[name], x, cin, ch,

@@ -1,1 +1,2 @@
-"""Host-side detection scoring (training comes with the QAT slice)."""
+"""Detector QAT (loss, step, short training loop) and host-side
+detection scoring."""

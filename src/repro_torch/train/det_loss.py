@@ -1,13 +1,67 @@
-"""VOC mAP@0.5 evaluation of detector head outputs (paper Sec. V), on the
-host in numpy: box decoding, per-class NMS and 11-point AP.  The training
-loss comes with the QAT slice."""
+"""YOLOv2-style detection loss on tensors (differentiable, for QAT) and
+VOC mAP@0.5 evaluation of detector head outputs (paper Sec. V), on the host
+in numpy: box decoding, per-class NMS and 11-point AP."""
 from __future__ import annotations
 
-from typing import List
+from typing import Dict, List, Tuple
 
 import numpy as np
+import torch
 
 from repro_torch.data.detection import ANCHORS
+
+
+def decode_head(pred: torch.Tensor, n_anchors: int, n_classes: int
+                ) -> Dict[str, torch.Tensor]:
+    """[B,gh,gw,A*(5+C)] -> dict of txy (sigmoid), twh, obj and cls
+    logits."""
+    B, gh, gw, _ = pred.shape
+    p = pred.reshape(B, gh, gw, n_anchors, 5 + n_classes)
+    return {"txy": torch.sigmoid(p[..., 0:2]), "twh": p[..., 2:4],
+            "obj": p[..., 4], "cls": p[..., 5:]}
+
+
+def yolo_loss(pred: torch.Tensor, targets: Dict[str, torch.Tensor],
+              n_anchors: int, n_classes: int, lambda_coord: float = 5.0,
+              lambda_noobj: float = 0.5
+              ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
+    """(loss, {"coord", "obj", "cls"}) per positive anchor: squared error
+    on sigmoid offsets and sqrt sizes, objectness BCE (no-object terms
+    weighted by `lambda_noobj`) and class NLL, summed over the batch and
+    divided by max(positives, 1).  `targets` are `yolo_targets`' arrays as
+    tensors on pred's device."""
+    d = decode_head(pred, n_anchors, n_classes)
+    obj_t = targets["obj"]                    # [B,gh,gw,A]
+    xywh_t = targets["txywh"]                 # [B,gh,gw,A,4]
+    cls_t = targets["cls"]                    # [B,gh,gw,A]
+
+    anchors = torch.as_tensor(ANCHORS[:n_anchors], dtype=torch.float32,
+                              device=pred.device)
+    wh_pred = anchors * torch.exp(torch.clamp(d["twh"], -4.0, 4.0))
+    xy_loss = torch.sum(torch.square(d["txy"] - xywh_t[..., 0:2]), -1)
+    wh_loss = torch.sum(torch.square(torch.sqrt(wh_pred + 1e-9)
+                                     - torch.sqrt(xywh_t[..., 2:4] + 1e-9)),
+                        -1)
+    coord = lambda_coord * torch.sum(obj_t * (xy_loss + wh_loss))
+
+    logit = d["obj"]
+    # at a zero logit (a cell whose pooled activations are all 0) the
+    # reference's max(x, 0) splits its gradient and its |x| has slope 1:
+    # torch.maximum does the first, the where the second (torch.abs: 0)
+    abs_logit = torch.where(logit >= 0, logit, -logit)
+    bce = (torch.maximum(logit, torch.zeros_like(logit)) - logit * obj_t
+           + torch.log1p(torch.exp(-abs_logit)))
+    obj_loss = (torch.sum(obj_t * bce)
+                + lambda_noobj * torch.sum((1 - obj_t) * bce))
+
+    logp = torch.log_softmax(d["cls"], dim=-1)
+    cls_nll = -torch.gather(logp, -1, cls_t[..., None].long())[..., 0]
+    cls_loss = torch.sum(obj_t * cls_nll)
+
+    n_pos = torch.clamp(torch.sum(obj_t), min=1.0)
+    total = (coord + obj_loss + cls_loss) / n_pos
+    return total, {"coord": coord / n_pos, "obj": obj_loss / n_pos,
+                   "cls": cls_loss / n_pos}
 
 
 # ------------------------------------------------------------------ mAP

@@ -205,7 +205,8 @@ def test_cli_det_scheme_binary(tmp_path, capsys):
               "--json", str(out)])
     report = json.loads(out.read_text())
     assert report["args"]["det_scheme"] == "binary"
-    assert set(report["results"]) == {"ideal", "all"}
+    assert set(report["results"]) == {"init"}
+    assert set(report["results"]["init"]) == {"ideal", "all"}
     assert report["kernel_launches"]["irc_mvm_chips"] == 0
     assert "# detector binary 32x32" in capsys.readouterr().out
     with pytest.raises(SystemExit, match="does not take --det-scheme"):

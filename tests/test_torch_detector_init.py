@@ -87,7 +87,7 @@ def test_detector_cli_matches_the_jax_cli(design, tmp_path, monkeypatch,
         tcli.main(common + ["--device", "cpu", "--json", str(tout)])
     capsys.readouterr()
     ref = json.loads(jout.read_text())["results"]["init"]
-    got = json.loads(tout.read_text())["results"]
+    got = json.loads(tout.read_text())["results"]["init"]
     assert list(got) == list(ref)
     for name in ref:
         want = np.asarray(ref[name]["per_chip_map50"])

@@ -194,8 +194,8 @@ def test_out_of_slice_paths_raise(setup):
     from repro_torch.mc.engine import ensemble_apply_kernel
     _, _, det, tp, ev = setup
     images = torch.from_numpy(ev.images)
-    with pytest.raises(NotImplementedError, match="QAT"):
-        det.apply(tp, images, mode="train")
+    with pytest.raises(ValueError, match="unknown mode"):
+        det.apply(tp, images, mode="qat")
     with pytest.raises(ValueError, match="kernel_impl"):
         det.apply(tp, images, mode="ensemble", kernel_impl="pallas",
                   ensemble=tmc.build_detector_ensemble(
@@ -235,7 +235,8 @@ def test_cli_runs_on_the_cpu(tmp_path, capsys):
     cli.main(["--network", "detector", "--chips", "2", "--chunk", "2",
               "--ablation", "all", "--device", "cpu", "--json", str(out)])
     report = json.loads(out.read_text())
-    assert set(report["results"]) == {"ideal", "all"}
+    assert set(report["results"]) == {"init"}     # no QAT: the seed's init
+    assert set(report["results"]["init"]) == {"ideal", "all"}
     assert report["kernel_launches"]["irc_mvm_chips"] == 0   # CPU: plain
     assert "ideal" in capsys.readouterr().out
     with pytest.raises(SystemExit):

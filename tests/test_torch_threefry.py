@@ -166,6 +166,14 @@ def test_sass_helpers_find_the_main_loop():
     assert heads["BRA"] == 4 and smoke.sass_loop(ins[:3]) == []
 
 
+def test_sass_classes_put_viadd_on_the_fma_pipe():
+    """VIADD, sm_90's 32-bit add, issues on the FMA pipe with IMAD; IADD3
+    and LOP3 on the ALU pipe."""
+    classes, heads = _smoke().sass_classes(["VIADD", "IMAD.IADD", "IADD3",
+                                            "LOP3.LUT", "VIADD"])
+    assert classes == {"fma": 3, "alu": 2} and heads["VIADD"] == 2
+
+
 @pytest.mark.parametrize("registers,warps", [(28, 64), (32, 64), (40, 48),
                                              (64, 32), (72, 24), (128, 16),
                                              (255, 8)])
