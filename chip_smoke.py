@@ -71,7 +71,16 @@ Phases, each printing its own lines:
      version, one single-draw step's loss and gradients on the card against
      the same step on the CPU, the single-draw and 2-chip ensemble steps
      timed with launches per step and peak memory, and `quick_qat` over 3
-     ensemble steps with its launches counted from 0 (K1 14 a step);
+     ensemble steps with its launches counted from 0 (K1 14 a step); the
+     detector sweep's `stderr_target` stop, serial and pipelined at the
+     same chunk boundary with the full run's per-chip maps; and (`--only
+     serve`) the detector service `DetectorServeEngine` on
+     `yolo_irc.proposed()` at full width, committee 4, 2 slots: 6 requests
+     through the background scheduler (K1 14 a request, threefry),
+     requests/s steady and overall, device and host seconds per wave,
+     queue p50/p95, peak memory, then K1's count per wave and one
+     request's committee bit-identical to the MC chunk forward at its key
+     and within the near-tie bar of K1's plain version;
   6. one whole-network chunk through the kernel and through the plain
      route; 512-die layer chunks through both routes (proposed, calibrated
      per-chip planes, binary single-shot), flips only at near-ties;
@@ -80,7 +89,11 @@ Phases, each printing its own lines:
      table2`), `--network layer --chips 64 --ablation table2 --backend
      kernel`, and the detector after QAT, `--chips 16 --ablation table2
      --det-steps 3` (and 20) and `--chips 16 --det-steps 2 --train-chips
-     2`, the six processes run side by side;
+     2`, each into a run directory under a temporary one (the layer's
+     checked for manifest.json, metrics.jsonl and results.csv), and
+     `python -m repro_torch.launch.serve --network detector --requests 6
+     --slots 2 --committee 4 --trace`, whose torch.profiler trace must
+     hold a CUDA kernel event of K1; the seven processes run side by side;
   8. a JSON line of every ported kernel, the card's name and power limit,
      and the final `{"ok": true, ...}` line.
 `--only profile` instead breaks one full-width chunk's device time down by
@@ -92,6 +105,7 @@ when the repository's sources are missing beside it.
 """
 from __future__ import annotations
 
+import dataclasses
 import json
 import os
 import statistics
@@ -1746,6 +1760,8 @@ def phase_main_path(ops_):
     check(launches["irc_mvm_chips"] == want
           and launches["flash_attention"] == 0, f"launches {launches}")
     check_xla_launched("detector", launches)
+    early_stop_check(det, params, images, ev, key, mc,
+                     results["all"].per_chip["map50"])
 
     # single-chip layer path (K2): one s0b1 group conv of one chip
     blk = params["s0b1"]
@@ -1770,6 +1786,46 @@ def phase_main_path(ops_):
           f"layer path: launches {single_launches}, agreement {agree}")
     check_xla_launched("single-chip layer path", single_launches)
     return launches, single_launches
+
+
+def early_stop_check(det, params, images, ev, key, mc, full):
+    """Phase 5, the `stderr_target` stop of the detector sweep (column
+    all): with the target set to the standard error after two chunks of
+    the full run `full`, serial and pipelined sweeps stop at the first
+    chunk boundary at or under it, the same for both (the pipelined one
+    drops its in-flight chunk), with the full run's prefix as per-chip
+    values."""
+    import numpy as np
+    from repro_torch.core.nonideal import NonidealConfig
+    from repro_torch.mc.detector_mc import run_mc_detector
+    from repro_torch.mc.stats import StreamingMoments
+
+    def prefix(n):
+        sm = StreamingMoments()
+        for lo in range(0, n, mc.chunk_size):
+            sm.update(full[lo:min(lo + mc.chunk_size, n)])
+        return sm.stderr()
+
+    target = prefix(2 * mc.chunk_size)
+    stop = next(n for n in range(mc.chunk_size, mc.n_chips + 1,
+                                 mc.chunk_size) if prefix(n) <= target)
+    mc_all = dataclasses.replace(mc, cfg=NonidealConfig.all())
+    got = {}
+    for pipeline in (False, True):
+        res = run_mc_detector(key, det, params, images, ev.boxes, ev.classes,
+                              mc=mc_all, stderr_target=target,
+                              pipeline=pipeline)
+        got[pipeline] = res
+        check(res.n_chips == stop and np.array_equal(res.per_chip["map50"],
+                                                     full[:stop]),
+              f"early stop (pipeline={pipeline}): {res.n_chips} chips, "
+              f"{res.per_chip['map50'].tolist()} vs the full run's "
+              f"{full[:stop].tolist()}")
+    log("5 main path", f"early stop, column all, stderr_target {target:.6g} "
+        f"(the full run's after {2 * mc.chunk_size} chips): serial and "
+        f"pipelined both stop at {stop} of {mc.n_chips} chips with the full "
+        f"run's per-chip maps {full[:stop].tolist()}; wall "
+        f"{got[False].wall_s:.3f} / {got[True].wall_s:.3f} s")
 
 
 def phase_k4_path(ops_):
@@ -2055,6 +2111,140 @@ def phase_network(ops_):
         f"vs {maps[1].tolist()} (max diff {dmap:.4f} <= 0.02)")
     check(frac >= 0.99 and dmap <= 0.02,
           f"network: agreement {frac}, mAP diff {dmap}")
+
+
+# the detector service at full width: chips per request, requests per wave
+# at most, requests in the scheduler's run
+SERVE_COMMITTEE, SERVE_SLOTS, SERVE_REQUESTS = 4, 2, 6
+K1_PER_LANE = 14        # one K1 launch per group conv of the proposed design
+
+
+def phase_serve(ops_):
+    """Phase `serve`: `DetectorServeEngine` on `yolo_irc.proposed()` at
+    576x1024, random weights from `IRCDetector.init(PRNGKey(0))`, stem BN
+    calibrated on 2 synthetic images, committee 4, 2 slots.  Six requests
+    through the background scheduler (start, submit, result, stop) with
+    launch counts from 0: K1 14 a request (14 a live lane of each wave),
+    threefry at least once.  Then three requests served in this thread,
+    wave by wave, with K1's count per wave; one committee bit-identical
+    to `_sample_and_forward` at fold_in(root, rid), chips 0-3, batch 1,
+    and within the near-tie bar of the same committee through K1's plain
+    version (`kernel_impl="ref"`).  Returns the scheduler run's launches
+    and readings."""
+    import numpy as np
+    import torch
+    from repro_torch import prng
+    from repro_torch.configs import yolo_irc
+    from repro_torch.core.nonideal import NonidealConfig
+    from repro_torch.data.detection import SyntheticDetectionData
+    from repro_torch.mc.detector_mc import (_sample_and_forward,
+                                            detector_planes)
+    from repro_torch.models.detector import IRCDetector
+    from repro_torch.serve import DetectorServeEngine
+
+    cfg = yolo_irc.proposed()
+    det = IRCDetector(cfg)
+    params = det.init(prng.PRNGKey(0, device="cuda"), device="cuda")
+    data = SyntheticDetectionData(cfg.img_hw, cfg.n_classes, cfg.n_anchors,
+                                  cfg.strides, seed=1)
+    images = data.batch_for_step(0, 2).images
+    params = det.calibrate_bn(params, torch.from_numpy(images).cuda())
+
+    def engine(**kw):
+        return DetectorServeEngine(det, params, committee=SERVE_COMMITTEE,
+                                   batch_slots=SERVE_SLOTS, seed=0, **kw)
+
+    eng = engine()
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    ops_.reset_launches()
+    eng.start()
+    try:
+        t0 = time.perf_counter()
+        rids = [eng.submit(images[i % 2]) for i in range(SERVE_REQUESTS)]
+        responses = [eng.result(rid, timeout=300) for rid in rids]
+        wall = time.perf_counter() - t0
+    finally:
+        eng.stop()
+    launches = dict(ops_.LAUNCHES)
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    st = eng.stats()
+    waves = st["wave"]["laps"]
+    lat = st["queue_latency"]
+    for r in responses:
+        c = r.confidence
+        check(all(np.isfinite(v) for v in c.values()) and c["count"] ==
+              SERVE_COMMITTEE, f"request {r.request_id}: confidence {c}")
+    per_wave = {k: st[k]["total_s"] / max(st[k]["laps"], 1)
+                for k in ("wave", "enqueue", "device", "host")}
+    want = K1_PER_LANE * SERVE_REQUESTS
+    log("5 serve", f"yolo_irc.proposed() 576x1024, committee "
+        f"{SERVE_COMMITTEE}, {SERVE_SLOTS} slots, {SERVE_REQUESTS} requests "
+        f"in {waves} waves (sizes "
+        f"{[sum(r.wave == w for r in responses) for w in range(1, waves + 1)]}"
+        f"): {SERVE_REQUESTS / wall:.4f} req/s overall, "
+        f"{st['wave']['requests_per_sec']:.4f} req/s steady, wall "
+        f"{wall:.3f} s, first wave {st['wave']['compile_s']:.3f} s; per wave "
+        f"wall {per_wave['wave']:.4f} s, enqueue {per_wave['enqueue']:.4f} "
+        f"s, device {per_wave['device']:.4f} s, host "
+        f"{per_wave['host']:.4f} s; queue p50 {lat['p50']:.4f} s, p95 "
+        f"{lat['p95']:.4f} s; peak device memory {peak:.2f} GiB; "
+        f"{gpu_name_and_limit()}")
+    log("5 serve", f"kernel launches {launches} (want irc_mvm_chips = "
+        f"{K1_PER_LANE} x {SERVE_REQUESTS} live lanes = {want}, threefry "
+        f">= 1)")
+    check(launches["irc_mvm_chips"] == want and launches["threefry"] >= 1,
+          f"serve launches {launches}")
+    check_xla_launched("serve", launches)
+
+    # wave by wave in this thread: a full wave, then a short one
+    eng = engine(keep_committee=True)
+    by_wave = []
+    for n in (SERVE_SLOTS, 1):
+        ops_.reset_launches()
+        for i in range(n):
+            eng.submit(images[i % 2])
+        check(eng.process_pending() == n, "process_pending")
+        torch.cuda.synchronize()
+        by_wave.append(ops_.LAUNCHES["irc_mvm_chips"])
+    log("5 serve", f"K1 launches by wave of {SERVE_SLOTS} and 1 live "
+        f"lanes: {by_wave}")
+    check(by_wave == [K1_PER_LANE * SERVE_SLOTS, K1_PER_LANE],
+          f"K1 per wave {by_wave}")
+    rid = SERVE_SLOTS                  # the short wave's request
+    got = eng.result(rid, timeout=300).committee
+    planes, meta = detector_planes(det, params)
+    key = prng.fold_in(prng.PRNGKey(0, device="cuda"), rid)
+    ids = torch.arange(SERVE_COMMITTEE, device="cuda")
+    img = torch.from_numpy(images[rid % 2][None]).cuda()
+
+    def lane(impl):
+        return _sample_and_forward(
+            params, img, key, ids, planes, det_cfg=cfg, spec=det.spec,
+            cfg_ni=NonidealConfig.all(), sa_extra=0.0, meta=meta,
+            kernel_impl=impl)[:, 0]
+
+    outs = {impl: lane(impl).cpu().numpy() for impl in ("kernel", "ref")}
+    same = bool(np.array_equal(got, outs["kernel"]))
+    frac = float(np.mean(np.abs(got - outs["ref"]) <= 1e-4))
+    lane_ms = cuda_ms(lambda: lane("kernel"), reps=3)
+    log("5 serve", f"request {rid}'s committee {got.shape}: bit-identical "
+        f"to _sample_and_forward at fold_in(root, {rid}) {same}; through "
+        f"K1's plain version {frac:.6f} within 1e-4 (>= 0.99), "
+        f"{float(np.mean(got == outs['ref'])):.6f} bit-identical")
+    busy = SERVE_SLOTS * lane_ms / 1e3 / per_wave["wave"]
+    log("5 serve", f"one lane's device span (CUDA events, median of 3): "
+        f"{lane_ms:.3f} ms; a full wave's {SERVE_SLOTS} lanes are "
+        f"{busy:.4f} of the scheduler run's mean wave wall (device idle "
+        f"{1 - busy:.4f})")
+    check(same and frac >= 0.99, f"serve committee: identical {same}, "
+          f"near-tie agreement {frac}")
+    torch.cuda.empty_cache()
+    return {"launches": launches, "req_s": SERVE_REQUESTS / wall,
+            "steady_req_s": st["wave"]["requests_per_sec"],
+            "per_wave": per_wave, "p50": lat["p50"], "p95": lat["p95"],
+            "peak_gib": peak, "lane_ms": lane_ms}
 
 
 # the QAT path at full width: timed steps per configuration (after one
@@ -2376,43 +2566,76 @@ def qat_profile(det, data):
         torch.cuda.empty_cache()
 
 
+def trace_kernels(path):
+    """Names of the CUDA kernel events in a `torch.profiler` Chrome trace."""
+    events = json.loads(Path(path).read_text()).get("traceEvents", [])
+    return {e.get("name", "") for e in events if e.get("cat") == "kernel"}
+
+
 def phase_cli():
-    """Phase 7: the CLIs (the detector for both designs, the layer),
-    side by side, run to their end on the card."""
+    """Phase 7: the CLIs (the detector for both designs, the layer, the
+    detector service with a trace), side by side, run to their end on the
+    card, each mc CLI with its run directory under a temporary one."""
+    import shutil
+    import tempfile
     env = dict(os.environ)
     env["PYTHONPATH"] = str(SRC) + os.pathsep + env.get("PYTHONPATH", "")
+    runs = Path(tempfile.mkdtemp(prefix="chip_smoke_runs_"))
+    mc_argvs = (["--network", "detector", "--chips", "4"],
+                ["--network", "detector", "--det-scheme", "binary",
+                 "--chips", "4", "--ablation", "table2"],
+                ["--network", "layer", "--chips", "64", "--ablation",
+                 "table2", "--backend", "kernel"],
+                ["--network", "detector", "--chips", "16", "--ablation",
+                 "table2", "--det-steps", "3"],
+                ["--network", "detector", "--chips", "16", "--ablation",
+                 "table2", "--det-steps", "20"],
+                ["--network", "detector", "--chips", "16", "--det-steps",
+                 "2", "--train-chips", "2"])
+    cmds = [("repro_torch.launch.mc", argv + ["--run-dir", str(runs),
+                                             "--run-id", f"mc{i}"])
+            for i, argv in enumerate(mc_argvs)]
+    cmds.append(("repro_torch.launch.serve", [
+        "--network", "detector", "--requests", str(SERVE_REQUESTS),
+        "--slots", str(SERVE_SLOTS), "--committee", str(SERVE_COMMITTEE),
+        "--run-dir", str(runs), "--run-id", "serve", "--trace"]))
     t0 = time.perf_counter()
     procs = [(argv, subprocess.Popen(
-        [sys.executable, "-m", "repro_torch.launch.mc", *argv], cwd=ROOT,
-        env=env, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True))
-        for argv in (["--network", "detector", "--chips", "4"],
-                     ["--network", "detector", "--det-scheme", "binary",
-                      "--chips", "4", "--ablation", "table2"],
-                     ["--network", "layer", "--chips", "64", "--ablation",
-                      "table2", "--backend", "kernel"],
-                     ["--network", "detector", "--chips", "16", "--ablation",
-                      "table2", "--det-steps", "3"],
-                     ["--network", "detector", "--chips", "16", "--ablation",
-                      "table2", "--det-steps", "20"],
-                     ["--network", "detector", "--chips", "16", "--det-steps",
-                      "2", "--train-chips", "2"])]
+        [sys.executable, "-m", module, *argv], cwd=ROOT, env=env,
+        stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True))
+        for module, argv in cmds]
     try:
         for argv, proc in procs:
             out, err = proc.communicate(timeout=600)
             lines = out.strip().splitlines()
-            for line in (lines if "--det-steps" in argv else lines[-9:]):
+            for line in (lines if "--det-steps" in argv or "--trace" in argv
+                         else lines[-9:]):
                 log("7 cli", line)
             check(proc.returncode == 0, err[-2000:])
             log("7 cli", f"{' '.join(argv)}: exit 0 within "
                 f"{time.perf_counter() - t0:.1f}s")
+        layer_run = runs / "mc2"
+        files = sorted(p.name for p in layer_run.iterdir())
+        log("7 cli", f"layer CLI run dir: {files}")
+        check({"manifest.json", "metrics.jsonl", "results.csv"} <= set(files)
+              and json.loads((layer_run / "manifest.json").read_text())[
+                  "status"] == "ok", f"layer run dir {files}")
+        names = trace_kernels(runs / "serve" / "trace" / "trace.json")
+        k1 = sorted(n for n in names if "irc_mvm_chips_kernel" in n)
+        log("7 cli", f"serve CLI trace: {len(names)} CUDA kernel names, "
+            f"K1's: {[n[:80] for n in k1]}")
+        check(bool(k1), f"no K1 kernel event in the serve trace; kernels "
+              f"{sorted(names)[:20]}")
     finally:
         for _, proc in procs:
             if proc.poll() is None:
                 proc.kill()
                 proc.wait()
+        shutil.rmtree(runs, ignore_errors=True)
 
 
-PHASES = ("kernels", "times", "main", "train", "network", "cli")
+PHASES = ("kernels", "times", "main", "train", "serve", "network",
+          "cli")
 
 
 def main(argv=None) -> int:
@@ -2509,6 +2732,9 @@ def main(argv=None) -> int:
     train = {}
     if "train" in only:
         train = phase_train(ops)
+    serve = {}
+    if "serve" in only:
+        serve = phase_serve(ops)
     if "network" in only:
         phase_network(ops)
         phase_layer_network(ops)
@@ -2526,9 +2752,11 @@ def main(argv=None) -> int:
 
     kernels = []
     qat = train["launches"]
+    served = serve["launches"]
     for name, replaces, n in (
             ("irc_mvm_chips", "src/repro/kernels/irc_mvm.py:228",
-             launches["irc_mvm_chips"] + qat["irc_mvm_chips"]),
+             launches["irc_mvm_chips"] + qat["irc_mvm_chips"]
+             + served["irc_mvm_chips"]),
             ("irc_mvm", "src/repro/kernels/irc_mvm.py:184",
              single["irc_mvm"])):
         t = times[name]
@@ -2574,14 +2802,14 @@ def main(argv=None) -> int:
             "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],
             "bound_by": t["bound_by"], "library_ms": t["library_ms"]})
     # the die sampling at the periphery draw; its launches are the two
-    # detector runs' and the QAT path's
+    # detector runs', the QAT path's and the service's
     t = tf_times["normal"]
     kernels.append({
         "name": "threefry", "route": "cuda",
         "source": "src/repro_torch/csrc/threefry.cu",
         "replaces": "src/repro/core/nonideal.py:64",
         "launches": launches["threefry"] + baseline["threefry"]
-        + qat["threefry"],
+        + qat["threefry"] + served["threefry"],
         "max_abs_err": max(v["max_abs_err"] for v in tf_times.values()),
         "ms": t["ms"], "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],
         "bound_by": t["bound_by"], "library_ms": t["library_ms"]})
@@ -2589,7 +2817,11 @@ def main(argv=None) -> int:
         f"{launches['threefry']}, detector baseline {baseline['threefry']}, "
         f"layer {dict((d, c['threefry']) for d, c in layer.items())}, "
         f"single-chip layer {single['threefry']}, QAT (quick_qat, "
-        f"{TRAIN_STEPS} ensemble steps) {qat['threefry']}")
+        f"{TRAIN_STEPS} ensemble steps) {qat['threefry']}, service "
+        f"({SERVE_REQUESTS} requests) {served['threefry']}")
+    log("8 summary", f"K1 launches by path: detector proposed "
+        f"{launches['irc_mvm_chips']}, QAT {qat['irc_mvm_chips']}, service "
+        f"{served['irc_mvm_chips']}")
     log("8 summary", f"QAT path launches ({TRAIN_STEPS} ensemble steps of "
         f"quick_qat): {qat}; per step by configuration: "
         + "; ".join(f"{k}: {v['launches']}"

@@ -29,8 +29,19 @@ QAT; `qat` after `--det-steps` single-draw QAT steps (`quick_qat`); with
 ensemble-aware QAT from the same root key PRNGKey(seed + 1) with the
 surrogate noise of every effect on.  The layer's ideal reference bits go
 through the ternary matmul kernel on the card.  `--device cpu` runs the
-plain PyTorch path on the CPU.  The measured and aged device models and
-run directories come in later slices.
+plain PyTorch path on the CPU.  The measured and aged device models come
+in a later slice.
+
+Every run gets a `<--run-dir>/<run_id>/` directory ('' disables it), as
+the JAX CLI's: `manifest.json` (args, git SHA, torch and CUDA versions,
+host, the card's name and power limit), the `metrics.jsonl` event stream
+(per-chunk per-chip values and the running standard error),
+`per_chip_<metric>_<label>.npy`, `report.json` and the machine-readable
+`results.csv` (or wherever `--out` points), and with `--trace` a
+`torch.profiler` trace.  `--stderr-target T` stops each sweep at the first
+chunk boundary where the mean's standard error is at or under T.
+
+  python -m repro_torch.launch.mc --chips 1024 --stderr-target 0.002
 """
 from __future__ import annotations
 
@@ -52,6 +63,42 @@ def _ablation_columns(ablation: str, table):
     if ablation != "ideal":
         cols.append((ablation, by_name[ablation]))
     return cols
+
+
+def _make_runlog(args):
+    """The run's RunLog under `<run-dir>/<run_id>/` (the no-op log when
+    --run-dir is ''), its trace started with --trace."""
+    from repro_torch.obs import maybe_runlog
+    obs = maybe_runlog(bool(args.run_dir), f"mc-{args.network}",
+                       args=vars(args), root=args.run_dir,
+                       run_id=args.run_id or None)
+    if obs.path is not None:
+        print(f"# run dir: {obs.path}")
+    if args.trace:
+        obs.start_trace()
+    return obs
+
+
+def _csv_row(m: dict, drop: float, res) -> str:
+    """The CSV columns shared by both networks, from mean to compile_s,
+    and the device model and age (the analytic model at day 0)."""
+    q = [m.get(k, float("nan")) for k in ("q05", "q50", "q95")]
+    return (f"{m['mean']:.6f},{m['std']:.6f},{drop:.6f},{q[0]:.6f},"
+            f"{q[1]:.6f},{q[2]:.6f},{res.n_chips},"
+            f"{res.chips_per_sec:.2f},{res.compile_s:.4f},analytic,0")
+
+
+def _write_csv(args, obs, lines) -> None:
+    """The machine-readable CSV: `--out PATH`, else `<run_dir>/results.csv`."""
+    text = "\n".join(lines) + "\n"
+    if args.out:
+        out = Path(args.out)
+        out.parent.mkdir(parents=True, exist_ok=True)
+        out.write_text(text)
+    else:
+        out = obs.write_text("results.csv", text)
+    if out is not None:
+        print(f"# wrote {out}")
 
 
 def _table(results, metric: str) -> dict:
@@ -78,11 +125,13 @@ def _table(results, metric: str) -> dict:
     return rows
 
 
-def _finish(args, report: dict) -> dict:
-    """Add the kernel launch counts to the report and write it."""
+def _finish(args, obs, report: dict) -> dict:
+    """Add the kernel launch counts to the report and write it into the
+    run dir and to `--json`."""
     from repro_torch.kernels import ops
     report["kernel_launches"] = dict(ops.LAUNCHES)
     print(f"# kernel launches {json.dumps(ops.LAUNCHES)}")
+    obs.write_text("report.json", json.dumps(report, indent=1))
     if args.json:
         out = Path(args.json)
         out.parent.mkdir(parents=True, exist_ok=True)
@@ -128,6 +177,7 @@ def run_layer(args) -> dict:
 
     dev = resolve_device(args.device)
     columns = _ablation_columns(args.ablation, TABLE2_ABLATION)
+    obs = _make_runlog(args)
     ops.reset_launches()
     mapped, x, ref_bits = build_layer(args, dev)
     mc = McConfig(n_chips=args.chips, chunk_size=args.chunk,
@@ -139,14 +189,31 @@ def run_layer(args) -> dict:
           f"chips={args.chips} chunk={args.chunk} "
           f"accumulation={args.accumulation} backend={args.backend} "
           f"device={dev}" + (" calibrated" if args.calibrate else ""))
-    results = {name: run_mc(key, mapped, x, ref_bits=ref_bits,
-                            mc=dataclasses.replace(mc, cfg=cfg))
-               for name, cfg in columns}
+    results = {}
+    for name, cfg in columns:
+        obs.log_event("ablation_column", column=name,
+                      device_model="analytic", t_days=0.0)
+        results[name] = run_mc(key, mapped, x, ref_bits=ref_bits,
+                               mc=dataclasses.replace(mc, cfg=cfg), obs=obs,
+                               stderr_target=args.stderr_target)
     rows = _table(results, "bit_agreement")
+    ideal = results["ideal"].metrics["bit_agreement"]["mean"]
+    csv_lines = ["config,agree_mean,agree_std,drop_vs_ideal,q05,q50,q95,"
+                 "chips,chips_per_s,compile_s,device_model,t_days"]
     for name, res in results.items():
+        m = res.metrics["bit_agreement"]
+        csv_lines.append(f"{name}," + _csv_row(m, ideal - m["mean"], res))
+        for metric in ("bit_agreement", "ones_fraction"):
+            obs.save_array(f"per_chip_{metric}_{name}", res.per_chip[metric])
         rows[name]["bias_units"] = (res.bias_units.tolist()
                                     if res.bias_units is not None else None)
-    return _finish(args, {"args": vars(args), "results": rows})
+    _write_csv(args, obs, csv_lines)
+    report = _finish(args, obs, {"args": vars(args),
+                                 "run_id": obs.manifest.get("run_id"),
+                                 "results": rows})
+    obs.finalize(status="ok", network="layer", device_model="analytic",
+                 t_days=[0.0])
+    return report
 
 
 def _train_checkpoints(args, det, data, dev) -> dict:
@@ -155,7 +222,8 @@ def _train_checkpoints(args, det, data, dev) -> dict:
     `--train-chips N`, {"single", "ensN"}: single-draw and N-chip
     ensemble-aware QAT from the same root key PRNGKey(seed + 1) with the
     surrogate noise of every effect on, so the sweep isolates what the
-    chips axis buys."""
+    chips axis buys (`run_detector` refuses `--train-chips` without
+    `--det-steps`)."""
     from repro_torch import prng
     from repro_torch.core.nonideal import NonidealConfig
     from repro_torch.train.det_qat import quick_qat
@@ -166,9 +234,6 @@ def _train_checkpoints(args, det, data, dev) -> dict:
                                      device=dev)}
         return {"init": det.init(prng.PRNGKey(args.seed, device=dev),
                                  device=dev)}
-    if not args.det_steps:
-        raise SystemExit("--train-chips needs --det-steps > 0 "
-                         "(it compares QAT'd checkpoints)")
     common = dict(seed=args.seed, key=prng.PRNGKey(args.seed + 1, device=dev),
                   cfg_ni=NonidealConfig.all(), device=dev)
     return {
@@ -184,7 +249,6 @@ def run_detector(args) -> dict:
     """Population mAP@0.5 per checkpoint and ablation column; prints a
     table per checkpoint, returns the report (`results[checkpoint]
     [column]`)."""
-    import time
     import torch
     from repro_torch import prng
     from repro_torch.configs import yolo_irc
@@ -193,27 +257,36 @@ def run_detector(args) -> dict:
     from repro_torch.mc.detector_mc import run_mc_detector
     from repro_torch.mc.engine import McConfig, TABLE2_ABLATION
     from repro_torch.models.detector import IRCDetector
+    from repro_torch.obs import PhaseTimer
     from repro_torch.runtime import resolve_device
 
     dev = resolve_device(args.device)
+    columns = _ablation_columns(args.ablation, TABLE2_ABLATION)
+    if args.train_chips > 1 and not args.det_steps:
+        raise SystemExit("--train-chips needs --det-steps > 0 "
+                         "(it compares QAT'd checkpoints)")
+    obs = _make_runlog(args)
     cfg = yolo_irc.smoke(args.det_scheme)
     det = IRCDetector(cfg)
     data = SyntheticDetectionData(img_hw=cfg.img_hw, stride=cfg.strides,
                                   n_classes=cfg.n_classes,
                                   n_anchors=cfg.n_anchors)
     ops.reset_launches()
-    t0 = time.perf_counter()
-    checkpoints = _train_checkpoints(args, det, data, dev)
-    if dev.type == "cuda":
-        torch.cuda.synchronize(dev)
-    qat_s = time.perf_counter() - t0
+    qat_timer = PhaseTimer("qat", unit="checkpoints")
+    with qat_timer.lap() as lap:
+        checkpoints = _train_checkpoints(args, det, data, dev)
+        if dev.type == "cuda":
+            torch.cuda.synchronize(dev)
+        lap.items = len(checkpoints)
+    qat_timer.log_to(obs, det_steps=args.det_steps,
+                     train_chips=args.train_chips)
+    qat_s = qat_timer.total_s
     qat_launches = dict(ops.LAUNCHES)
     calib = data.batch_for_step(999, args.det_batch * 4)
     ev = data.batch_for_step(1000, args.det_batch)
     images = torch.from_numpy(ev.images).to(dev)
     key = prng.PRNGKey(args.seed, device=dev)
     mc = McConfig(n_chips=args.chips, chunk_size=args.chunk)
-    columns = _ablation_columns(args.ablation, TABLE2_ABLATION)
 
     print(f"# detector {args.det_scheme} {cfg.img_hw[0]}x{cfg.img_hw[1]} "
           f"batch={args.det_batch} chips={args.chips} chunk={args.chunk} "
@@ -222,19 +295,39 @@ def run_detector(args) -> dict:
     print(f"# qat {qat_s:.2f}s, kernel launches {json.dumps(qat_launches)}")
     ops.reset_launches()
     results = {}
+    csv_lines = ["checkpoint,config,map50_mean,map50_std,drop_vs_ideal,"
+                 "q05,q50,q95,chips,chips_per_s,compile_s,"
+                 "device_model,t_days"]
     for ck, params in checkpoints.items():
         params = det.calibrate_bn(params,
                                   torch.from_numpy(calib.images).to(dev))
         print(f"# checkpoint {ck}")
-        results[ck] = _table(
-            {name: run_mc_detector(key, det, params, images, ev.boxes,
-                                   ev.classes,
-                                   mc=dataclasses.replace(mc, cfg=cfg_ni),
-                                   pipeline=not args.no_pipeline)
-             for name, cfg_ni in columns}, "map50")
-    return _finish(args, {"args": vars(args), "qat_s": qat_s,
-                          "qat_kernel_launches": qat_launches,
-                          "results": results})
+        sweeps = {}
+        for name, cfg_ni in columns:
+            obs.log_event("ablation_column", checkpoint=ck, column=name,
+                          device_model="analytic", t_days=0.0)
+            sweeps[name] = run_mc_detector(
+                key, det, params, images, ev.boxes, ev.classes,
+                mc=dataclasses.replace(mc, cfg=cfg_ni), obs=obs,
+                stderr_target=args.stderr_target,
+                pipeline=not args.no_pipeline)
+        results[ck] = _table(sweeps, "map50")
+        ideal = sweeps["ideal"].metrics["map50"]["mean"]
+        for name, res in sweeps.items():
+            m = res.metrics["map50"]
+            csv_lines.append(f"{ck},{name},"
+                             + _csv_row(m, ideal - m["mean"], res))
+            obs.save_array(f"per_chip_map50_{ck}_{name}",
+                           res.per_chip["map50"])
+    _write_csv(args, obs, csv_lines)
+    report = _finish(args, obs, {"args": vars(args),
+                                 "run_id": obs.manifest.get("run_id"),
+                                 "qat_s": qat_s,
+                                 "qat_kernel_launches": qat_launches,
+                                 "results": results})
+    obs.finalize(status="ok", network="detector", device_model="analytic",
+                 t_days=[0.0])
+    return report
 
 
 def main(argv=None) -> None:
@@ -288,6 +381,20 @@ def main(argv=None) -> None:
     ap.add_argument("--device", default="cuda",
                     help="torch device (cuda, or cpu for the plain path)")
     ap.add_argument("--json", default="", help="write the report here")
+    ap.add_argument("--run-dir", default="experiments",
+                    help="root of the <run_id>/ run directory (manifest, "
+                         "metrics.jsonl, per-chip .npy, results.csv; '' "
+                         "disables)")
+    ap.add_argument("--run-id", default="",
+                    help="explicit run id (default: timestamped)")
+    ap.add_argument("--out", default="",
+                    help="machine-readable CSV path (default "
+                         "<run_dir>/results.csv)")
+    ap.add_argument("--stderr-target", type=float, default=None,
+                    help="stop each sweep once the standard error of the "
+                         "mean reaches this target")
+    ap.add_argument("--trace", action="store_true",
+                    help="capture a torch.profiler trace into the run dir")
     args = ap.parse_args(argv)
 
     # flags of the other network level would be silently ignored: refuse

@@ -10,7 +10,8 @@ predictions come back to the host, where each chip's mAP folds into
 streaming Welford/quantile accumulators.
 
 `build_train_ensemble` draws the same dies as deviation planes for
-ensemble-aware QAT.
+ensemble-aware QAT; `committee_wave_forward` answers one wave of serving
+requests (`repro_torch.serve`), each from its own committee of dies.
 
 The pipelined sweep overlaps the two: chunk k's predictions are copied into
 pinned host memory with `non_blocking=True` and an event is recorded, and
@@ -33,7 +34,7 @@ from repro_torch.mc.engine import McConfig, McResult, TABLE2_ABLATION
 from repro_torch.mc.ensemble import (ChipEnsemble, deviation_planes,
                                      sample_ensemble_with_keys)
 from repro_torch.mc.stats import StreamingMoments
-from repro_torch.obs.timers import PhaseTimer
+from repro_torch.obs import ConvergenceMonitor, PhaseTimer, RunLog, as_runlog
 
 
 @dataclasses.dataclass(frozen=True)
@@ -137,9 +138,35 @@ def _sample_and_forward(params, images, key, chip_ids, planes, *, det_cfg,
                      kernel_impl=kernel_impl, device=device)
 
 
+def committee_wave_forward(params, images, request_keys, chip_ids, planes,
+                           *, det_cfg, spec: MacroSpec,
+                           cfg_ni: ni.NonidealConfig, sa_extra: float, meta,
+                           kernel_impl: str = "kernel",
+                           device=None) -> torch.Tensor:
+    """One serving wave: every request lane gets its own chip committee.
+
+    `images` is [lanes, H, W, 3] and `request_keys` [lanes, 2], one
+    fold_in(root, request_id) per lane.  Each lane is its own
+    `_sample_and_forward` at batch 1, keyed only by its request key: the
+    per-read SA noise shapes would otherwise couple lanes through the batch
+    axis, and a request's draws would depend on its wave.  So lane i is
+    bit-identical to `run_mc_detector(request_keys[i], ...)` at the same
+    chip ids.  The serving engine passes live lanes only (no pad lanes:
+    nothing here is compiled for a fixed shape).  Returns
+    [lanes, chips, gh, gw, ho]."""
+    return torch.stack([
+        _sample_and_forward(params, images[i:i + 1], request_keys[i],
+                            chip_ids, planes, det_cfg=det_cfg, spec=spec,
+                            cfg_ni=cfg_ni, sa_extra=sa_extra, meta=meta,
+                            kernel_impl=kernel_impl, device=device)[:, 0]
+        for i in range(images.shape[0])])
+
+
 class _ToHost:
-    """One chunk's predictions on their way to the host: a pinned buffer
-    filled by a non-blocking copy, and the event that marks it complete."""
+    """Predictions on their way to the host: a pinned buffer filled by a
+    non-blocking copy, and an event recorded after it on the stream that
+    computed them (a thread's current stream, so the serving engine's
+    scheduler thread waits on its own work)."""
 
     def __init__(self, preds: torch.Tensor):
         if preds.is_cuda:
@@ -147,7 +174,7 @@ class _ToHost:
                                    pin_memory=True)
             self.buf.copy_(preds, non_blocking=True)
             self.event = torch.cuda.Event()
-            self.event.record()
+            self.event.record(torch.cuda.current_stream(preds.device))
         else:
             self.buf, self.event = preds, None
 
@@ -162,6 +189,8 @@ def run_mc_detector(key: torch.Tensor, det, params, images: torch.Tensor,
                     gt_boxes: List[np.ndarray],
                     gt_classes: List[np.ndarray], *,
                     mc: McConfig = McConfig(), sa_extra: float = 0.0,
+                    obs: Optional[RunLog] = None,
+                    stderr_target: Optional[float] = None,
                     pipeline: bool = True,
                     kernel_impl: str = "kernel") -> McResult:
     """Stream a chip population of the whole detector over an eval batch.
@@ -171,14 +200,28 @@ def run_mc_detector(key: torch.Tensor, det, params, images: torch.Tensor,
     chunking.  `pipeline=True` hoists the group mappings and overlaps chunk
     k+1 on the device with chunk k's host-side mAP; per-chip results are
     identical to `pipeline=False` (eager ensemble build, blocking forward).
-    `params` should carry calibrated stem-BN stats (`det.calibrate_bn`)."""
+    `params` should carry calibrated stem-BN stats (`det.calibrate_bn`).
+
+    `obs` receives the reference's events (phase "mc_detector");
+    `stderr_target` stops at the first chunk boundary where the mAP's
+    standard error reaches it.  The pipelined sweep then drops the one
+    chunk it has in flight, so both paths stop at the same boundary with
+    the same moments, those of the full run's prefix."""
     from repro_torch.train.det_loss import evaluate_map_per_chip
 
+    obs = as_runlog(obs)
     moments = {"map50": StreamingMoments(mc.quantiles)}
+    monitor = ConvergenceMonitor(moments, stderr_target=stderr_target,
+                                 runlog=obs, phase="mc_detector")
     timer = PhaseTimer("mc_detector_chunks", unit="chips")
     enq_timer = PhaseTimer("mc_detector_enqueue", unit="chips")
     dev_timer = PhaseTimer("mc_detector_device", unit="chips")
     host_timer = PhaseTimer("mc_detector_host", unit="chips")
+    obs.log_event("mc_start", phase="mc_detector", n_chips=mc.n_chips,
+                  chunk_size=mc.chunk_size, stderr_target=stderr_target,
+                  pipeline=pipeline,
+                  device_model=(mc.device.name if mc.device is not None
+                                else "analytic"))
     chunks = [_chip_range(lo, min(lo + mc.chunk_size, mc.n_chips), key)
               for lo in range(0, mc.n_chips, mc.chunk_size)]
 
@@ -201,6 +244,7 @@ def run_mc_detector(key: torch.Tensor, det, params, images: torch.Tensor,
                 spec=det.spec, cfg_ni=mc.cfg, sa_extra=sa_extra, meta=meta,
                 kernel_impl=kernel_impl, device=mc.device))
 
+    n_done = 0
     for chunk_i, ids in enumerate(chunks):
         n_chunk = int(ids.shape[0])
         with timer.lap(items=n_chunk):
@@ -225,15 +269,32 @@ def run_mc_detector(key: torch.Tensor, det, params, images: torch.Tensor,
                     preds = out.cpu().numpy()
             with host_timer.lap(items=n_chunk):
                 vals = score(preds)
+        n_done += n_chunk
         moments["map50"].update(vals)
+        obs.log_event("chunk", phase="mc_detector", chunk=chunk_i,
+                      chip_lo=n_done - n_chunk, chips=n_done,
+                      wall_s=timer.last_s,
+                      device_s=dev_timer.last_s, host_s=host_timer.last_s,
+                      values={"map50": np.asarray(vals, np.float32).ravel()})
+        if monitor.after_chunk(chunk_i, n_done):
+            obs.log_event("early_stop", chips=n_done, requested=mc.n_chips,
+                          stderr_target=stderr_target)
+            break
 
-    return McResult(
-        n_chips=sum(int(i.shape[0]) for i in chunks),
+    res = McResult(
+        n_chips=n_done,
         metrics={name: m.summary() for name, m in moments.items()},
         per_chip={name: m.per_chip for name, m in moments.items()},
         wall_s=timer.total_s, chips_per_sec=timer.rate(),
         compile_s=timer.compile_s, enqueue_s=enq_timer.total_s,
         device_s=dev_timer.total_s, host_s=host_timer.total_s)
+    obs.log_event("mc_result", phase="mc_detector", chips=n_done,
+                  requested=mc.n_chips, wall_s=res.wall_s,
+                  compile_s=res.compile_s, chips_per_sec=res.chips_per_sec,
+                  device_s=res.device_s, host_s=res.host_s,
+                  pipeline=pipeline, enqueue_s=res.enqueue_s,
+                  metrics=res.metrics)
+    return res
 
 
 def run_ablation_detector(key: torch.Tensor, det, params, images,
@@ -241,13 +302,22 @@ def run_ablation_detector(key: torch.Tensor, det, params, images,
                           gt_classes: List[np.ndarray], *,
                           ablations: Sequence[Tuple[str, ni.NonidealConfig]]
                           = TABLE2_ABLATION,
-                          mc: McConfig = McConfig(), pipeline: bool = True,
+                          mc: McConfig = McConfig(),
+                          obs: Optional[RunLog] = None,
+                          stderr_target: Optional[float] = None,
+                          pipeline: bool = True,
                           kernel_impl: str = "kernel"
                           ) -> Dict[str, McResult]:
     """Table II for the detector: one population mAP sweep per effect
-    column, on the same chip key stream."""
-    return {name: run_mc_detector(key, det, params, images, gt_boxes,
-                                  gt_classes,
-                                  mc=dataclasses.replace(mc, cfg=cfg),
-                                  pipeline=pipeline, kernel_impl=kernel_impl)
-            for name, cfg in ablations}
+    column, on the same chip key stream; each column opens with an
+    `ablation_column` event."""
+    obs = as_runlog(obs)
+    results = {}
+    for name, cfg in ablations:
+        obs.log_event("ablation_column", phase="mc_detector", column=name)
+        results[name] = run_mc_detector(
+            key, det, params, images, gt_boxes, gt_classes,
+            mc=dataclasses.replace(mc, cfg=cfg), obs=obs,
+            stderr_target=stderr_target, pipeline=pipeline,
+            kernel_impl=kernel_impl)
+    return results

@@ -32,7 +32,7 @@ from repro_torch.kernels.ref import IrcEpilogueParams, irc_mvm_chips_ref
 from repro_torch.mc.ensemble import (ChipEnsemble, calibrate_ensemble_bias,
                                      sample_ensemble)
 from repro_torch.mc.stats import DEFAULT_QUANTILES, StreamingMoments
-from repro_torch.obs.timers import PhaseTimer
+from repro_torch.obs import ConvergenceMonitor, PhaseTimer, RunLog, as_runlog
 
 
 def periphery_noise(sa_keys: torch.Tensor, B: int, N: int
@@ -195,8 +195,10 @@ def run_mc(key: torch.Tensor, mapped: MappedLayer, x_bits: torch.Tensor, *,
            ref_bits: Optional[torch.Tensor] = None, mc: McConfig = McConfig(),
            spec: MacroSpec = DEFAULT_MACRO,
            metric_fns: Optional[Dict[str, MetricFn]] = None,
-           host_metric_fns: Optional[Dict[str, HostMetricFn]] = None
-           ) -> McResult:
+           host_metric_fns: Optional[Dict[str, HostMetricFn]] = None,
+           obs: Optional[RunLog] = None,
+           stderr_target: Optional[float] = None,
+           stderr_metric: Optional[str] = None) -> McResult:
     """Stream a population of `mc.n_chips` sampled chips of one mapped
     layer over x_bits [B, fan_in], `mc.chunk_size` chips at a time.
 
@@ -205,7 +207,17 @@ def run_mc(key: torch.Tensor, mapped: MappedLayer, x_bits: torch.Tensor, *,
     metric beside `ones_fraction`; `metric_fns` add reductions on the
     device, `host_metric_fns` callbacks on the chunk's outputs in numpy.
     With `mc.calibrate` each chunk's dies are bias-calibrated on x_bits
-    before the forward."""
+    before the forward.
+
+    `obs` (a `repro_torch.obs.RunLog`) receives the reference's event
+    stream: `mc_start`, a `chunk` per chunk with its raw per-chip values
+    (replayable to the reported moments bit for bit), a `convergence`
+    after it, and `mc_result`.  `stderr_target` stops the sweep at the
+    first chunk boundary where the standard error of the mean of every
+    metric (or of `stderr_metric` alone) is at or under the target; chip c
+    is keyed fold_in(key, c) whatever the chunking, so the stopped sweep's
+    moments are those of the same-length prefix of the full run."""
+    obs = as_runlog(obs)
     if mc.backend not in ("plain", "kernel"):
         raise ValueError(f"backend must be 'plain' or 'kernel', got "
                          f"{mc.backend!r}")
@@ -219,13 +231,22 @@ def run_mc(key: torch.Tensor, mapped: MappedLayer, x_bits: torch.Tensor, *,
     host_fns: Dict[str, HostMetricFn] = dict(host_metric_fns or {})
     moments = {name: StreamingMoments(mc.quantiles)
                for name in (*fns, *host_fns)}
+    monitor = ConvergenceMonitor(moments, stderr_target=stderr_target,
+                                 stderr_metric=stderr_metric, runlog=obs)
     timer = PhaseTimer("mc_chunks", unit="chips")
     enq_timer = PhaseTimer("mc_enqueue", unit="chips")
     dev_timer = PhaseTimer("mc_device", unit="chips")
     host_timer = PhaseTimer("mc_host", unit="chips")
+    # the reference's fields; "fused" names its cached one-program chunk,
+    # which the port has no counterpart of
+    obs.log_event("mc_start", n_chips=mc.n_chips, chunk_size=mc.chunk_size,
+                  backend=mc.backend, calibrate=mc.calibrate, fused=False,
+                  stderr_target=stderr_target,
+                  device_model=(mc.device.name if mc.device is not None
+                                else "analytic"))
     bias_chunks: List[np.ndarray] = []
     n_done = 0
-    for lo in range(0, mc.n_chips, mc.chunk_size):
+    for chunk_i, lo in enumerate(range(0, mc.n_chips, mc.chunk_size)):
         ids = torch.arange(lo, min(lo + mc.chunk_size, mc.n_chips),
                            dtype=torch.int64, device=key.device)
         n_chunk = int(ids.shape[0])
@@ -259,7 +280,15 @@ def run_mc(key: torch.Tensor, mapped: MappedLayer, x_bits: torch.Tensor, *,
                 for name, v in vals.items():
                     moments[name].update(v)
         n_done += n_chunk
-    return McResult(
+        obs.log_event("chunk", phase="mc", chunk=chunk_i, chip_lo=lo,
+                      chips=n_done, wall_s=timer.last_s,
+                      values={name: np.asarray(v, np.float32).ravel()
+                              for name, v in vals.items()})
+        if monitor.after_chunk(chunk_i, n_done):
+            obs.log_event("early_stop", chips=n_done, requested=mc.n_chips,
+                          stderr_target=stderr_target)
+            break
+    res = McResult(
         n_chips=n_done,
         metrics={name: m.summary() for name, m in moments.items()},
         per_chip={name: m.per_chip for name, m in moments.items()},
@@ -267,6 +296,11 @@ def run_mc(key: torch.Tensor, mapped: MappedLayer, x_bits: torch.Tensor, *,
         compile_s=timer.compile_s, enqueue_s=enq_timer.total_s,
         device_s=dev_timer.total_s, host_s=host_timer.total_s,
         bias_units=np.concatenate(bias_chunks) if bias_chunks else None)
+    obs.log_event("mc_result", chips=n_done, requested=mc.n_chips,
+                  wall_s=res.wall_s, compile_s=res.compile_s,
+                  chips_per_sec=res.chips_per_sec, enqueue_s=res.enqueue_s,
+                  metrics=res.metrics)
+    return res
 
 
 # Table II columns: effects switch on cumulatively, plus the all-on row.
@@ -285,10 +319,20 @@ def run_ablation(key: torch.Tensor, mapped: MappedLayer, x_bits: torch.Tensor,
                  *, ref_bits: torch.Tensor,
                  ablations: Sequence[Tuple[str, ni.NonidealConfig]]
                  = TABLE2_ABLATION,
-                 mc: McConfig = McConfig(), spec: MacroSpec = DEFAULT_MACRO
+                 mc: McConfig = McConfig(), spec: MacroSpec = DEFAULT_MACRO,
+                 obs: Optional[RunLog] = None,
+                 stderr_target: Optional[float] = None,
+                 stderr_metric: Optional[str] = None
                  ) -> Dict[str, McResult]:
     """Table II for one layer: one `run_mc` per effect column, on the same
-    chip key stream (each column resamples the same dies)."""
-    return {name: run_mc(key, mapped, x_bits, ref_bits=ref_bits,
-                         mc=dataclasses.replace(mc, cfg=cfg), spec=spec)
-            for name, cfg in ablations}
+    chip key stream (each column resamples the same dies); each column
+    opens with an `ablation_column` event."""
+    obs = as_runlog(obs)
+    results = {}
+    for name, cfg in ablations:
+        obs.log_event("ablation_column", phase="mc", column=name)
+        results[name] = run_mc(key, mapped, x_bits, ref_bits=ref_bits,
+                               mc=dataclasses.replace(mc, cfg=cfg), spec=spec,
+                               obs=obs, stderr_target=stderr_target,
+                               stderr_metric=stderr_metric)
+    return results

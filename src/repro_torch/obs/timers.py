@@ -1,10 +1,13 @@
 """Phase timers that split the first lap (kernel build, first launches,
-caches warming) from steady-state throughput."""
+caches warming) from steady-state throughput, and the serving engine's
+per-request latency percentiles."""
 from __future__ import annotations
 
 import contextlib
 import time
-from typing import Dict
+from typing import Dict, Optional
+
+import torch
 
 
 class _Lap:
@@ -74,3 +77,78 @@ class PhaseTimer:
             self.unit: self.total_items,
             f"{self.unit}_per_sec": self.rate(),
         }
+
+    def log_to(self, runlog, **extra) -> None:
+        """Emit a `phase` event through a RunLog (no-op on NullRunLog)."""
+        runlog.log_event("phase", **self.summary(), **extra)
+
+
+class LatencyTracker:
+    """Per-item latency accumulator with exact percentile summaries: the
+    serving engine records one submit-to-response latency per request."""
+
+    def __init__(self, unit: str = "s"):
+        self.unit = unit
+        self._values: list = []
+
+    def add(self, seconds: float) -> None:
+        """Record one item's latency."""
+        self._values.append(float(seconds))
+
+    @property
+    def count(self) -> int:
+        """Number of recorded latencies."""
+        return len(self._values)
+
+    def summary(self) -> Dict[str, float]:
+        """count/mean/p50/p95/p99 over everything recorded so far."""
+        import numpy as np
+        if not self._values:
+            return {"count": 0.0}
+        v = np.asarray(self._values, np.float64)
+        return {"count": float(v.size), "mean": float(v.mean()),
+                "p50": float(np.percentile(v, 50)),
+                "p95": float(np.percentile(v, 95)),
+                "p99": float(np.percentile(v, 99))}
+
+
+def _cuda_devices(tree, found: set) -> set:
+    """The CUDA devices of every tensor in a nest of dicts, lists and
+    tuples."""
+    if isinstance(tree, torch.Tensor):
+        if tree.is_cuda:
+            found.add(tree.device)
+    elif isinstance(tree, dict):
+        for v in tree.values():
+            _cuda_devices(v, found)
+    elif isinstance(tree, (list, tuple)):
+        for v in tree:
+            _cuda_devices(v, found)
+    return found
+
+
+def timed_step(step_fn, timer: PhaseTimer, block_on=None):
+    """Wrap a step so that every call is one timer lap (the first call is
+    the warm-up lap).  The lap ends after `torch.cuda.synchronize` of each
+    card that holds a tensor of the result (`block_on(result)` selects
+    which part; default the whole result); on the CPU nothing blocks."""
+
+    def wrapped(*args, **kwargs):
+        with timer.lap(items=1):
+            out = step_fn(*args, **kwargs)
+            for dev in _cuda_devices(out if block_on is None
+                                     else block_on(out), set()):
+                torch.cuda.synchronize(dev)
+        return out
+
+    return wrapped
+
+
+def maybe_runlog(enabled: bool, name: str, *, args=None,
+                 root: str = "experiments", run_id: Optional[str] = None):
+    """`RunLog.create` when enabled, else the no-op singleton: the CLIs'
+    `--run-dir` pattern."""
+    from repro_torch.obs.runlog import NULL_RUNLOG, RunLog
+    if not enabled:
+        return NULL_RUNLOG
+    return RunLog.create(name, args=args, root=root, run_id=run_id)

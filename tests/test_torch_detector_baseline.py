@@ -202,7 +202,7 @@ def test_cli_det_scheme_binary(tmp_path, capsys):
     out = tmp_path / "r.json"
     cli.main(["--network", "detector", "--det-scheme", "binary", "--chips",
               "2", "--chunk", "2", "--ablation", "all", "--device", "cpu",
-              "--json", str(out)])
+              "--json", str(out), "--run-dir", str(tmp_path)])
     report = json.loads(out.read_text())
     assert report["args"]["det_scheme"] == "binary"
     assert set(report["results"]) == {"init"}

@@ -84,7 +84,8 @@ def test_detector_cli_matches_the_jax_cli(design, tmp_path, monkeypatch,
         "--run-dir", "", "--json", str(jout)])
     with jax.threefry_partitionable(True), prng.threefry_partitionable(True):
         jcli.main()
-        tcli.main(common + ["--device", "cpu", "--json", str(tout)])
+        tcli.main(common + ["--device", "cpu", "--json", str(tout),
+                            "--run-dir", str(tmp_path)])
     capsys.readouterr()
     ref = json.loads(jout.read_text())["results"]["init"]
     got = json.loads(tout.read_text())["results"]["init"]

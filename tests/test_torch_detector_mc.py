@@ -233,7 +233,8 @@ def test_cli_runs_on_the_cpu(tmp_path, capsys):
     from repro_torch.launch import mc as cli
     out = tmp_path / "r.json"
     cli.main(["--network", "detector", "--chips", "2", "--chunk", "2",
-              "--ablation", "all", "--device", "cpu", "--json", str(out)])
+              "--ablation", "all", "--device", "cpu", "--json", str(out),
+              "--run-dir", str(tmp_path)])
     report = json.loads(out.read_text())
     assert set(report["results"]) == {"init"}     # no QAT: the seed's init
     assert set(report["results"]["init"]) == {"ideal", "all"}

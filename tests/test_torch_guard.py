@@ -36,4 +36,9 @@ def test_no_jax_or_reference_imports(path):
 def test_guard_sees_the_port():
     names = {p.name for p in _port_files()}
     assert {"prng.py", "irc_mvm.py", "detector_mc.py", "ternary_matmul.py",
-            "build.py", "calibration.py", "chip_smoke.py"} <= names
+            "build.py", "calibration.py", "runlog.py", "convergence.py",
+            "chip_smoke.py"} <= names
+    rel = {p.relative_to(ROOT / "src" / "repro_torch").as_posix()
+           for p in _port_files()[:-1]}
+    assert {"serve/detector.py", "serve/__init__.py",
+            "launch/serve.py"} <= rel

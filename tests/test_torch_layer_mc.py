@@ -435,7 +435,8 @@ def test_layer_cli_is_the_default_and_runs_on_the_cpu(tmp_path, capsys):
     import json
     from repro_torch.launch import mc as cli
     out = tmp_path / "r.json"
-    cli.main(SMALL + ["--ablation", "table2", "--json", str(out)])
+    run_dir = ["--run-dir", str(tmp_path)]
+    cli.main(SMALL + ["--ablation", "table2", "--json", str(out)] + run_dir)
     report = json.loads(out.read_text())
     assert report["args"]["network"] == "layer"
     assert list(report["results"]) == [n for n, _ in teng.TABLE2_ABLATION]
@@ -446,10 +447,11 @@ def test_layer_cli_is_the_default_and_runs_on_the_cpu(tmp_path, capsys):
                                          "threefry": 0}  # CPU: plain
     assert len(report["results"]["all"]["per_chip_bit_agreement"]) == 4
     cli.main(SMALL + ["--scheme", "binary", "--bias-rows", "0",
-                      "--accumulation", "partial_sum", "--json", str(out)])
+                      "--accumulation", "partial_sum", "--json", str(out)]
+             + run_dir)
     assert json.loads(out.read_text())["results"]["all"]["bias_units"] is None
     cli.main(SMALL + ["--backend", "kernel", "--calibrate", "--json",
-                      str(out)])
+                      str(out)] + run_dir)
     assert len(json.loads(out.read_text())["results"]["all"][
         "bias_units"]) == 4
     assert "devvar" not in capsys.readouterr().err

@@ -607,7 +607,8 @@ def test_cli_trains_on_the_cpu(tmp_path, train_chips):
     import json
     from repro_torch.launch import mc as cli
     out = tmp_path / "r.json"
-    cli.main(_cli_args(train_chips, out) + ["--device", "cpu"])
+    cli.main(_cli_args(train_chips, out) + ["--device", "cpu",
+                                            "--run-dir", str(tmp_path)])
     report = json.loads(out.read_text())
     cks = {"qat"} if train_chips == 1 else {"single", "ens2"}
     assert set(report["results"]) == cks
@@ -657,7 +658,8 @@ def test_cli_maps_at_reference_params(tmp_path, train_chips, monkeypatch):
     monkeypatch.setattr(cli, "_train_checkpoints", lambda *a: {
         ck: params_from_jax(jax.device_get(p), device="cpu")
         for ck, p in jparams.items()})
-    cli.main(_cli_args(train_chips, tpath, steps) + ["--device", "cpu"])
+    cli.main(_cli_args(train_chips, tpath, steps) + [
+        "--device", "cpu", "--run-dir", str(tmp_path)])
     jrep = json.loads(jpath.read_text())["results"]
     trep = json.loads(tpath.read_text())["results"]
     assert set(jrep) == set(trep) == set(jparams)
