@@ -94,8 +94,22 @@ Phases, each printing its own lines:
      `python -m repro_torch.launch.serve --network detector --requests 6
      --slots 2 --committee 4 --trace`, whose torch.profiler trace must
      hold a CUDA kernel event of K1; the seven processes run side by side;
-  8. a JSON line of every ported kernel, the card's name and power limit,
-     and the final `{"ok": true, ...}` line.
+  devices (`--only devices` runs it alone): the measured device backend
+     and retention drift: the threefry kernel's measured tail on all 2^23
+     of its inputs, in order and shuffled, bit-identical to its plain
+     version; the measured draw timed at the periphery shape and at one
+     512-die layer mask beside torch.randn + torch.special.ndtr and its
+     bound per pipe, with the tail's SASS per word; the detector aging
+     sweep on `yolo_irc.proposed()` at full width (2 images, 8 chips in
+     chunks of 4, columns ideal and all) on the measured device at 0 and
+     365 days, launches of K1, threefry and its measured tail counted for
+     each age, and the analytic device at day 0 against the main path's
+     per-chip mAPs; the layer CLI's sweep (540x60, 2048 dies in chunks of
+     512, K1 and K3) at 0, 30 and 365 days; `IRCLinear(mode="eval")` over
+     two macros card vs CPU, flips only at near-ties;
+  8. a JSON line of every ported kernel (the measured tail among them),
+     the card's name and power limit, and the final `{"ok": true, ...}`
+     line.
 `--only profile` instead breaks one full-width chunk's device time down by
 kernel (torch.profiler), with the threefry kernel's share beside what is
 left of int64 elementwise ops, and so one QAT step of each kind; it is a
@@ -1054,7 +1068,14 @@ THREEFRY_TAIL = {
     "uniform": {"alu": 1, "fma": 2},
     "normal": {"alu": 3, "fma": 36, "mufu": 1},
     "lognormal": {"alu": 4, "fma": 48, "mufu": 3},
-    "bernoulli": {"alu": 2}}
+    "bernoulli": {"alu": 2},
+    # the normal's, then the cdf on its cheaper branch (|w| < sqrt(1/2):
+    # w^2, erf's P 4 and Q 6 with a product, a correctly rounded division,
+    # 1 + erf and the halving, a compare) and `jnp.interp` over the
+    # 19-point table as a 5-step bisection (a compare and a select each;
+    # the segment's constants are loads), x - x0, a division, one fused
+    # multiply-add and the two end clamps
+    "measured": {"alu": 18, "fma": 62, "mufu": 3}}
 # the tails held on all 2^23 of their inputs (a word's top 23 bits):
 # (tail, draw arguments); bernoulli also at p on and around its edges
 THREEFRY_TAIL_CASES = (
@@ -1445,8 +1466,8 @@ def occupancy_warps(registers, threads=256):
     return min(32, warps // (threads // 32)) * (threads // 32)
 
 
-def threefry_sass(source):
-    """Phase 4: for each instantiation in THREEFRY_SASS of the library
+def threefry_sass(source, modes=THREEFRY_SASS):
+    """Phase 4: for each instantiation in `modes` of the library
     built from `source` (a threefry.cu), its main loop's SASS per word by
     class (the loop's trip takes `kWords` counters, 1 where the source has
     none, each a word, or two under the original scheme), its registers
@@ -1456,7 +1477,7 @@ def threefry_sass(source):
     lib = build.library_path(source)
     funcs, usage = sass_functions(lib), resource_usage(lib)
     out = {}
-    for mode, original in THREEFRY_SASS:
+    for mode, original in modes:
         key = f"draw_kernelILb{int(original)}ELi{kern.TAILS[mode][0]}E"
         name = next((n for n in funcs if key in n), None)
         res = next((v for n, v in usage.items() if key in n), None)
@@ -1699,20 +1720,17 @@ def phase_times(ops_):
     return out
 
 
-def phase_main_path(ops_):
-    """Phase 5: Table II at full width through the kernel, then the
-    single-chip layer path; returns the launch counts of each."""
-    import numpy as np
+def main_detector():
+    """The main path's detector: `yolo_irc.proposed()` at 576x1024, weights
+    `IRCDetector.init(PRNGKey(0))`, stem BN calibrated on 8 synthetic
+    images, 2 eval images; (det, params, images, eval batch, key, columns
+    ideal and all)."""
     import torch
     from repro_torch import prng
     from repro_torch.configs import yolo_irc
-    from repro_torch.core.crossbar import crossbar_forward
-    from repro_torch.core.nonideal import NonidealConfig
     from repro_torch.data.detection import SyntheticDetectionData
-    from repro_torch.mc.detector_mc import run_ablation_detector
-    from repro_torch.mc.engine import McConfig, TABLE2_ABLATION
+    from repro_torch.mc.engine import TABLE2_ABLATION
     from repro_torch.models.detector import IRCDetector
-
     cfg = yolo_irc.proposed()
     det = IRCDetector(cfg)
     data = SyntheticDetectionData(img_hw=cfg.img_hw, stride=cfg.strides,
@@ -1724,10 +1742,25 @@ def phase_main_path(ops_):
                               torch.from_numpy(calib.images).cuda())
     ev = data.batch_for_step(1000, 2)
     images = torch.from_numpy(ev.images).cuda()
-    key = prng.PRNGKey(0, device="cuda")
+    columns = tuple(c for c in TABLE2_ABLATION if c[0] in ("ideal", "all"))
+    return det, params, images, ev, prng.PRNGKey(0, device="cuda"), columns
+
+
+def phase_main_path(ops_):
+    """Phase 5: Table II at full width through the kernel, then the
+    single-chip layer path; returns the launch counts of each and the
+    detector's per-chip mAPs by column."""
+    import numpy as np
+    import torch
+    from repro_torch import prng
+    from repro_torch.core.crossbar import crossbar_forward
+    from repro_torch.core.nonideal import NonidealConfig
+    from repro_torch.mc.detector_mc import run_ablation_detector
+    from repro_torch.mc.engine import McConfig
+
+    det, params, images, ev, key, columns = main_detector()
     # 3 chunks: the first steady lap enqueues the next chunk
     n_chips, chunk = 12, 4
-    columns = tuple(c for c in TABLE2_ABLATION if c[0] in ("ideal", "all"))
     mc = McConfig(n_chips=n_chips, chunk_size=chunk)
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
@@ -1785,7 +1818,8 @@ def phase_main_path(ops_):
     check(single_launches["irc_mvm"] == 1 and agree >= 0.999,
           f"layer path: launches {single_launches}, agreement {agree}")
     check_xla_launched("single-chip layer path", single_launches)
-    return launches, single_launches
+    maps = {name: res.per_chip["map50"] for name, res in results.items()}
+    return launches, single_launches, maps
 
 
 def early_stop_check(det, params, images, ev, key, mc, full):
@@ -2634,8 +2668,291 @@ def phase_cli():
         shutil.rmtree(runs, ignore_errors=True)
 
 
+# phase `devices`: the measured device backend and retention drift
+MEASURED_REPLACES = "src/repro/device/measured.py:98"
+DEVICE_CHIPS, DEVICE_CHUNK, DEVICE_AGES = 8, 4, (0.0, 365.0)
+LAYER_AGES = "0,30,365"
+LINEAR_FAN_IN, LINEAR_FAN_OUT, LINEAR_BATCH = 1200, 64, 256
+
+
+def measured_table():
+    """The packaged dataset's variation table, as the measured tail takes
+    it."""
+    from repro_torch.device import MeasuredDeviceModel
+    return MeasuredDeviceModel.from_file().table
+
+
+def devices_tail_check():
+    """Phase `devices` (a): the measured tail on all 2^23 of its inputs
+    (words k << 9 with low bits it ignores), in order and shuffled, through
+    `threefry_measured_tail_launch` against `prng.tail_plain` on the card,
+    bit for bit."""
+    import torch
+    from repro_torch import prng
+    from repro_torch.kernels import threefry as kern
+    t0 = time.perf_counter()
+    table = prng.check_table(measured_table())
+    k = torch.arange(1 << 23, dtype=torch.int64, device="cuda")
+    words = (k << 9) | ((k * 0x9E3779B1) >> 7 & 511)
+    perm = torch.randperm(1 << 23, device="cuda",
+                          generator=torch.Generator(device="cuda")
+                          .manual_seed(61))
+    want = prng.tail_plain(words, "measured", table=table)
+    factor = prng.normal_factor(prng.HALF_SQRT2)
+    for order, w, ref in (("in order", words, want),
+                          ("shuffled", words[perm], want[perm])):
+        got = kern.launch_tail(w, "measured", factor=factor, table=table)
+        torch.cuda.synchronize()
+        n = int((got.view(torch.int32) != ref.view(torch.int32)).sum())
+        check(n == 0, f"measured tail {order}: {n} of 2^23 inputs differ "
+              f"from tail_plain")
+    log("devices", f"measured tail: all 2^23 inputs, in order and "
+        f"shuffled, bit-identical to tail_plain "
+        f"({time.perf_counter() - t0:.1f}s)")
+    del k, words, perm, want
+    torch.cuda.empty_cache()
+
+
+def devices_times():
+    """Phase `devices` (b): the measured tail's SASS per word, then the
+    measured draw at the periphery shape [4, 294912, 60] and at one 512-die
+    layer mask [512, 572, 60]: kernel (bit-identical to the plain version),
+    plain version, torch.randn then torch.special.ndtr (two calls that give
+    other bits), and the bound per pipe; returns {shape tag: numbers}."""
+    import math
+    import torch
+    from repro_torch import prng
+    from repro_torch.kernels import threefry as kern
+    gen = torch.Generator(device="cuda").manual_seed(62)
+    sass = threefry_sass(kern.SOURCE, modes=(("measured", False),))
+    table = measured_table()
+    root = prng.PRNGKey(5, device="cuda")
+    out = {}
+    for tag, n_keys, shape in (
+            ("periphery", THREEFRY_KEYS, THREEFRY_SHAPE),
+            ("mask", THREEFRY_MASK_KEYS, THREEFRY_MASK_SHAPE)):
+        keys = prng.fold_in(root, torch.arange(n_keys, device="cuda"))
+        n = math.prod(shape)
+        full = (n_keys,) + shape
+        call = lambda: prng.measured(keys, shape, table)
+        plain = lambda: prng.measured_plain(keys, shape, table)
+        got, want = call(), plain()
+        check(same_bits(got, want), f"measured draw {tag}: differs from "
+              f"the plain version")
+        err = float((got - want).abs().max())
+        del got, want
+        torch.cuda.empty_cache()
+        ms, host = queued_ms(call, reps=7, calls=20)
+        plain_ms = cuda_ms(plain, reps=3)
+        lib_ms, _ = queued_ms(lambda: torch.special.ndtr(
+            torch.randn(full, generator=gen, device="cuda")), reps=7,
+            calls=20)
+        b_ms, b_by, pipe = threefry_bound_ms("measured", n_keys, n, True)
+        out[tag] = dict(ms=ms, plain_ms=plain_ms, library_ms=lib_ms,
+                        bound_ms=b_ms, bound_by=b_by, max_abs_err=err)
+        per_word = sum(sass["measured"]["per_word"].values())
+        log("devices", f"measured draw {tag} {full}: kernel {ms:.4f} ms, "
+            f"plain {plain_ms:.3f} ms, torch.randn + torch.special.ndtr "
+            f"(two calls, other bits) {lib_ms:.4f} ms, bound {b_ms:.4f} ms "
+            f"({b_by}, {pipe}: {threefry_work('measured', True)} per word),"
+            f" share of bound {b_ms / ms:.3f}, {per_word:.2f} SASS "
+            f"instructions per word in the main loop, host enqueue "
+            f"{host:.4f} ms per call")
+        torch.cuda.empty_cache()
+    return out
+
+
+def devices_detector(ops_, main_maps):
+    """Phase `devices` (c): the detector aging sweep at full width
+    (`run_ablation_detector` on the main path's network, 2 images,
+    DEVICE_CHIPS chips in chunks of DEVICE_CHUNK, columns ideal and all) on
+    the measured device at each of DEVICE_AGES, launches counted from 0 for
+    each age; then the analytic device at day 0, whose per-chip mAPs must
+    be the main path's (`main_maps`; the main path's own call here when
+    phase 5 did not run).  Returns the measured tail's launches."""
+    import numpy as np
+    import torch
+    from repro_torch.device import get_device_model
+    from repro_torch.mc.detector_mc import run_ablation_detector
+    from repro_torch.mc.engine import McConfig
+    det, params, images, ev, key, columns = main_detector()
+    n_chunks = -(-DEVICE_CHIPS // DEVICE_CHUNK)
+    want_k1 = 14 * n_chunks * len(columns)
+
+    def sweep(device):
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        ops_.reset_launches()
+        t0 = time.perf_counter()
+        res = run_ablation_detector(
+            key, det, params, images, ev.boxes, ev.classes,
+            ablations=columns, mc=McConfig(n_chips=DEVICE_CHIPS,
+                                           chunk_size=DEVICE_CHUNK,
+                                           device=device))
+        torch.cuda.synchronize()
+        return (res, time.perf_counter() - t0, dict(ops_.LAUNCHES),
+                dict(ops_.TAIL_LAUNCHES),
+                torch.cuda.max_memory_allocated() / 2**30)
+
+    measured = 0
+    drift = {}
+    for t in DEVICE_AGES:
+        device = get_device_model("measured", t)
+        res, wall, launches, tails, peak = sweep(device)
+        measured += tails["measured"]
+        drift[t] = tails["lognormal"]
+        for name, r in res.items():
+            m = r.metrics["map50"]
+            check(np.isfinite(r.per_chip["map50"]).all()
+                  and r.n_chips == DEVICE_CHIPS, f"{device.name} {name}: "
+                  f"bad population result")
+            log("devices", f"detector {device.name} {name}: map50 "
+                f"{m['mean']:.4f}±{m['std']:.4f} over {r.n_chips} chips, "
+                f"{r.chips_per_sec:.4f} chips/s steady, "
+                f"{r.n_chips / r.wall_s:.4f} chips/s overall, wall_s "
+                f"{r.wall_s:.3f}, enqueue_s {r.enqueue_s:.3f}, device_s "
+                f"{r.device_s:.3f}, host_s {r.host_s:.3f}")
+        log("devices", f"detector {device.name}, {DEVICE_CHIPS} chips in "
+            f"chunks of {DEVICE_CHUNK}, columns {[c[0] for c in columns]}: "
+            f"wall {wall:.2f}s, peak device memory {peak:.2f} GiB, "
+            f"launches K1 {launches['irc_mvm_chips']} (want {want_k1}), "
+            f"threefry {launches['threefry']}, of them the measured tail "
+            f"{tails['measured']} and log-normal {tails['lognormal']}; all "
+            f"{launches}")
+        check(launches["irc_mvm_chips"] == want_k1
+              and tails["measured"] >= 1, f"{device.name}: launches "
+              f"{launches}, by tail {tails}")
+        check_xla_launched(f"detector {device.name}", launches)
+    # day 0 is the bare backend; a later age draws the drift as log-normal
+    # masks beside the measured ones
+    check(drift[0.0] == 0 and all(drift[t] >= 1 for t in DEVICE_AGES if t),
+          f"drift draws by age: {drift}")
+    res, _, launches, tails, _ = sweep(get_device_model("analytic", 0.0))
+    check(tails["measured"] == 0, f"analytic: measured launches {tails}")
+    if main_maps is None:
+        ref, _, _, _, _ = sweep(None)
+        main_maps = {n: r.per_chip["map50"] for n, r in ref.items()}
+    for name, r in res.items():
+        got = r.per_chip["map50"]
+        want = main_maps[name][:DEVICE_CHIPS]
+        check(np.array_equal(got, want), f"analytic@0 {name}: per-chip "
+              f"mAPs {got.tolist()} differ from the main path's "
+              f"{want.tolist()}")
+    log("devices", f"detector analytic@t0: per-chip mAPs of chips 0-"
+        f"{DEVICE_CHIPS - 1} equal the main path's in both columns")
+    torch.cuda.empty_cache()
+    return measured
+
+
+def devices_layer(ops_):
+    """Phase `devices` (d): the layer CLI's sweep at 540x60, 2048 dies in
+    chunks of 512 through K1 (ideal bits through K3), columns ideal and
+    all, on the measured device at LAYER_AGES; chips/s per age."""
+    import tempfile
+    from repro_torch.launch import mc as cli
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_layer_") as tmp:
+        out = Path(tmp) / "layer.json"
+        ops_.reset_launches()
+        cli.main(["--network", "layer", "--chips", str(LAYER_CHIPS),
+                  "--chunk", str(LAYER_CHUNK), "--backend", "kernel",
+                  "--ablation", "all", "--device-model", "measured",
+                  "--t-days", LAYER_AGES, "--run-dir", "", "--json",
+                  str(out)])
+        launches, tails = dict(ops_.LAUNCHES), dict(ops_.TAIL_LAUNCHES)
+        report = json.loads(out.read_text())
+    ages = LAYER_AGES.split(",")
+    n_chunks = -(-LAYER_CHIPS // LAYER_CHUNK)
+    want_k1 = n_chunks * 2 * len(ages)
+    for label, r in report["results"].items():
+        log("devices", f"layer {label}: agreement "
+            f"{r['metrics']['bit_agreement']['mean']:.4f}, "
+            f"{r['chips_per_sec']:.1f} chips/s steady, device model "
+            f"{r['device_model']} at {r['t_days']:g} days")
+    log("devices", f"layer sweep, {LAYER_CHIPS} dies in chunks of "
+        f"{LAYER_CHUNK}, ages {LAYER_AGES}: launches K1 "
+        f"{launches['irc_mvm_chips']} (want {want_k1}), K3 "
+        f"{launches['ternary_matmul']}, threefry {launches['threefry']}, "
+        f"the measured tail {tails['measured']}")
+    check(launches["irc_mvm_chips"] == want_k1
+          and launches["ternary_matmul"] >= 1 and tails["measured"] >= 1
+          and len(report["results"]) == 2 * len(ages),
+          f"layer sweep: launches {launches}, by tail {tails}")
+    return tails["measured"]
+
+
+def devices_irc_linear():
+    """Phase `devices` (e): `IRCLinear(mode="eval")` for a layer of
+    LINEAR_FAN_IN + 32 rows (two macros) on the card against the same call
+    on the CPU, every effect on: decisions equal except where the CPU's
+    margin (its summed sensed difference, or a line current's distance from
+    the sensing window) is below NEAR_TIE_TOL."""
+    import torch
+    from repro_torch import prng
+    from repro_torch.core import crossbar as cb
+    from repro_torch.core.mapping import extend_inputs
+    from repro_torch.core.nonideal import NonidealConfig
+    from repro_torch.kernels.ref import NEAR_TIE_TOL
+    lin = cb.IRCLinear(cb.IRCLinearConfig(fan_in=LINEAR_FAN_IN,
+                                          fan_out=LINEAR_FAN_OUT,
+                                          bias_rows=32))
+    cfg = NonidealConfig.all()
+    params = lin.init(prng.PRNGKey(7, device="cuda"))
+    x = torch.randn((LINEAR_BATCH, LINEAR_FAN_IN), device="cuda",
+                    generator=torch.Generator(device="cuda").manual_seed(8))
+    t0 = time.perf_counter()
+    got = lin.apply(params, x, key=prng.PRNGKey(9, device="cuda"),
+                    mode="eval", cfg=cfg).cpu()
+    card_s = time.perf_counter() - t0
+    p_cpu = {"w": params["w"].cpu()}
+    x_cpu, key = x.cpu(), prng.PRNGKey(9, device="cpu")
+    want = lin.apply(p_cpu, x_cpu, key=key, mode="eval", cfg=cfg)
+    spec, total, edge, lo = lin.spec, 0.0, None, 0
+    bits = (x_cpu > 0).float()
+    tiles = lin.map_to_planes(p_cpu)
+    for t, tile in enumerate(tiles):
+        x_t = bits[:, lo:lo + tile.fan_in]
+        lo += tile.fan_in
+        k_t = prng.fold_in(key, t)
+        total = total + cb.crossbar_forward(k_t, x_t, tile, cfg=cfg,
+                                            spec=spec, output="sensed_diff")
+        ep, en, _ = cb.sample_chip_planes(k_t, tile.g_pos, tile.g_neg,
+                                          tile.scheme, cfg, spec)
+        x_e = extend_inputs(x_t, tile)
+        i_pos, i_neg = (cb._accumulate(
+            cb._block_reduce(x_e, e, spec.ir_block),
+            cb._block_reduce(x_e, g, spec.ir_block), cfg, spec,
+            "single_shot", 256)[0] for e, g in ((ep, tile.g_pos),
+                                                 (en, tile.g_neg)))
+        d = torch.minimum(
+            (torch.minimum(i_pos, i_neg) - spec.sense_low_units).abs(),
+            (torch.maximum(i_pos, i_neg) - spec.sense_high_units).abs())
+        edge = d if edge is None else torch.minimum(edge, d)
+    margin = torch.minimum(total.abs(), edge)
+    mism = got != want
+    n = int(mism.sum())
+    log("devices", f"IRCLinear eval {LINEAR_BATCH}x{LINEAR_FAN_IN} -> "
+        f"{LINEAR_FAN_OUT}, {len(tiles)} tiles, every effect: card vs CPU "
+        f"{n} of {want.numel()} decisions differ, all near-ties "
+        f"{bool((margin[mism] < NEAR_TIE_TOL).all())}; card call "
+        f"{card_s:.3f}s")
+    check(len(tiles) == 2 and (n == 0 or bool(
+        (margin[mism] < NEAR_TIE_TOL).all())), f"IRCLinear: {n} flips "
+        f"beyond the near-tie bar")
+
+
+def phase_devices(ops_, main_maps=None):
+    """Phase `devices`: the measured device backend and retention drift on
+    the card (`--only devices` runs it alone); returns the measured tail's
+    times by shape and its launches on the aging paths."""
+    devices_tail_check()
+    times = devices_times()
+    launches = devices_detector(ops_, main_maps) + devices_layer(ops_)
+    devices_irc_linear()
+    return dict(times=times, launches=launches)
+
+
 PHASES = ("kernels", "times", "main", "train", "serve", "network",
-          "cli")
+          "cli", "devices")
 
 
 def main(argv=None) -> int:
@@ -2724,8 +3041,9 @@ def main(argv=None) -> int:
         xla_times = phase_xla_times(ops)
         tf_times = phase_threefry_times(ops, baselines)
     launches, single, layer, k4_launches, baseline = {}, {}, {}, {}, {}
+    main_maps = None
     if "main" in only:
-        launches, single = phase_main_path(ops)
+        launches, single, main_maps = phase_main_path(ops)
         layer = phase_layer_path(ops)
         k4_launches = phase_k4_path(ops)
         baseline = phase_baseline_detector(ops)
@@ -2740,6 +3058,9 @@ def main(argv=None) -> int:
         phase_layer_network(ops)
     if "cli" in only:
         phase_cli()
+    devices = {}
+    if "devices" in only:
+        devices = phase_devices(ops, main_maps)
     if "threefry" in only:
         phase_threefry_checks(ops)
         phase_threefry_tails()
@@ -2811,6 +3132,17 @@ def main(argv=None) -> int:
         "launches": launches["threefry"] + baseline["threefry"]
         + qat["threefry"] + served["threefry"],
         "max_abs_err": max(v["max_abs_err"] for v in tf_times.values()),
+        "ms": t["ms"], "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],
+        "bound_by": t["bound_by"], "library_ms": t["library_ms"]})
+    # the measured tail at the layer mask shape; its launches are the aging
+    # sweeps' (detector and layer)
+    t = devices["times"]["mask"]
+    kernels.append({
+        "name": "threefry_measured", "route": "cuda",
+        "source": "src/repro_torch/csrc/threefry.cu",
+        "replaces": MEASURED_REPLACES, "launches": devices["launches"],
+        "max_abs_err": max(v["max_abs_err"]
+                           for v in devices["times"].values()),
         "ms": t["ms"], "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],
         "bound_by": t["bound_by"], "library_ms": t["library_ms"]})
     log("8 summary", "threefry launches by path: detector proposed "

@@ -68,3 +68,33 @@ def calibrate_bias(i_pos: torch.Tensor, i_neg: torch.Tensor,
         if total < best_err:
             best, best_err = b, total
     return best, report
+
+
+def layer_current_stats(key: torch.Tensor, x_bits: torch.Tensor, mapped,
+                        spec: MacroSpec = DEFAULT_MACRO
+                        ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """(i_pos, i_neg, p_pair), each flattened, for a calibration batch
+    through one mapped layer with device variation and IR drop on (the
+    physical effects present when the SA samples the lines) and no
+    periphery model.  The masks are the analytic log-normal ones at the
+    spec's sigma, drawn from `split(key)` directly (not through a device
+    model), as the reference draws them."""
+    from repro_torch import prng
+    from repro_torch.core.crossbar import _accumulate, _block_reduce
+    from repro_torch.core.mapping import extend_inputs
+    cfg = ni.NonidealConfig(device_variation=True, ir_drop=True)
+    ks = prng.split(key)
+    x_ext = extend_inputs(x_bits, mapped)
+    gp, gn = mapped.g_pos, mapped.g_neg
+    ep = gp * ni.sample_variation_mask(ks[..., 0, :], gp.shape,
+                                       spec.sigma_lrs)
+    en = gn * ni.sample_variation_mask(ks[..., 1, :], gn.shape,
+                                       spec.sigma_lrs)
+    blk = spec.ir_block
+    i_pos, p_pos = _accumulate(_block_reduce(x_ext, ep, blk),
+                               _block_reduce(x_ext, gp, blk),
+                               cfg, spec, "single_shot", 256)
+    i_neg, p_neg = _accumulate(_block_reduce(x_ext, en, blk),
+                               _block_reduce(x_ext, gn, blk),
+                               cfg, spec, "single_shot", 256)
+    return i_pos.reshape(-1), i_neg.reshape(-1), (p_pos + p_neg).reshape(-1)

@@ -10,8 +10,10 @@ Accumulation modes (Sec. III-C / IV-B.3): "single_shot" (proposed) sums the
 whole column in one analog step; "partial_sum" (baseline) splits it into
 `partial_rows`-row chunks summed digitally, each with its own
 nonlinearity.  `ideal_ternary_matmul` is the ideal digital reference,
-through the ternary matmul kernel on the card.  The multi-macro
-`sensed_diff` readout comes with the multi-macro `IRCLinear` slice.
+through the ternary matmul kernel on the card.  Its "sensed_diff" readout
+is what one macro's periphery reports to a digital combiner: `IRCLinear`
+tiles a fan-in wider than one macro over several, sums their sensed
+differences and thresholds the sum.
 
 QAT surrogate: `irc_linear_train` is the differentiable layer (STE
 quantizers, a plain matmul) with the structural sim's noise to first order
@@ -20,7 +22,8 @@ quantizers, a plain matmul) with the structural sim's noise to first order
 """
 from __future__ import annotations
 
-from typing import Tuple
+import dataclasses
+from typing import Dict, List, Tuple
 
 import numpy as np
 import torch
@@ -151,7 +154,9 @@ def crossbar_apply(k_sa: torch.Tensor, x_ext: torch.Tensor,
                    output: str = "binary", device=None) -> torch.Tensor:
     """Forward through ONE sampled chip: x_ext [..., rows] (bias rows
     prefixed), ep/en effective planes, gp/gn placement planes.
-    output="binary" gives SA decisions, "diff" the analog difference."""
+    output="binary" gives SA decisions, "diff" the analog difference,
+    "sensed_diff" the difference the periphery reports (SA offset and
+    sensing-range failures applied, `ni.sensed_diff`)."""
     blk = spec.ir_block
     i_pos, p_pos = _accumulate(_block_reduce(x_ext, ep, blk),
                                _block_reduce(x_ext, gp, blk),
@@ -161,9 +166,11 @@ def crossbar_apply(k_sa: torch.Tensor, x_ext: torch.Tensor,
                                cfg, spec, accumulation, partial_rows, device)
     if output == "diff":
         return i_pos - i_neg
+    if output == "sensed_diff":
+        return ni.sensed_diff(k_sa, i_pos, i_neg, p_pos + p_neg, cfg, spec,
+                              sa_extra_units, device)
     if output != "binary":
-        raise NotImplementedError(
-            f"output={output!r} comes with the multi-macro IRCLinear slice")
+        raise ValueError(f"unknown output {output!r}")
     return ni.resolve_sa(k_sa, i_pos, i_neg, p_pos + p_neg, cfg, spec,
                          sa_extra_units, device)
 
@@ -268,3 +275,117 @@ def irc_linear_train(key: torch.Tensor, x: torch.Tensor,
     if output == "diff":
         return pre
     return soft_sa_output(pre, beta=sa_beta)
+
+
+# ------------------------------------------------------------------ layer module
+
+@dataclasses.dataclass(frozen=True)
+class IRCLinearConfig:
+    """Static configuration of one IRCLinear layer: shape, weight scheme,
+    accumulation mode, and output stage."""
+    fan_in: int
+    fan_out: int
+    scheme: str = "ternary"             # "ternary" (proposed) | "binary"
+    bias_rows: int = 0                  # extra common-mode bias rows (<= 32)
+    accumulation: str = "single_shot"   # "single_shot" | "partial_sum"
+    partial_rows: int = 256
+    use_bn: bool = False                # baseline in-memory BN (Fig. 13a)
+    output: str = "binary"              # "binary" | "diff"
+
+
+class IRCLinear:
+    """A linear layer run through the QAT surrogate or the full crossbar
+    simulation; a fan-in wider than one macro is tiled over several macros
+    whose sensed differences combine digitally (each tile keeps its own
+    nonideal effects).  Params are a flat dict {"w": [fan_in, fan_out]},
+    with "bn": {"gamma", "beta", "mean", "var"} when `use_bn` is set, as
+    the reference's (`convert.params_from_jax` carries them over)."""
+
+    def __init__(self, config: IRCLinearConfig,
+                 spec: MacroSpec = DEFAULT_MACRO):
+        self.config = config
+        self.spec = spec
+
+    def init(self, key: torch.Tensor) -> Dict:
+        """Fan-in-scaled Gaussian weights normal(split(key)[0]) *
+        float32(1 / float32(sqrt(fan_in))), rounded as the reference's
+        eager `init` rounds them, plus identity BN statistics with
+        `use_bn`; on the key's device."""
+        c = self.config
+        k_w = prng.split(key)[0]
+        scale = float(np.float32(1.0) / np.sqrt(np.float32(c.fan_in)))
+        params = {"w": prng.normal(k_w, (c.fan_in, c.fan_out)) * scale}
+        if c.use_bn:
+            ones = torch.ones(c.fan_out, dtype=torch.float32,
+                              device=key.device)
+            params["bn"] = {"gamma": ones, "beta": torch.zeros_like(ones),
+                            "mean": torch.zeros_like(ones), "var": ones}
+        return params
+
+    def quantized_weights(self, params: Dict) -> torch.Tensor:
+        """Deployed weights under the configured scheme: ternary {-1,0,+1}
+        (proposed) or binary {-1,+1} (baseline), straight-through."""
+        if self.config.scheme == "ternary":
+            return ternary_quantize(params["w"])
+        return binary_quantize(params["w"])
+
+    def map_to_planes(self, params: Dict) -> List[MappedLayer]:
+        """Per-tile `MappedLayer`s of at most `spec.rows` rows each; the
+        always-on bias / BN rows lead tile 0 only."""
+        from repro_torch.core import mapping as mp
+        c, spec = self.config, self.spec
+        w_q = self.quantized_weights(params).detach()
+        if c.scheme == "ternary":
+            full = mp.ternary_planes(w_q, bias_rows=c.bias_rows)
+        else:
+            bn_units = None
+            if c.use_bn:
+                bn = params["bn"]
+                bn_units = mp.fold_bn_to_bias_units(bn["gamma"], bn["beta"],
+                                                    bn["mean"], bn["var"])
+            full = mp.binary_planes(w_q, bn_bias_units=bn_units, spec=spec)
+        lead = full.rows - full.fan_in
+        tiles = []
+        for lo in range(0, full.rows, spec.rows):
+            hi = min(lo + spec.rows, full.rows)
+            tile_lead = max(0, lead - lo)
+            tiles.append(MappedLayer(
+                g_pos=full.g_pos[lo:hi], g_neg=full.g_neg[lo:hi],
+                bias_rows=tile_lead, scheme=full.scheme,
+                fan_in=(hi - lo) - tile_lead))
+        return tiles
+
+    def apply(self, params: Dict, x: torch.Tensor, *, key: torch.Tensor,
+              mode: str = "train",
+              cfg: ni.NonidealConfig = ni.NonidealConfig.none(),
+              sa_extra_units: float = 0.0) -> torch.Tensor:
+        """Run the layer on x [..., fan_in]: `mode="train"` the
+        differentiable QAT surrogate (`irc_linear_train`); `mode="eval"`
+        the structural simulation of tile t under `fold_in(key, t)`.  A
+        single tile gives its SA decisions (or its difference with
+        output="diff"); several tiles sum their sensed differences (their
+        ideal differences with output="diff") in tile order and threshold
+        the sum at zero."""
+        c, spec = self.config, self.spec
+        if mode == "train":
+            return irc_linear_train(key, x, params["w"], cfg=cfg, spec=spec,
+                                    scheme=c.scheme, output=c.output)
+        if mode != "eval":
+            raise ValueError(f"mode must be 'train' or 'eval', got {mode!r}")
+        x_bits = (x > 0).float()
+        tiles = self.map_to_planes(params)
+        multi = len(tiles) > 1
+        tile_out = ("diff" if c.output == "diff"
+                    else ("sensed_diff" if multi else "binary"))
+        diffs, offset = [], 0
+        for t, tile in enumerate(tiles):
+            x_t = x_bits[..., offset:offset + tile.fan_in]
+            offset += tile.fan_in
+            diffs.append(crossbar_forward(
+                prng.fold_in(key, t), x_t, tile, cfg=cfg, spec=spec,
+                accumulation=c.accumulation, partial_rows=c.partial_rows,
+                sa_extra_units=sa_extra_units, output=tile_out))
+        if not multi:
+            return diffs[0]
+        total = sum(diffs)
+        return total if c.output == "diff" else (total > 0).float()

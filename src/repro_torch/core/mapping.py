@@ -11,9 +11,10 @@ rows sit there.
 from __future__ import annotations
 
 import dataclasses
-from typing import Optional
+from typing import Optional, Tuple
 
 import torch
+import torch.nn.functional as F
 
 from repro_torch import xla_order as xo
 from repro_torch.core.macro import MacroSpec, DEFAULT_MACRO
@@ -109,3 +110,26 @@ def extend_rows(x_bits: torch.Tensor, lead: int) -> torch.Tensor:
         return x
     ones = torch.ones(x.shape[:-1] + (lead,), dtype=x.dtype, device=x.device)
     return torch.cat([ones, x], dim=-1)
+
+
+def tile_rows(mapped: MappedLayer, spec: MacroSpec = DEFAULT_MACRO
+              ) -> Tuple[torch.Tensor, torch.Tensor, int]:
+    """Split planes into macro-row tiles [n_tiles, spec.rows, n_out], the
+    last zero-padded.  Tiles are separate macros: each accumulates analog
+    internally and the tile outputs combine digitally (a fan-in beyond the
+    macro's rows cannot share a bit-line)."""
+    rows, n_out = mapped.g_pos.shape
+    n_tiles = -(-rows // spec.rows)
+    pad = n_tiles * spec.rows - rows
+    gp, gn = (F.pad(g, (0, 0, 0, pad)).reshape(n_tiles, spec.rows, n_out)
+              for g in (mapped.g_pos, mapped.g_neg))
+    return gp, gn, n_tiles
+
+
+def pad_inputs_for_tiles(x_ext: torch.Tensor, n_tiles: int,
+                         spec: MacroSpec = DEFAULT_MACRO) -> torch.Tensor:
+    """[..., rows] -> [..., n_tiles, spec.rows], zero-padded as
+    `tile_rows` pads the planes."""
+    pad = n_tiles * spec.rows - x_ext.shape[-1]
+    return F.pad(x_ext, (0, pad)).reshape(x_ext.shape[:-1]
+                                          + (n_tiles, spec.rows))

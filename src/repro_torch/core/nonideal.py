@@ -106,6 +106,18 @@ def ir_drop_factors(block_currents: torch.Tensor, alpha: float,
     return torch.clamp(xo.fma(-alpha, cum, 1.0), 0.0, 1.0)
 
 
+def apply_ir_drop(block_currents: torch.Tensor, alpha: float
+                  ) -> torch.Tensor:
+    """Total bit-line current after IR drop from per-block ideal currents
+    [..., nb]: sum_b I_b * factor_b, sequential over b with each step one
+    fused multiply-add, as XLA adds the reference's `jnp.sum(blocks *
+    factors, axis=-1)`.  (The factors' contraction over the minor axis is
+    torch's matmul here and a library matmul in XLA, whose order changes
+    with nb: they agree to a few ulps.)"""
+    return xo.seq_fma_sum(block_currents,
+                          ir_drop_factors(block_currents, alpha), -1)
+
+
 # ------------------------------------------------------------------ SA periphery
 
 def sa_required_diff(p: torch.Tensor, spec: MacroSpec = DEFAULT_MACRO
@@ -122,6 +134,17 @@ def _device_or_analytic(device):
         from repro_torch.device.analytic import ANALYTIC_DEVICE
         return ANALYTIC_DEVICE
     return device
+
+
+def sa_offset(key: torch.Tensor, p: torch.Tensor,
+              spec: MacroSpec = DEFAULT_MACRO, extra_units: float = 0.0,
+              device=None) -> torch.Tensor:
+    """Random input-referred SA offset current (units): zero-mean Gaussian
+    with the device model's sigma at activated-LRS count p (analytic: half
+    the required difference g(p), + `extra_units`).  `key` is one key or a
+    batch [..., 2] whose axes lead p, as in `resolve_sa`."""
+    sigma = _device_or_analytic(device).sa_offset_sigma(p, spec, extra_units)
+    return sigma * prng.normal(key, p.shape[key.ndim - 1:])
 
 
 def sensing_failure(i_pos: torch.Tensor, i_neg: torch.Tensor,
@@ -156,3 +179,31 @@ def resolve_sa(key: torch.Tensor, i_pos: torch.Tensor, i_neg: torch.Tensor,
         rnd = prng.bernoulli(k_rng, 0.5, shape)
         out = torch.where(fail, rnd, out)
     return out
+
+
+def sensed_diff(key: torch.Tensor, i_pos: torch.Tensor, i_neg: torch.Tensor,
+                p_total: torch.Tensor, cfg: NonidealConfig,
+                spec: MacroSpec = DEFAULT_MACRO, sa_extra_units: float = 0.0,
+                device=None) -> torch.Tensor:
+    """The analog difference ONE macro's periphery reports to a digital
+    combiner (multi-tile layers: each tile has its own SA front-end).
+
+    Same key discipline and effects as `resolve_sa`: the SA offset is an
+    additive input-referred current, and an out-of-range comparison reads
+    as a random-sign current at the just-resolvable magnitude 2 sigma (g(p)
+    + extra for the analytic periphery), so thresholding one tile's sensed
+    difference at zero gives `resolve_sa`'s decisions bit for bit."""
+    ks = prng.split(key)
+    k_off, k_rng = ks[..., 0, :], ks[..., 1, :]
+    shape = i_pos.shape[key.ndim - 1:]
+    diff = i_pos - i_neg
+    dev = _device_or_analytic(device)
+    if cfg.sa_variation:
+        sigma = dev.sa_offset_sigma(p_total, spec, sa_extra_units)
+        diff = xo.fma(sigma, prng.normal(k_off, shape), diff)
+    if cfg.sensing_range:
+        fail = sensing_failure(i_pos, i_neg, spec)
+        rnd = prng.bernoulli(k_rng, 0.5, shape)
+        mag = 2.0 * dev.sa_offset_sigma(p_total, spec, sa_extra_units)
+        diff = torch.where(fail, torch.where(rnd > 0, mag, -mag), diff)
+    return diff

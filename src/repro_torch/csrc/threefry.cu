@@ -29,14 +29,24 @@
 //     a float in [0, 1); normal, factor * erf_inv(uniform on (nextafter(-1,
 //     0), 1)); the log-normal mask exp(normal); bernoulli (uniform < p) as
 //     float32 {0, 1};
-//   * threefry_tail_launch (checks only): the same tails on given words.
+//   * threefry_measured_launch: the measured device backend's mask,
+//     `jnp.interp(norm.cdf(normal), xp, fp)` (`src/repro/device/
+//     measured.py:98-100`): the normal at scale sqrt(1/2) (the cdf's w, the
+//     two constants folded into one as XLA folds them), XLA's ndtr on it
+//     (erf below |w| = sqrt(1/2), erfc above) and the interpolation over a
+//     table of up to 32 quantiles that travels by value in the launch's
+//     parameters;
+//   * threefry_tail_launch, threefry_measured_tail_launch (checks only): the
+//     same tails on given words.
 // Bit-identity with the plain version: the block function is exact integer
 // arithmetic; the uniform's f * (hi - lo) + lo is one `__fmaf_rn`, as XLA
 // contracts it inside `jax.random.uniform` and the plain version computes
 // it (`xla_order.fma_plain`); hi - lo and the normal's float32(scale *
 // float32(sqrt 2)) come from the host, rounded as the plain version rounds
 // them; erf_inv and exp are the shared `xla_math.cuh` functions that
-// xla_math.cu's kernels use, op for op the plain versions' order.  The
+// xla_math.cu's kernels use, op for op the plain versions' order, and so
+// are the measured tail's erf, erfc and ndtr (`xla_order.ndtr_from_w`);
+// its interpolation is `xla_order.interp`'s order.  The
 // tails take only the top 23 bits of a word, so `chip_smoke.py` phase 3
 // holds each of them on all 2^23 of its inputs (`threefry_tail_launch`
 // against `prng.tail_plain`).
@@ -73,6 +83,9 @@
 //     erf_inv's upper polynomial and its square root run only in warps where
 //     some lane needs them (a vote a word; every loop's trip count is
 //     uniform over a warp, so every lane reaches it).
+// The measured tail finds its segment by a scan over all 32 slots of the
+// table, four selects a slot, whose operands come from the constant bank:
+// simple and exact, not fast (PERF.md has its time against its bound).
 // Tried and left out (PERF.md): all adds as IMAD for bernoulli (2.7%
 // slower than ptxas's own split), rotations on the FMA pipe as IMAD and
 // IMAD.HI (14-16% slower), log1p's inputs sorted by branch through shared
@@ -102,9 +115,26 @@ constexpr int kUniform = 1;
 constexpr int kNormal = 2;
 constexpr int kLogNormal = 3;
 constexpr int kBernoulli = 4;
+constexpr int kMeasured = 5;
+// quantiles a measured tail's table may hold
+constexpr int kMaxTable = 32;
 
 // the normal's uniform: lo = nextafter(-1, 0), span = 2
 constexpr float kNormalLo = -0x1.fffffep-1f;
+
+// The measured tail's table of n quantiles xp and factors fp, laid out for
+// `jnp.interp`: segment j in [0, n - 2] runs from x0[j] = xp[j] to xp[j +
+// 1], dx[j] and df[j] its float32 widths in x and f; a word takes the last
+// segment whose start is at or below its u (xs[j] = xp[j] from j = 1 to n
+// - 2, +inf elsewhere), segment 0 if none; segments at most 2^-46 wide
+// (bit j of `empty`) give f0[j]; below xp[0] it takes fp[0], above xp[n -
+// 1] fp[n - 1].
+struct Table {
+  float xs[kMaxTable], x0[kMaxTable], f0[kMaxTable], dx[kMaxTable],
+      df[kMaxTable];
+  float x_lo, x_hi, f_lo, f_hi;
+  uint32_t empty;
+};
 
 struct Tail {
   float lo;      // uniform: float32 minval
@@ -115,6 +145,7 @@ struct Tail {
   unsigned long long ge_bias;
   uint32_t hit, step;
   uint32_t one;  // 1, passed at run time so that x + y * one stays an IMAD
+  Table table;   // measured
 };
 
 // How a tail's block function adds.  The normal and the log-normal mask
@@ -253,6 +284,26 @@ __device__ __forceinline__ float normal_word(float u, float l,
   return __fmul_rn(factor, __fmul_rn(p, u));
 }
 
+// `jnp.interp(u, xp, fp)` over the measured table, u in [0, 1] (the order
+// of `xla_order.interp`): the segment by a scan of compile-time length
+// whose table operands come straight from the kernel's parameters
+__device__ __forceinline__ float interp_word(float u, const Table& t) {
+  float x0 = t.x0[0], f0 = t.f0[0], dx = t.dx[0], df = t.df[0];
+  uint32_t j = 0;
+#pragma unroll
+  for (int k = 1; k < kMaxTable - 1; ++k) {
+    if (t.xs[k] <= u) {
+      x0 = t.x0[k], f0 = t.f0[k], dx = t.dx[k], df = t.df[k];
+      j = k;
+    }
+  }
+  float f = __fmaf_rn(__fdiv_rn(__fsub_rn(u, x0), dx), df, f0);
+  if ((t.empty >> j) & 1u) f = f0;
+  if (u < t.x_lo) f = t.f_lo;
+  if (u > t.x_hi) f = t.f_hi;
+  return f;
+}
+
 // Words through the tail, in place (float32 tails leave their bits).
 // Called by every lane of a warp together.
 template <int kTail>
@@ -272,7 +323,8 @@ __device__ __forceinline__ void apply_tail(uint32_t (&w)[kWords],
       const float v = __fmaf_rn(unit(w[q]), t.span, t.lo);
       w[q] = __float_as_uint(v < t.lo ? t.lo : v);
     }
-  } else if constexpr (kTail == kNormal || kTail == kLogNormal) {
+  } else if constexpr (kTail == kNormal || kTail == kLogNormal ||
+                       kTail == kMeasured) {
     // the normal's constants are fixed (the launcher checks them)
     float u[kWords], l[kWords];
 #pragma unroll
@@ -285,6 +337,9 @@ __device__ __forceinline__ void apply_tail(uint32_t (&w)[kWords],
     for (int q = 0; q < kWords; ++q) {
       float v = normal_word(u[q], l[q], t.factor);
       if constexpr (kTail == kLogNormal) v = xla_exp(v);
+      // the measured mask: v = w, the cdf's z sqrt(1/2)
+      if constexpr (kTail == kMeasured) v = interp_word(ndtr_from_w(v),
+                                                        t.table);
       w[q] = __float_as_uint(v);
     }
   }
@@ -486,6 +541,10 @@ void launch_draw(const long long* keys, long long key_stride, void* out,
       launch_draw_tail<kOriginal, kLogNormal>(grid, keys, key_stride, out,
                                               n_keys, n, t, stream);
       break;
+    case kMeasured:
+      launch_draw_tail<kOriginal, kMeasured>(grid, keys, key_stride, out,
+                                             n_keys, n, t, stream);
+      break;
     default:
       launch_draw_tail<kOriginal, kBernoulli>(grid, keys, key_stride, out,
                                               n_keys, n, t, stream);
@@ -493,11 +552,36 @@ void launch_draw(const long long* keys, long long key_stride, void* out,
   }
 }
 
-// the tails that take given constants: the normal's are fixed
+// the tails that take given constants: the normal's are fixed; the
+// measured tail comes only through the launchers that take its table
 bool tail_ok(int tail, float lo, float span) {
   if (tail < kBits || tail > kBernoulli) return false;
   if (tail == kNormal || tail == kLogNormal)
     return lo == kNormalLo && span == 2.0f;
+  return true;
+}
+
+// The measured table from n quantiles xp (increasing) and factors fp,
+// float32; false unless 2 <= n <= kMaxTable.  Widths are float32
+// differences, as `jnp.interp` takes them.
+bool make_table(const float* xp, const float* fp, int n, Table& t) {
+  if (xp == nullptr || fp == nullptr || n < 2 || n > kMaxTable) return false;
+  t = Table{};
+  for (int j = 0; j < kMaxTable; ++j) {
+    const int s = j < n - 1 ? j : n - 2;
+    t.xs[j] = j >= 1 && j <= n - 2 ? xp[j] : INFINITY;
+    t.x0[j] = xp[s];
+    t.f0[j] = fp[s];
+    const float dx = xp[s + 1] - xp[s];
+    const bool empty = fabsf(dx) <= 0x1p-46f;
+    t.dx[j] = empty ? 1.0f : dx;
+    t.df[j] = fp[s + 1] - fp[s];
+    if (empty) t.empty |= 1u << j;
+  }
+  t.x_lo = xp[0];
+  t.x_hi = xp[n - 1];
+  t.f_lo = fp[0];
+  t.f_hi = fp[n - 1];
   return true;
 }
 
@@ -525,6 +609,48 @@ extern "C" int threefry_draw_launch(const void* keys, long long key_stride,
   else
     launch_draw<false>(k, key_stride, out, (unsigned)n_keys, (uint32_t)n,
                        tail, t, st);
+  return (int)cudaGetLastError();
+}
+
+// The measured tail's draw: as threefry_draw_launch with tail 5, the
+// normal's constants, factor = float32(sqrt(1/2) * float32(sqrt 2)) and the
+// table of n_table quantiles xp and factors fp (host float32 arrays).
+extern "C" int threefry_measured_launch(const void* keys, long long key_stride,
+                                        void* out, long long n_keys,
+                                        long long n, int original,
+                                        float factor, const float* xp,
+                                        const float* fp, int n_table,
+                                        void* stream) {
+  if (n_keys <= 0 || n_keys > 0xFFFFFFFFll || n <= 0 || n > 0xFFFFFFFFll)
+    return (int)cudaErrorInvalidValue;
+  Tail t = make_tail(kNormalLo, 2.0f, factor, 0.5f);
+  if (!make_table(xp, fp, n_table, t.table))
+    return (int)cudaErrorInvalidValue;
+  const auto* k = static_cast<const long long*>(keys);
+  auto* st = static_cast<cudaStream_t>(stream);
+  if (original)
+    launch_draw<true>(k, key_stride, out, (unsigned)n_keys, (uint32_t)n,
+                      kMeasured, t, st);
+  else
+    launch_draw<false>(k, key_stride, out, (unsigned)n_keys, (uint32_t)n,
+                       kMeasured, t, st);
+  return (int)cudaGetLastError();
+}
+
+// The measured tail alone on n words (n a multiple of 8), for the checks.
+extern "C" int threefry_measured_tail_launch(const void* words, void* out,
+                                             long long n, float factor,
+                                             const float* xp, const float* fp,
+                                             int n_table, void* stream) {
+  if (n <= 0 || n > 0xFFFFFFFFll || n % kWords != 0)
+    return (int)cudaErrorInvalidValue;
+  Tail t = make_tail(kNormalLo, 2.0f, factor, 0.5f);
+  if (!make_table(xp, fp, n_table, t.table))
+    return (int)cudaErrorInvalidValue;
+  tail_kernel<kMeasured><<<blocks_for((unsigned long long)n / kWords),
+                           kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const long long*>(words), static_cast<float*>(out),
+      (uint32_t)n, t);
   return (int)cudaGetLastError();
 }
 

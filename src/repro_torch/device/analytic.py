@@ -28,3 +28,8 @@ class AnalyticDeviceModel(DeviceModel):
 
 #: the process-wide analytic singleton every `device=None` seam resolves to
 ANALYTIC_DEVICE = AnalyticDeviceModel()
+
+
+def default_device(device):
+    """Resolve a `device=` argument: None means the analytic backend."""
+    return ANALYTIC_DEVICE if device is None else device

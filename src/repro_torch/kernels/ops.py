@@ -11,7 +11,8 @@ CPU), or the call raises — there is no fallback from the card to the
 plain version.
 Each kernel wrapper counts its launches in a plain integer (`LAUNCHES`), so a
 run can show that its main path went through the kernel; calls served by the
-plain version do not count.
+plain version do not count.  The threefry kernel's draws are also counted by
+tail (`TAIL_LAUNCHES`: "measured" is the measured device backend's mask).
 
 Nothing needs padding: the kernels mask their ragged edges themselves.
 """
@@ -33,12 +34,16 @@ LAUNCHES: Dict[str, int] = {"irc_mvm_chips": 0, "irc_mvm": 0,
                             "ternary_matmul": 0, "flash_attention": 0,
                             "xla_fma": 0, "xla_erf_inv": 0, "xla_exp": 0,
                             "threefry": 0}
+#: threefry draw launches by tail since the last `reset_launches()`, each
+#: also one of LAUNCHES["threefry"]
+TAIL_LAUNCHES: Dict[str, int] = {t: 0 for t in prng.TAILS}
 
 
 def reset_launches() -> None:
     """Set every launch counter to 0."""
-    for k in LAUNCHES:
-        LAUNCHES[k] = 0
+    for counts in (LAUNCHES, TAIL_LAUNCHES):
+        for k in counts:
+            counts[k] = 0
 
 
 def _check(x, ep, en, gp, gn, eps_sa, rnd_bits):
@@ -298,17 +303,22 @@ def threefry_split(key: torch.Tensor, num: int = 2) -> torch.Tensor:
 
 def threefry_draw(key: torch.Tensor, shape: Sequence[int], tail: str, *,
                   minval: float = 0.0, maxval: float = 1.0,
-                  scale: float = 1.0, p: float = 0.5) -> torch.Tensor:
+                  scale: float = 1.0, p: float = 0.5,
+                  table=None) -> torch.Tensor:
     """`prng.random_bits` (tail "bits"), `uniform`, `normal`, `lognormal`
-    (scale = sigma) or `bernoulli` under the scheme in force: key batch
-    axes lead `shape`; ONE launch of the threefry kernel on the card."""
+    (scale = sigma), `bernoulli` or `measured` (table = (xp, fp)) under the
+    scheme in force: key batch axes lead `shape`; ONE launch of the
+    threefry kernel on the card."""
     dev = _key_device(tail, key)
     shape = tuple(int(s) for s in shape)
     lo, span = prng.tail_consts(tail, minval, maxval)
+    if tail == "measured":
+        table = prng.check_table(table)
+        scale = prng.HALF_SQRT2
     if dev.type == "cpu":
         return prng.tail_plain(prng.random_bits_plain(key, shape), tail,
                                minval=minval, maxval=maxval, scale=scale,
-                               p=p)
+                               p=p, table=table)
     from repro_torch.kernels import threefry as kern
     n, lead = math.prod(shape), key.shape[:-1]
     prng.check_words(n)
@@ -317,8 +327,9 @@ def threefry_draw(key: torch.Tensor, shape: Sequence[int], tail: str, *,
                            device=key.device)
     out = kern.launch_draw(_key_rows(key, lead), n,
                            not prng.is_partitionable(), tail, lo, span,
-                           prng.normal_factor(scale), p)
+                           prng.normal_factor(scale), p, table=table)
     LAUNCHES["threefry"] += 1
+    TAIL_LAUNCHES[tail] += 1
     return out.reshape(tuple(lead) + shape)
 
 

@@ -9,13 +9,15 @@ checked and viewed as [L, 2] int64 on the card (words adjacent, keys
 output and enqueue one launch on the current CUDA stream; they raise if the
 launch is refused and never fall back to the plain versions
 (`repro_torch.prng`).  `launch_tail` runs a draw's tail alone on given
-words, for the checks that hold it against `prng.tail_plain`.
+words, for the checks that hold it against `prng.tail_plain`.  The
+measured tail's quantile table travels by value in the launch's
+parameters (`threefry_measured_launch`, `threefry_measured_tail_launch`).
 """
 from __future__ import annotations
 
 import ctypes
 from pathlib import Path
-from typing import Optional
+from typing import Optional, Tuple
 
 import torch
 
@@ -25,7 +27,7 @@ SOURCE = build.CSRC / "threefry.cu"
 #: a draw's tail -> its code in the kernel and its output type
 TAILS = {"bits": (0, torch.int64), "uniform": (1, torch.float32),
          "normal": (2, torch.float32), "lognormal": (3, torch.float32),
-         "bernoulli": (4, torch.float32)}
+         "bernoulli": (4, torch.float32), "measured": (5, torch.float32)}
 
 
 def _bind(lib: ctypes.CDLL) -> None:
@@ -38,6 +40,13 @@ def _bind(lib: ctypes.CDLL) -> None:
     if hasattr(lib, "threefry_tail_launch"):  # builds before it have none
         lib.threefry_tail_launch.argtypes = [p, p, ll, i, f, f, f, f, p]
         fns.append(lib.threefry_tail_launch)
+    if hasattr(lib, "threefry_measured_launch"):  # nor these
+        lib.threefry_measured_launch.argtypes = [p, ll, p, ll, ll, i, f, p,
+                                                 p, i, p]
+        lib.threefry_measured_tail_launch.argtypes = [p, p, ll, f, p, p, i,
+                                                      p]
+        fns += [lib.threefry_measured_launch,
+                lib.threefry_measured_tail_launch]
     for fn in fns:
         fn.restype = ctypes.c_int
 
@@ -58,30 +67,56 @@ def _stream(dev: torch.device) -> int:
     return torch.cuda.current_stream(dev).cuda_stream
 
 
+def _table_args(table) -> Tuple[ctypes.Array, ctypes.Array, int]:
+    """A measured table (xp, fp of float32 values) as two host float
+    arrays and their length."""
+    xp, fp = table
+    arr = ctypes.c_float * len(xp)
+    return arr(*xp), arr(*fp), len(xp)
+
+
 def launch_draw(keys: torch.Tensor, n: int, original: bool, tail: str,
                 lo: float = 0.0, span: float = 1.0, factor: float = 1.0,
-                p: float = 0.5, lib: Optional[ctypes.CDLL] = None
-                ) -> torch.Tensor:
+                p: float = 0.5, lib: Optional[ctypes.CDLL] = None,
+                table=None) -> torch.Tensor:
     """n words under each of the keys [L, 2] through `tail` -> [L, n]
-    (by `lib`, another build's library, where given)."""
+    (by `lib`, another build's library, where given); the measured tail
+    takes `table` = (xp, fp), float32 values (`prng.check_table`)."""
     code, dtype = TAILS[tail]
     out = torch.empty((keys.shape[0], n), dtype=dtype, device=keys.device)
-    _raise("draw", (lib or load()).threefry_draw_launch(
-        keys.data_ptr(), keys.stride(0), out.data_ptr(), keys.shape[0], n,
-        int(original), code, lo, span, factor, p, _stream(keys.device)))
+    lib = lib or load()
+    if tail == "measured":
+        xp, fp, m = _table_args(table)
+        err = lib.threefry_measured_launch(
+            keys.data_ptr(), keys.stride(0), out.data_ptr(), keys.shape[0],
+            n, int(original), factor, xp, fp, m, _stream(keys.device))
+    else:
+        err = lib.threefry_draw_launch(
+            keys.data_ptr(), keys.stride(0), out.data_ptr(), keys.shape[0],
+            n, int(original), code, lo, span, factor, p,
+            _stream(keys.device))
+    _raise("draw", err)
     return out
 
 
 def launch_tail(words: torch.Tensor, tail: str, lo: float = 0.0,
-                span: float = 1.0, factor: float = 1.0, p: float = 0.5
-                ) -> torch.Tensor:
+                span: float = 1.0, factor: float = 1.0, p: float = 0.5,
+                table=None) -> torch.Tensor:
     """A float32 tail alone on words (int64 [n] on the card, n a multiple
-    of 4) -> float32 [n]; the draw's constants as `launch_draw` takes
+    of 8) -> float32 [n]; the draw's constants as `launch_draw` takes
     them."""
     out = torch.empty(words.shape, dtype=torch.float32, device=words.device)
-    _raise("tail", load().threefry_tail_launch(
-        words.data_ptr(), out.data_ptr(), words.numel(), TAILS[tail][0], lo,
-        span, factor, p, _stream(words.device)))
+    st = _stream(words.device)
+    if tail == "measured":
+        xp, fp, m = _table_args(table)
+        err = load().threefry_measured_tail_launch(
+            words.data_ptr(), out.data_ptr(), words.numel(), factor, xp, fp,
+            m, st)
+    else:
+        err = load().threefry_tail_launch(
+            words.data_ptr(), out.data_ptr(), words.numel(), TAILS[tail][0],
+            lo, span, factor, p, st)
+    _raise("tail", err)
     return out
 
 

@@ -22,15 +22,25 @@
 Weights from the seed, drawn through the port's threefry as the
 reference's CLI draws them (the detector's by `IRCDetector.init(PRNGKey(
 seed))`, the reference's `materialize`), so both CLIs sweep the same
-network at the same seed; the analytic device model.  The detector sweeps
-one checkpoint per training setting, as the JAX CLI does: `init` without
+network at the same seed.  `--device-model {analytic,measured}` picks the
+device backend the dies are sampled from (`repro_torch.device`) and
+`--t-days 0,30,365` repeats every column at each deployment age
+(`RetentionDrift`), labels suffixed `@t<age>d` when there are several
+ages, each drop measured against the same age's ideal column; BN is
+calibrated once per checkpoint.
+
+  python -m repro_torch.launch.mc --network detector --chips 16 \\
+      --device-model measured --t-days 0,30,365
+
+`--device` (cuda or cpu) is the torch device, not the device model.  The
+detector sweeps one checkpoint per training setting, as the JAX CLI does:
+`init` without
 QAT; `qat` after `--det-steps` single-draw QAT steps (`quick_qat`); with
 `--train-chips N`, `single` and `ensN`, single-draw and N-chip
 ensemble-aware QAT from the same root key PRNGKey(seed + 1) with the
 surrogate noise of every effect on.  The layer's ideal reference bits go
 through the ternary matmul kernel on the card.  `--device cpu` runs the
-plain PyTorch path on the CPU.  The measured and aged device models come
-in a later slice.
+plain PyTorch path on the CPU.
 
 Every run gets a `<--run-dir>/<run_id>/` directory ('' disables it), as
 the JAX CLI's: `manifest.json` (args, git SHA, torch and CUDA versions,
@@ -65,6 +75,25 @@ def _ablation_columns(ablation: str, table):
     return cols
 
 
+def _parse_t_days(text):
+    """--t-days "0,30,365" -> [0.0, 30.0, 365.0] (one age per sweep pass)."""
+    try:
+        ts = [float(t) for t in str(text).split(",") if t.strip() != ""]
+    except ValueError:
+        raise SystemExit(f"--t-days must be a comma list of numbers, "
+                         f"got {text!r}")
+    if not ts:
+        raise SystemExit("--t-days needs at least one age")
+    if any(t < 0 for t in ts):
+        raise SystemExit("--t-days ages must be >= 0")
+    return ts
+
+
+def _age_label(name, t, ts):
+    """Column label with the age suffixed when sweeping multiple ages."""
+    return name if len(ts) == 1 else f"{name}@t{t:g}d"
+
+
 def _make_runlog(args):
     """The run's RunLog under `<run-dir>/<run_id>/` (the no-op log when
     --run-dir is ''), its trace started with --trace."""
@@ -79,13 +108,14 @@ def _make_runlog(args):
     return obs
 
 
-def _csv_row(m: dict, drop: float, res) -> str:
+def _csv_row(m: dict, drop: float, res, device_model: str, t: float) -> str:
     """The CSV columns shared by both networks, from mean to compile_s,
-    and the device model and age (the analytic model at day 0)."""
+    then the device model and the age."""
     q = [m.get(k, float("nan")) for k in ("q05", "q50", "q95")]
     return (f"{m['mean']:.6f},{m['std']:.6f},{drop:.6f},{q[0]:.6f},"
             f"{q[1]:.6f},{q[2]:.6f},{res.n_chips},"
-            f"{res.chips_per_sec:.2f},{res.compile_s:.4f},analytic,0")
+            f"{res.chips_per_sec:.2f},{res.compile_s:.4f},"
+            f"{device_model},{t:g}")
 
 
 def _write_csv(args, obs, lines) -> None:
@@ -101,13 +131,11 @@ def _write_csv(args, obs, lines) -> None:
         print(f"# wrote {out}")
 
 
-def _table(results, metric: str) -> dict:
-    """Print one row per column (mean±std, drop against the ideal column,
-    quantiles, throughput) and return the report's per-column entries."""
-    print(f"{'config':14s} {metric + ' mean±std':>22s} {'drop':>7s} "
-          f"{'q05':>7s} {'q50':>7s} {'q95':>7s} {'chips':>5s} "
-          f"{'chips/s':>9s} {'first_s':>8s}")
-    ideal = results["ideal"].metrics[metric]["mean"]
+def _table(results, metric: str, ideal: float, device_model: str,
+           t: float) -> dict:
+    """Print one row per labelled column (mean±std, drop against the same
+    age's ideal mean `ideal`, quantiles, throughput) and return the
+    report's per-column entries."""
     rows = {}
     for name, res in results.items():
         m = res.metrics[metric]
@@ -121,8 +149,15 @@ def _table(results, metric: str) -> dict:
             "chips_per_sec": res.chips_per_sec,
             "first_chunk_s": res.compile_s, "enqueue_s": res.enqueue_s,
             "device_s": res.device_s, "host_s": res.host_s,
+            "device_model": device_model, "t_days": t,
             f"per_chip_{metric}": res.per_chip[metric].tolist()}
     return rows
+
+
+def _header(metric: str) -> None:
+    print(f"{'config':14s} {metric + ' mean±std':>22s} {'drop':>7s} "
+          f"{'q05':>7s} {'q50':>7s} {'q95':>7s} {'chips':>5s} "
+          f"{'chips/s':>9s} {'first_s':>8s}")
 
 
 def _finish(args, obs, report: dict) -> dict:
@@ -168,15 +203,17 @@ def build_layer(args, device):
 
 
 def run_layer(args) -> dict:
-    """Population bit agreement of one layer per ablation column; prints a
-    table, returns the report."""
+    """Population bit agreement of one layer per ablation column and age;
+    prints a table, returns the report."""
     from repro_torch import prng
+    from repro_torch.device import get_device_model
     from repro_torch.kernels import ops
     from repro_torch.mc.engine import McConfig, TABLE2_ABLATION, run_mc
     from repro_torch.runtime import resolve_device
 
     dev = resolve_device(args.device)
     columns = _ablation_columns(args.ablation, TABLE2_ABLATION)
+    ts = _parse_t_days(args.t_days)
     obs = _make_runlog(args)
     ops.reset_launches()
     mapped, x, ref_bits = build_layer(args, dev)
@@ -188,31 +225,44 @@ def run_layer(args) -> dict:
     print(f"# {args.scheme} {args.fan_in}x{args.n_out} batch={args.batch} "
           f"chips={args.chips} chunk={args.chunk} "
           f"accumulation={args.accumulation} backend={args.backend} "
-          f"device={dev}" + (" calibrated" if args.calibrate else ""))
-    results = {}
-    for name, cfg in columns:
-        obs.log_event("ablation_column", column=name,
-                      device_model="analytic", t_days=0.0)
-        results[name] = run_mc(key, mapped, x, ref_bits=ref_bits,
-                               mc=dataclasses.replace(mc, cfg=cfg), obs=obs,
-                               stderr_target=args.stderr_target)
-    rows = _table(results, "bit_agreement")
-    ideal = results["ideal"].metrics["bit_agreement"]["mean"]
+          f"device={dev} device_model={args.device_model} "
+          f"t_days={','.join(f'{t:g}' for t in ts)}"
+          + (" calibrated" if args.calibrate else ""))
+    _header("bit_agreement")
+    rows = {}
     csv_lines = ["config,agree_mean,agree_std,drop_vs_ideal,q05,q50,q95,"
                  "chips,chips_per_s,compile_s,device_model,t_days"]
-    for name, res in results.items():
-        m = res.metrics["bit_agreement"]
-        csv_lines.append(f"{name}," + _csv_row(m, ideal - m["mean"], res))
-        for metric in ("bit_agreement", "ones_fraction"):
-            obs.save_array(f"per_chip_{metric}_{name}", res.per_chip[metric])
-        rows[name]["bias_units"] = (res.bias_units.tolist()
-                                    if res.bias_units is not None else None)
+    for t in ts:
+        device = get_device_model(args.device_model, t_days=t)
+        results = {}
+        for name, cfg in columns:
+            obs.log_event("ablation_column", column=name,
+                          device_model=args.device_model, t_days=t)
+            results[_age_label(name, t, ts)] = run_mc(
+                key, mapped, x, ref_bits=ref_bits,
+                mc=dataclasses.replace(mc, cfg=cfg, device=device), obs=obs,
+                stderr_target=args.stderr_target)
+        # the drop is measured against the same age's simulated ideal
+        ideal = results[_age_label("ideal", t, ts)].metrics[
+            "bit_agreement"]["mean"]
+        rows.update(_table(results, "bit_agreement", ideal,
+                           args.device_model, t))
+        for label, res in results.items():
+            m = res.metrics["bit_agreement"]
+            csv_lines.append(f"{label}," + _csv_row(
+                m, ideal - m["mean"], res, args.device_model, t))
+            for metric in ("bit_agreement", "ones_fraction"):
+                obs.save_array(f"per_chip_{metric}_{label}",
+                               res.per_chip[metric])
+            rows[label]["bias_units"] = (res.bias_units.tolist()
+                                         if res.bias_units is not None
+                                         else None)
     _write_csv(args, obs, csv_lines)
     report = _finish(args, obs, {"args": vars(args),
                                  "run_id": obs.manifest.get("run_id"),
                                  "results": rows})
-    obs.finalize(status="ok", network="layer", device_model="analytic",
-                 t_days=[0.0])
+    obs.finalize(status="ok", network="layer",
+                 device_model=args.device_model, t_days=ts)
     return report
 
 
@@ -253,6 +303,7 @@ def run_detector(args) -> dict:
     from repro_torch import prng
     from repro_torch.configs import yolo_irc
     from repro_torch.data.detection import SyntheticDetectionData
+    from repro_torch.device import get_device_model
     from repro_torch.kernels import ops
     from repro_torch.mc.detector_mc import run_mc_detector
     from repro_torch.mc.engine import McConfig, TABLE2_ABLATION
@@ -262,6 +313,7 @@ def run_detector(args) -> dict:
 
     dev = resolve_device(args.device)
     columns = _ablation_columns(args.ablation, TABLE2_ABLATION)
+    ts = _parse_t_days(args.t_days)
     if args.train_chips > 1 and not args.det_steps:
         raise SystemExit("--train-chips needs --det-steps > 0 "
                          "(it compares QAT'd checkpoints)")
@@ -291,7 +343,9 @@ def run_detector(args) -> dict:
     print(f"# detector {args.det_scheme} {cfg.img_hw[0]}x{cfg.img_hw[1]} "
           f"batch={args.det_batch} chips={args.chips} chunk={args.chunk} "
           f"qat_steps={args.det_steps} train_chips={args.train_chips} "
-          f"device={dev} pipeline={not args.no_pipeline}")
+          f"device={dev} pipeline={not args.no_pipeline} "
+          f"device_model={args.device_model} "
+          f"t_days={','.join(f'{t:g}' for t in ts)}")
     print(f"# qat {qat_s:.2f}s, kernel launches {json.dumps(qat_launches)}")
     ops.reset_launches()
     results = {}
@@ -302,31 +356,38 @@ def run_detector(args) -> dict:
         params = det.calibrate_bn(params,
                                   torch.from_numpy(calib.images).to(dev))
         print(f"# checkpoint {ck}")
-        sweeps = {}
-        for name, cfg_ni in columns:
-            obs.log_event("ablation_column", checkpoint=ck, column=name,
-                          device_model="analytic", t_days=0.0)
-            sweeps[name] = run_mc_detector(
-                key, det, params, images, ev.boxes, ev.classes,
-                mc=dataclasses.replace(mc, cfg=cfg_ni), obs=obs,
-                stderr_target=args.stderr_target,
-                pipeline=not args.no_pipeline)
-        results[ck] = _table(sweeps, "map50")
-        ideal = sweeps["ideal"].metrics["map50"]["mean"]
-        for name, res in sweeps.items():
-            m = res.metrics["map50"]
-            csv_lines.append(f"{ck},{name},"
-                             + _csv_row(m, ideal - m["mean"], res))
-            obs.save_array(f"per_chip_map50_{ck}_{name}",
-                           res.per_chip["map50"])
+        _header("map50")
+        results[ck] = {}
+        for t in ts:
+            device = get_device_model(args.device_model, t_days=t)
+            sweeps = {}
+            for name, cfg_ni in columns:
+                obs.log_event("ablation_column", checkpoint=ck, column=name,
+                              device_model=args.device_model, t_days=t)
+                sweeps[_age_label(name, t, ts)] = run_mc_detector(
+                    key, det, params, images, ev.boxes, ev.classes,
+                    mc=dataclasses.replace(mc, cfg=cfg_ni, device=device),
+                    obs=obs, stderr_target=args.stderr_target,
+                    pipeline=not args.no_pipeline)
+            # the drop is measured against the same age's simulated ideal
+            ideal = sweeps[_age_label("ideal", t, ts)].metrics[
+                "map50"]["mean"]
+            results[ck].update(_table(sweeps, "map50", ideal,
+                                      args.device_model, t))
+            for label, res in sweeps.items():
+                m = res.metrics["map50"]
+                csv_lines.append(f"{ck},{label}," + _csv_row(
+                    m, ideal - m["mean"], res, args.device_model, t))
+                obs.save_array(f"per_chip_map50_{ck}_{label}",
+                               res.per_chip["map50"])
     _write_csv(args, obs, csv_lines)
     report = _finish(args, obs, {"args": vars(args),
                                  "run_id": obs.manifest.get("run_id"),
                                  "qat_s": qat_s,
                                  "qat_kernel_launches": qat_launches,
                                  "results": results})
-    obs.finalize(status="ok", network="detector", device_model="analytic",
-                 t_days=[0.0])
+    obs.finalize(status="ok", network="detector",
+                 device_model=args.device_model, t_days=ts)
     return report
 
 
@@ -377,6 +438,15 @@ def main(argv=None) -> None:
     ap.add_argument("--ablation", default="all",
                     help="'table2' for the full effect sweep, or one column "
                          "name (ideal|devvar|devvar+nl|devvar+nl+peri|all)")
+    ap.add_argument("--device-model", default="analytic",
+                    choices=["analytic", "measured"],
+                    help="device backend the chips are sampled from: the "
+                         "paper's closed forms, or the packaged measured "
+                         "table")
+    ap.add_argument("--t-days", default="0",
+                    help="comma list of deployment ages in days; each age "
+                         "wraps the backend in a retention-drift timeline "
+                         "and repeats the sweep (e.g. '0,30,365')")
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--device", default="cuda",
                     help="torch device (cuda, or cpu for the plain path)")

@@ -60,9 +60,11 @@ def ensemble_apply(ens: ChipEnsemble, x_bits: torch.Tensor, *,
     word lines they are chip-independent and computed once ([B, nb, N]);
     per-chip planes (calibrated dies) or per-chip word lines give them a
     chips axis.  output="binary" gives SA decisions, "diff" the analog
-    difference."""
-    if output not in ("binary", "diff"):
-        raise ValueError(f"output must be 'binary' or 'diff', got {output!r}")
+    difference, "sensed_diff" the difference each chip's periphery reports
+    (`ni.sensed_diff`, the same split of each chip's SA key)."""
+    if output not in ("binary", "diff", "sensed_diff"):
+        raise ValueError(f"output must be 'binary', 'diff' or "
+                         f"'sensed_diff', got {output!r}")
     if per_chip_x:
         assert x_bits.ndim == 3 and x_bits.shape[0] == ens.n_chips, (
             f"per_chip_x needs [chips={ens.n_chips}, batch, fan_in] inputs, "
@@ -77,8 +79,9 @@ def ensemble_apply(ens: ChipEnsemble, x_bits: torch.Tensor, *,
                                accumulation, partial_rows, device)
     if output == "diff":
         return i_pos - i_neg
-    return ni.resolve_sa(ens.sa_keys, i_pos, i_neg, p_pos + p_neg, cfg, spec,
-                         sa_extra_units, device)
+    sense = ni.sensed_diff if output == "sensed_diff" else ni.resolve_sa
+    return sense(ens.sa_keys, i_pos, i_neg, p_pos + p_neg, cfg, spec,
+                 sa_extra_units, device)
 
 
 def ensemble_apply_kernel(ens: ChipEnsemble, x_bits: torch.Tensor, *,
@@ -99,8 +102,8 @@ def ensemble_apply_kernel(ens: ChipEnsemble, x_bits: torch.Tensor, *,
     if device is not None and not device.analytic_periphery:
         raise NotImplementedError(
             f"device model {device.name!r} has a non-analytic periphery; "
-            "the fused kernel supports analytic-periphery backends only (the "
-            "plain ensemble route comes with a later slice)")
+            "the fused kernel supports analytic-periphery backends only; "
+            "use the plain route (backend='plain')")
     if per_chip_x:
         assert x_bits.ndim == 3 and x_bits.shape[0] == ens.n_chips, (
             f"per_chip_x needs [chips={ens.n_chips}, batch, fan_in] inputs, "

@@ -190,6 +190,15 @@ def bernoulli(key: torch.Tensor, p: float, shape: Sequence[int]
     return _ops().threefry_draw(key, shape, "bernoulli", p=p)
 
 
+def measured(key: torch.Tensor, shape: Sequence[int], table: Table
+             ) -> torch.Tensor:
+    """`jnp.interp(norm.cdf(jax.random.normal(key, shape)), xp, fp)` under
+    one jit, table = (xp, fp): the measured device backend's variation
+    mask, an inverse-CDF draw through a quantile table (`tail_plain`'s
+    "measured")."""
+    return _ops().threefry_draw(key, shape, "measured", table=table)
+
+
 # ---------------------------------------------------------- plain versions
 
 def _as_words(data: IntLike, device) -> torch.Tensor:
@@ -276,6 +285,8 @@ def uniform_consts(minval: float, maxval: float) -> Tuple[float, float]:
 #: the normal's uniforms start here, above -1
 NORMAL_LO = float(np.nextafter(np.float32(-1.0), np.float32(0.0)))
 _SQRT2_F32 = float(np.float32(np.sqrt(2)))
+#: sqrt(1/2): the measured tail's normal is at this scale (the cdf's w)
+HALF_SQRT2 = xo.HALF_SQRT2
 
 
 def normal_factor(scale: float) -> float:
@@ -285,7 +296,26 @@ def normal_factor(scale: float) -> float:
 
 
 #: the draws' tails: what each word becomes
-TAILS = ("bits", "uniform", "normal", "lognormal", "bernoulli")
+TAILS = ("bits", "uniform", "normal", "lognormal", "bernoulli", "measured")
+#: the measured tail's table: (quantiles xp, factors fp), Python floats
+Table = Tuple[Sequence[float], Sequence[float]]
+#: the most quantiles a measured tail's table may hold (the kernel's room)
+MAX_TABLE = 32
+
+
+def check_table(table: Table) -> Tuple[Tuple[float, ...], Tuple[float, ...]]:
+    """The measured tail's table as two tuples of float32 values (the
+    rounding `jnp.asarray(..., float32)` gives them); raises unless they
+    are aligned and hold 2 to `MAX_TABLE` points."""
+    if table is None:
+        raise ValueError("the measured tail needs table=(xp, fp)")
+    xp, fp = (tuple(float(v) for v in np.asarray(t, np.float32).ravel())
+              for t in table)
+    if len(xp) != len(fp) or not 2 <= len(xp) <= MAX_TABLE:
+        raise ValueError(f"a measured table needs 2 to {MAX_TABLE} aligned "
+                         f"(quantile, factor) points, got {len(xp)} and "
+                         f"{len(fp)}")
+    return xp, fp
 
 
 def tail_consts(tail: str, minval: float = 0.0, maxval: float = 1.0
@@ -295,7 +325,7 @@ def tail_consts(tail: str, minval: float = 0.0, maxval: float = 1.0
     tail."""
     if tail not in TAILS:
         raise ValueError(f"unknown draw {tail!r}, not one of {TAILS}")
-    if tail in ("normal", "lognormal"):
+    if tail in ("normal", "lognormal", "measured"):
         minval, maxval = NORMAL_LO, 1.0
     elif tail == "bernoulli":
         minval, maxval = 0.0, 1.0
@@ -304,7 +334,7 @@ def tail_consts(tail: str, minval: float = 0.0, maxval: float = 1.0
 
 def tail_plain(words: torch.Tensor, tail: str, *, minval: float = 0.0,
                maxval: float = 1.0, scale: float = 1.0,
-               p: float = 0.5) -> torch.Tensor:
+               p: float = 0.5, table: Table = None) -> torch.Tensor:
     """Words (int64 values in [0, 2**32)) through one draw's tail, on any
     device; every tail but "bits" reads only a word's top 23 bits:
       * "uniform": f * (hi - lo) + lo as one fused multiply-add (XLA
@@ -317,6 +347,11 @@ def tail_plain(words: torch.Tensor, tail: str, *, minval: float = 0.0,
       * "lognormal": exp of the normal at scale = sigma
         (`xla_order.exp_plain`), the device-variation mask;
       * "bernoulli": the uniform on [0, 1) below p, as float32 {0, 1};
+      * "measured": the normal z through `jax.scipy.stats.norm.cdf` and
+        `jnp.interp` over table = (xp, fp) (`xla_order.ndtr_from_w`,
+        `xla_order.interp`); the cdf's w = z sqrt(1/2) is the normal at
+        scale sqrt(1/2), the two constants folded into one as XLA folds
+        them;
       * "bits": the words themselves."""
     lo, span = tail_consts(tail, minval, maxval)
     if tail == "bits":
@@ -330,6 +365,11 @@ def tail_plain(words: torch.Tensor, tail: str, *, minval: float = 0.0,
     if tail == "bernoulli":
         return (u < torch.tensor(p, dtype=torch.float32,
                                  device=words.device)).float()
+    if tail == "measured":
+        xp, fp = (torch.tensor(t, dtype=torch.float32, device=words.device)
+                  for t in check_table(table))
+        w = xo.erf_inv_plain(u, normal_factor(HALF_SQRT2))
+        return xo.interp(xo.ndtr_from_w(w), xp, fp)
     v = xo.erf_inv_plain(u, normal_factor(scale))
     return xo.exp_plain(v) if tail == "lognormal" else v
 
@@ -358,3 +398,9 @@ def bernoulli_plain(key: torch.Tensor, p: float, shape: Sequence[int]
                     ) -> torch.Tensor:
     """Plain version of `bernoulli`, on any device."""
     return tail_plain(random_bits_plain(key, shape), "bernoulli", p=p)
+
+
+def measured_plain(key: torch.Tensor, shape: Sequence[int], table: Table
+                   ) -> torch.Tensor:
+    """Plain version of `measured`, on any device."""
+    return tail_plain(random_bits_plain(key, shape), "measured", table=table)

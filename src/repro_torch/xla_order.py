@@ -26,11 +26,18 @@ reference's CPU tests and this port's parity tests run):
     rounded (`sqrt`; torch's CPU float32 sqrt is not, in about one case in
     200, and its exp differs in the last bit on about one value in ten).
     `jax.random.normal` is XLA's `erf_inv` polynomial (`erf_inv`), which
-    reaches log1p and sqrt; the device-variation mask is an exp.
+    reaches log1p and sqrt; the device-variation mask is an exp;
+  * the measured device backend's mask `jnp.interp(norm.cdf(z), xp, fp)`
+    reaches XLA's float32 `erf` (a rational form, `erf`), its `erfc`
+    (Cephes' erfcf around one exp, `erfc`), `ndtr` (both branches
+    evaluated and selected, `ndtr`) and `jnp.interp` (a search in JAX's
+    float order, then `fp[i-1] + (x - xp[i-1]) / dx * df` with the product
+    and sum fused, `interp`); XLA flushes subnormal results to zero.
 
 `tests/test_torch_sum_order.py` holds every helper against its `jnp`
 counterpart bit for bit at the detector's shapes (16, 17 and 18 IR blocks
-of 60 columns), so a jax release that changes an order names the op.
+of 60 columns) or across the float32 range, so a jax release that changes
+an order names the op.
 
 The sums and scans are plain torch on any device.  `fma`, `erf_inv` and
 `exp` dispatch through `repro_torch.kernels.ops`: a CPU tensor goes to the
@@ -279,3 +286,139 @@ def sqrt(x: torch.Tensor) -> torch.Tensor:
     """Correctly rounded float32 square root (through float64, which
     rounds twice without error for a float32 result)."""
     return torch.sqrt(x.double()).float()
+
+
+def div(a: torch.Tensor, b) -> torch.Tensor:
+    """Correctly rounded float32 a / b (through float64: the float64
+    quotient of two float32 values rounds to the float32 one without
+    error)."""
+    b = torch.as_tensor(b, dtype=torch.float32, device=a.device)
+    return (a.double() / b.double()).float()
+
+
+def _horner(x: torch.Tensor, coeffs) -> torch.Tensor:
+    """c0 x^(k-1) + ... + c(k-1), each step one fused multiply-add."""
+    p = fma_plain(x, coeffs[0], coeffs[1])
+    for c in coeffs[2:]:
+        p = fma_plain(p, x, c)
+    return p
+
+
+# XLA CPU's float32 erf: x clamped to +-3.74392128, then x P(x^2) / Q(x^2),
+# both polynomials fused multiply-adds
+_ERF_CLAMP = 3.74392128
+_ERF_P = (2.29050653e-4, 0.00340829091, 0.0509556942, 0.185208321,
+          1.12837911)
+_ERF_Q = (-1.17916031e-7, 2.35479656e-5, 0.00101796258, 0.0140704699,
+          0.110985048, 0.497469246, 1.0)
+# XLA's float32 erfc (Cephes' erfcf): 1 - x P(x^2) below |x| = 1, else
+# exp(-x^2) / |x| times R(1/x^2) below |x| = 2 or S(1/x^2) from it on,
+# 0 where -x^2 < -88.7228394, reflected to 2 - erfc(-x) for negative x
+_ERFC_P = (7.85386146e-5, -8.0101937e-4, 0.00518832775, -0.0268538129,
+           0.112835854, -0.37612626, 1.12837911)
+_ERFC_R = (0.0232682, -0.138703942, 0.368742466, -0.582473278, 0.621000468,
+           -0.494451523, 0.340488, -0.274112701, 0.563825965)
+_ERFC_S = (-10.477664, 12.9772, -7.49551868, 2.92101908, -1.01526523,
+           0.42184633, -0.282076746, 0.564189494)
+_ERFC_MINLOG = -88.7228394
+#: float32(sqrt(1/2)), the constant of `jax.scipy.special.ndtr`
+HALF_SQRT2 = 0.70710677
+
+
+def _ftz(x: torch.Tensor) -> torch.Tensor:
+    """Subnormal float32 values flushed to (signed) zero, as XLA's CPU
+    backend flushes the results of its float32 arithmetic."""
+    return torch.where(torch.abs(x) < _FLT_MIN, x * 0.0, x)
+
+
+def erf(x: torch.Tensor) -> torch.Tensor:
+    """`lax.erf` on float32 as XLA's CPU backend computes it; plain torch
+    on any device."""
+    c = _ftz(torch.clamp(x, -_ERF_CLAMP, _ERF_CLAMP))
+    c2 = c * c
+    return _ftz(div(c * _horner(c2, _ERF_P), _horner(c2, _ERF_Q)))
+
+
+def _erfc_small(x: torch.Tensor) -> torch.Tensor:
+    """erfc below |x| = 1: 1 - x P(x^2), the last step fused."""
+    return fma_plain(-x, _horner(x * x, _ERFC_P), 1.0)
+
+
+def _erfc_large(x: torch.Tensor) -> torch.Tensor:
+    """erfc from |x| = 1 on: exp(-x^2) / |x| times R or S in 1/x^2."""
+    x2 = x * x
+    a = torch.abs(x)
+    q = div(torch.ones_like(x2), x2)
+    poly = torch.where(a < 2.0, _horner(q, _ERFC_R), _horner(q, _ERFC_S))
+    big = _ftz(_ftz(exp_plain(-x2) * div(torch.ones_like(a), a)) * poly)
+    big = torch.where(-x2 < _ERFC_MINLOG, torch.zeros_like(big), big)
+    return torch.where(x < 0.0, 2.0 - big, big)
+
+
+def _where_split(cond: torch.Tensor, x: torch.Tensor, f_true, f_false
+                 ) -> torch.Tensor:
+    """where(cond, f_true(x), f_false(x)) for elementwise f_true and
+    f_false, each evaluated only where its result is kept."""
+    out = torch.empty_like(x)
+    out[cond] = f_true(x[cond])
+    out[~cond] = f_false(x[~cond])
+    return out
+
+
+def erfc(x: torch.Tensor) -> torch.Tensor:
+    """`lax.erfc` on float32 as XLA's CPU backend computes it (which
+    evaluates both branches and selects); plain torch on any device."""
+    return _where_split(torch.abs(x) < 1.0, x, _erfc_small, _erfc_large)
+
+
+def ndtr_from_w(w: torch.Tensor) -> torch.Tensor:
+    """`jax.scipy.special.ndtr` from its w = x sqrt(1/2) on:
+    0.5 * (1 + erf(w) below |w| = sqrt(1/2), else 2 - erfc(|w|) for
+    positive w and erfc(|w|) otherwise), as XLA evaluates it."""
+    def upper(v):
+        e = erfc(torch.abs(v))
+        return torch.where(v > 0.0, 2.0 - e, e)
+    y = _where_split(torch.abs(w) < HALF_SQRT2, w, lambda v: 1.0 + erf(v),
+                     upper)
+    return y * 0.5
+
+
+def ndtr(x: torch.Tensor) -> torch.Tensor:
+    """`jax.scipy.stats.norm.cdf` on float32 as XLA's CPU backend
+    computes it; plain torch on any device."""
+    return ndtr_from_w(x * HALF_SQRT2)
+
+
+#: `jnp.interp` treats an interval at most this wide as empty
+INTERP_EPS = 2.0 ** -46  # the spacing of float32's eps
+
+
+def _order_key(x: torch.Tensor) -> torch.Tensor:
+    """float32 -> int32 keys in JAX's sort order: -0 as +0, one NaN
+    above +inf, then the total order of the bits."""
+    x = torch.where(x == 0.0, torch.zeros_like(x), x)
+    x = torch.where(torch.isnan(x), torch.full_like(x, float("nan")), x)
+    k = x.view(torch.int32)
+    return torch.where(k < 0, k ^ 0x7FFFFFFF, k)
+
+
+def interp(x: torch.Tensor, xp: torch.Tensor, fp: torch.Tensor
+           ) -> torch.Tensor:
+    """`jnp.interp(x, xp, fp)` on float32 as XLA's CPU backend computes it:
+    i = searchsorted(xp, x, side='right') clipped to [1, len(xp) - 1],
+    fp[i-1] + (x - xp[i-1]) / (xp[i] - xp[i-1]) * (fp[i] - fp[i-1]) with
+    the product and sum one fused multiply-add (fp[i-1] where the interval
+    is at most `INTERP_EPS` wide), fp[0] below xp[0] and fp[-1] above
+    xp[-1]; plain torch on any device."""
+    n = xp.shape[0]
+    i = torch.searchsorted(_order_key(xp).contiguous(),
+                           _order_key(x).contiguous(), right=True)
+    i = torch.clamp(i, 1, n - 1)
+    x0, x1, f0, f1 = xp[i - 1], xp[i], fp[i - 1], fp[i]
+    dx = x1 - x0
+    empty = torch.abs(dx) <= INTERP_EPS
+    f = fma_plain(div(x - x0, torch.where(empty, torch.ones_like(dx), dx)),
+                  f1 - f0, f0)
+    f = torch.where(empty, f0, f)
+    f = torch.where(x < xp[0], fp[0], f)
+    return torch.where(x > xp[-1], fp[-1], f)

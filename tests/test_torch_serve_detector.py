@@ -155,6 +155,29 @@ class TestStatelessKeys:
             assert a.confidence == b.confidence
 
 
+    def test_aged_measured_device_lane_is_the_chunk_forward(self, served):
+        """An engine serving from an aged, measured device (measured@t30d):
+        its committee for request 2 is the MC chunk forward at key
+        fold_in(root, 2) on the same device, bit for bit, and differs from
+        the analytic device's."""
+        from repro_torch.device import get_device_model
+        _, _, det, params, batch, _, responses = served
+        device = get_device_model("measured", t_days=30)
+        eng = _engine(det, params, batch_slots=1, device=device)
+        eng.submit(batch.images[2], request_id=2)
+        eng.process_pending()
+        got = eng.result(2).committee
+        planes, meta = detector_planes(det, params)
+        want = _sample_and_forward(
+            params, torch.from_numpy(batch.images[2][None]),
+            prng.fold_in(prng.PRNGKey(SEED, device="cpu"), 2),
+            torch.arange(COMMITTEE), planes, det_cfg=det.cfg, spec=det.spec,
+            cfg_ni=NonidealConfig.all(), sa_extra=0.0, meta=meta,
+            device=device)[:, 0].numpy()
+        np.testing.assert_array_equal(got, want)
+        assert not np.array_equal(got, responses[2].committee)
+
+
 class TestResponses:
     def test_confidence_population_stats(self, served):
         responses = served[-1]

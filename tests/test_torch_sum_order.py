@@ -168,6 +168,46 @@ def test_erf_inv_is_lax_erf_inv(scale):
                "lax.erf_inv")
 
 
+def _erf_inputs():
+    """Across the float32 range: the normals the measured mask feeds the
+    cdf, every branch edge of erf, erfc and ndtr (0.5 sqrt 2, 1, 2, the
+    erf clamp, erfc's underflow), subnormals, zeros and the infinities."""
+    r = _rng(25)
+    edge = np.float32([0.0, -0.0, 1e-40, -1e-40, 1.17e-38, 0.5, 0.70710677,
+                       -0.70710677, 1.0, -1.0, 2.0, -2.0, 3.74392128, 5.0,
+                       9.3, 9.5, 10.0, 30.0, 1e30, -1e30, np.inf, -np.inf])
+    edge = np.concatenate([edge, np.nextafter(edge, np.float32(np.inf)),
+                           np.nextafter(edge, np.float32(-np.inf))])
+    mags = 10.0 ** r.uniform(-38, 38, 50_000)
+    return np.concatenate([r.standard_normal(100_000) * 1.5,
+                           r.uniform(-12, 12, 50_000),
+                           mags * r.choice([-1.0, 1.0], mags.size),
+                           edge]).astype(np.float32)
+
+
+@pytest.mark.parametrize("name", ["erf", "erfc", "ndtr"])
+def test_erf_family_is_jax(name):
+    ref = {"erf": jax.lax.erf, "erfc": jax.lax.erfc,
+           "ndtr": jax.scipy.stats.norm.cdf}[name]
+    x = _erf_inputs()
+    _same_bits(getattr(xo, name)(torch.from_numpy(x)), jax.jit(ref)(x), name)
+
+
+def test_interp_is_jnp_interp():
+    """On a sampled grid of [0, 1] and beyond, on every quantile and on
+    both sides of it, for the measured table."""
+    from repro.device import MeasuredDeviceModel
+    m = MeasuredDeviceModel.from_file()
+    xp, fp = np.float32(m.var_q), np.float32(m.var_factor)
+    r = _rng(26)
+    x = np.concatenate([r.random(200_000), r.uniform(-1, 2, 10_000), xp,
+                        np.nextafter(xp, np.float32(0)),
+                        np.nextafter(xp, np.float32(1)),
+                        [0.0, -0.0, 1.0, 1e-30]]).astype(np.float32)
+    _same_bits(xo.interp(*map(torch.from_numpy, (x, xp, fp))),
+               jax.jit(jnp.interp)(x, xp, fp), "jnp.interp")
+
+
 def test_elementwise_ops_take_plain_versions_on_the_cpu():
     """On CPU tensors the kernel wrappers are the plain versions, bit for
     bit, and count no launch; other devices raise."""

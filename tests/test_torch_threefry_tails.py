@@ -3,10 +3,11 @@
 Every draw but raw bits reads only a word's top 23 bits, so each tail has
 2^23 inputs.  `prng.tail_plain` (the port's plain tails, which the card's
 kernel is held against bit for bit) is held here, on all of them, against
-a jitted jnp transcription of `jax.random`'s uniform and normal tails and
-of the device-variation mask `jnp.exp(sigma * normal)`
-(`src/repro/core/nonideal.py:64-65`); the transcription is tied to JAX
-itself on the bits of real keys.
+a jitted jnp transcription of `jax.random`'s uniform and normal tails, of
+the device-variation mask `jnp.exp(sigma * normal)`
+(`src/repro/core/nonideal.py:64-65`) and of the measured backend's mask
+`jnp.interp(norm.cdf(normal), xp, fp)` (`src/repro/device/measured.py:98-
+100`); the transcription is tied to JAX itself on the bits of real keys.
 """
 import numpy as np
 import pytest
@@ -18,6 +19,7 @@ import jax.numpy as jnp  # noqa: E402
 from jax import lax  # noqa: E402
 
 from repro.core import nonideal  # noqa: E402
+from repro.device import MeasuredDeviceModel  # noqa: E402
 from repro_torch import prng  # noqa: E402
 
 torch.set_num_threads(2)
@@ -52,6 +54,15 @@ def _bernoulli_tail(p):
                          < jnp.float32(p)).astype(jnp.float32)
 
 
+MEASURED = MeasuredDeviceModel.from_file()
+
+
+def _measured_tail(bits):
+    """`MeasuredDeviceModel.variation_mask` from its words on."""
+    return MEASURED.variation_factor(
+        jax.scipy.stats.norm.cdf(_normal_tail(bits))).astype(jnp.float32)
+
+
 # (id, tail, tail_plain arguments, transcription of words, jax on a key)
 CASES = [
     ("normal", "normal", dict(scale=1.0), _normal_tail,
@@ -69,6 +80,9 @@ CASES = [
      lambda k, s: jax.random.bernoulli(k, 0.5, s).astype(jnp.float32)),
     ("bernoulli_0.3", "bernoulli", dict(p=0.3), _bernoulli_tail(0.3),
      lambda k, s: jax.random.bernoulli(k, 0.3, s).astype(jnp.float32)),
+    ("measured_mask", "measured",
+     dict(table=(MEASURED.var_q, MEASURED.var_factor)), _measured_tail,
+     lambda k, s: MEASURED.variation_mask(k, s)),
 ]
 # bernoulli at p on and around the edges of its integer threshold
 EDGE_P = [0.0, 1.0, 1 - 2**-24, 2**-23, 2**-24, 0.75]
@@ -141,6 +155,7 @@ def test_plain_draws_are_tails_of_the_bits():
     """Each `*_plain` draw is `tail_plain` of `random_bits_plain`."""
     key = prng.fold_in(prng.PRNGKey(5, device="cpu"), torch.arange(3))
     shape = (7, 5)
+    table = (MEASURED.var_q, MEASURED.var_factor)
     bits = prng.random_bits_plain(key, shape)
     pairs = [(prng.uniform_plain(key, shape, -0.3, 2.5),
               prng.tail_plain(bits, "uniform", minval=-0.3, maxval=2.5)),
@@ -149,9 +164,32 @@ def test_plain_draws_are_tails_of_the_bits():
              (prng.lognormal_plain(key, shape, SIGMA),
               prng.tail_plain(bits, "lognormal", scale=SIGMA)),
              (prng.bernoulli_plain(key, 0.3, shape),
-              prng.tail_plain(bits, "bernoulli", p=0.3))]
+              prng.tail_plain(bits, "bernoulli", p=0.3)),
+             (prng.measured_plain(key, shape, table),
+              prng.tail_plain(bits, "measured", table=table))]
     for got, want in pairs:
         assert _differ(got.numpy(), want.numpy()) == 0
     assert torch.equal(prng.tail_plain(bits, "bits"), bits)
     with pytest.raises(ValueError, match="unknown draw"):
         prng.tail_plain(bits, "poisson")
+    with pytest.raises(ValueError, match="table"):
+        prng.tail_plain(bits, "measured")
+    with pytest.raises(ValueError, match="2 to 32"):
+        prng.tail_plain(bits, "measured", table=([0.5], [1.0]))
+    with pytest.raises(ValueError, match="2 to 32"):
+        prng.tail_plain(bits, "measured", table=([0.1, 0.5], [1.0]))
+
+
+def test_measured_tail_takes_any_table():
+    """Another table of the most points the kernel holds (32), with a
+    repeated quantile (an interval of width 0) and factors below 0: the
+    tail is still the jnp transcription on every input."""
+    xp = np.concatenate([np.linspace(0.0005, 0.4, 15), [0.4],
+                         np.linspace(0.45, 0.9995, 16)]).astype(np.float32)
+    fp = (np.cumsum(np.random.default_rng(3).random(32)) - 3.0).astype(
+        np.float32)
+    words = _all_words()[::8]
+    want = jax.jit(lambda b: jnp.interp(jax.scipy.stats.norm.cdf(
+        _normal_tail(b)), xp, fp))(words)
+    got = _tail_plain(words, "measured", dict(table=(xp, fp)))
+    assert _differ(got, want) == 0
