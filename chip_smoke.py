@@ -97,9 +97,14 @@ Phases, each printing its own lines:
   devices (`--only devices` runs it alone): the measured device backend
      and retention drift: the threefry kernel's measured tail on all 2^23
      of its inputs, in order and shuffled, bit-identical to its plain
-     version; the measured draw timed at the periphery shape and at one
-     512-die layer mask beside torch.randn + torch.special.ndtr and its
-     bound per pipe, with the tail's SASS per word; the detector aging
+     version, for the packaged table and each of `MEASURED_TABLES`; the
+     measured draw (bit-identical to its plain version with two tables)
+     timed at the periphery shape and at one 512-die layer mask beside
+     torch.randn + torch.special.ndtr and its bound per pipe, with the
+     tail's SASS per word by class (no constant loaded a word) and, with
+     `--threefry-baseline`, other builds of threefry.cu in turns; the
+     pairs launch (fold_in) at 4 and 512 keys beside a 1-element torch
+     add; the detector aging
      sweep on `yolo_irc.proposed()` at full width (2 images, 8 chips in
      chunks of 4, columns ideal and all) on the measured device at 0 and
      365 days, launches of K1, threefry and its measured tail counted for
@@ -121,6 +126,7 @@ from __future__ import annotations
 
 import dataclasses
 import json
+import math
 import os
 import statistics
 import subprocess
@@ -1491,7 +1497,8 @@ def threefry_sass(source, modes=THREEFRY_SASS):
         tag = f"{mode}{' original' if original else ''}"
         per_word = {c: v / words for c, v in sorted(classes.items())}
         out[tag] = dict(per_word=per_word, voted=voted, registers=regs,
-                        stack=stack, warps=occupancy_warps(regs))
+                        stack=stack, warps=occupancy_warps(regs),
+                        heads={h: v / words for h, v in heads.items()})
         top = sorted(heads.items(), key=lambda kv: -kv[1])[:14]
         log("4 times", f"threefry SASS {source.name} draw_kernel<"
             f"{str(original).lower()}, {mode}>: main loop "
@@ -1522,7 +1529,6 @@ def phase_threefry_times(ops_, baselines=()):
     the one torch call of the same kind) and the bound; each baseline's
     library timed on the same draws in turns with the tree's (baseline,
     kernel, kernel, baseline), its output bit-identical to the kernel's."""
-    import math
     import torch
     from repro_torch import prng
     from repro_torch.kernels import build, threefry as kern
@@ -2675,6 +2681,25 @@ LAYER_AGES = "0,30,365"
 LINEAR_FAN_IN, LINEAR_FAN_OUT, LINEAR_BATCH = 1200, 64, 256
 
 
+# Tables the measured tail is held on beside the packaged one (float64
+# values, which `prng.check_table` rounds to float32): the fewest points;
+# the most (`kMaxTable`, the normal cdf at 32 evenly spaced z); quantiles
+# distinct in float64 but equal in float32 at the start, in the middle and
+# at the end (empty segments, factors of both zero signs and below 0); and
+# ends well inside the range of u, so both end clamps fire on many words.
+_Z32 = tuple(-3.2 + 6.4 * i / 31 for i in range(32))
+MEASURED_TABLES = {
+    "two points": ((0.05, 0.95), (0.4, 2.5)),
+    "32 points": (tuple(0.5 * (1.0 + math.erf(z / math.sqrt(2.0)))
+                        for z in _Z32),
+                  tuple(math.exp(0.4 * z) - 0.3 for z in _Z32)),
+    "float32 ties": ((0.001, 0.001 + 1e-11, 0.1, 0.5, 0.5 + 1e-9, 0.7,
+                      0.7 + 2e-9, 0.999 - 1e-11, 0.999),
+                     (0.3, -0.0, 0.6, 1.0, 0.0, -1.5, 1.4, 2.0, 3.0)),
+    "ends inside": ((0.3, 0.45, 0.5, 0.62, 0.7), (0.8, 0.9, 1.0, 1.1, 1.3)),
+}
+
+
 def measured_table():
     """The packaged dataset's variation table, as the measured tail takes
     it."""
@@ -2682,50 +2707,97 @@ def measured_table():
     return MeasuredDeviceModel.from_file().table
 
 
+def measured_tables():
+    """{name: table} of every table the measured tail is held on, the
+    packaged one first."""
+    return {"packaged": measured_table(), **MEASURED_TABLES}
+
+
 def devices_tail_check():
     """Phase `devices` (a): the measured tail on all 2^23 of its inputs
     (words k << 9 with low bits it ignores), in order and shuffled, through
     `threefry_measured_tail_launch` against `prng.tail_plain` on the card,
-    bit for bit."""
+    bit for bit, for each table of `measured_tables`."""
     import torch
     from repro_torch import prng
     from repro_torch.kernels import threefry as kern
     t0 = time.perf_counter()
-    table = prng.check_table(measured_table())
     k = torch.arange(1 << 23, dtype=torch.int64, device="cuda")
     words = (k << 9) | ((k * 0x9E3779B1) >> 7 & 511)
     perm = torch.randperm(1 << 23, device="cuda",
                           generator=torch.Generator(device="cuda")
                           .manual_seed(61))
-    want = prng.tail_plain(words, "measured", table=table)
     factor = prng.normal_factor(prng.HALF_SQRT2)
-    for order, w, ref in (("in order", words, want),
-                          ("shuffled", words[perm], want[perm])):
-        got = kern.launch_tail(w, "measured", factor=factor, table=table)
-        torch.cuda.synchronize()
-        n = int((got.view(torch.int32) != ref.view(torch.int32)).sum())
-        check(n == 0, f"measured tail {order}: {n} of 2^23 inputs differ "
-              f"from tail_plain")
-    log("devices", f"measured tail: all 2^23 inputs, in order and "
-        f"shuffled, bit-identical to tail_plain "
-        f"({time.perf_counter() - t0:.1f}s)")
+    for name, table in measured_tables().items():
+        table = prng.check_table(table)
+        want = prng.tail_plain(words, "measured", table=table)
+        for order, w, ref in (("in order", words, want),
+                              ("shuffled", words[perm], want[perm])):
+            got = kern.launch_tail(w, "measured", factor=factor,
+                                   table=table)
+            torch.cuda.synchronize()
+            n = int((got.view(torch.int32) != ref.view(torch.int32)).sum())
+            check(n == 0, f"measured tail, table {name!r}, {order}: {n} of "
+                  f"2^23 inputs differ from tail_plain")
+        ties = sum(a == b for a, b in zip(table[0], table[0][1:]))
+        log("devices", f"measured tail, table {name!r} ({len(table[0])} "
+            f"points, {ties} equal in float32, quantiles {table[0][0]:.6g}"
+            f"..{table[0][-1]:.6g}): all 2^23 inputs, in order and "
+            f"shuffled, bit-identical to tail_plain")
+    log("devices", f"measured tail checks: {time.perf_counter() - t0:.1f}s")
     del k, words, perm, want
     torch.cuda.empty_cache()
 
 
-def devices_times():
-    """Phase `devices` (b): the measured tail's SASS per word, then the
-    measured draw at the periphery shape [4, 294912, 60] and at one 512-die
-    layer mask [512, 572, 60]: kernel (bit-identical to the plain version),
-    plain version, torch.randn then torch.special.ndtr (two calls that give
-    other bits), and the bound per pipe; returns {shape tag: numbers}."""
-    import math
+# the measured main loop's SASS a word by these classes: constant and
+# shared loads apart from the rest of memory
+MEASURED_SASS = ("LDC", "LDS", "alu", "fma", "mufu/cvt", "control",
+                 "memory", "other")
+
+
+def measured_sass(source):
+    """The measured draw's main loop (partitionable) in the build of
+    `source`: (its SASS a word outside the vote-guarded blocks by
+    MEASURED_SASS, those in the blocks a word, registers)."""
+    info = threefry_sass(source, modes=(("measured", False),))["measured"]
+    split = dict(info["per_word"])
+    for head in ("LDC", "LDS"):
+        n = sum(v for h, v in info["heads"].items() if h == head)
+        split[head] = n
+        split["memory"] = split.get("memory", 0.0) - n
+    return ({c: split.get(c, 0.0) for c in MEASURED_SASS}, info["voted"],
+            info["registers"])
+
+
+def devices_times(baselines=()):
+    """Phase `devices` (b): the measured tail's SASS a word by class (its
+    main loop may load no constant a word, only the two a trip that every
+    draw's loop reloads: the IMAD adds' 1 and the grid stride), then the
+    measured draw at the periphery shape [4, 294912, 60] and at one
+    512-die layer mask [512, 572, 60]: kernel (bit-identical to the plain
+    version, with the packaged table and with "float32 ties"), plain
+    version, torch.randn then torch.special.ndtr (two calls that give other
+    bits), and the bound per pipe; each build of threefry.cu in
+    `baselines` timed on the same draw in turns with the tree's (baseline,
+    kernel, kernel, baseline), its output bit-identical to the kernel's.
+    Returns {shape tag: numbers}."""
     import torch
     from repro_torch import prng
     from repro_torch.kernels import threefry as kern
     gen = torch.Generator(device="cuda").manual_seed(62)
-    sass = threefry_sass(kern.SOURCE, modes=(("measured", False),))
-    table = measured_table()
+    libs = {src.name: kern.load(src) for src in baselines}
+    for name, src in [("tree", kern.SOURCE)] + [(s.name, s)
+                                                 for s in baselines]:
+        split, voted, regs = measured_sass(src)
+        log("devices", f"measured main loop SASS a word, {name}: "
+            f"{sum(split.values()):.2f} outside the vote-guarded blocks ("
+            + ", ".join(f"{c} {v:.2f}" for c, v in split.items())
+            + f"), {voted:.2f} in them; {regs} registers")
+        if name == "tree":
+            ldc, per_word = split["LDC"], sum(split.values())
+    table = prng.check_table(measured_table())
+    ties = prng.check_table(MEASURED_TABLES["float32 ties"])
+    factor = prng.normal_factor(prng.HALF_SQRT2)
     root = prng.PRNGKey(5, device="cuda")
     out = {}
     for tag, n_keys, shape in (
@@ -2736,13 +2808,31 @@ def devices_times():
         full = (n_keys,) + shape
         call = lambda: prng.measured(keys, shape, table)
         plain = lambda: prng.measured_plain(keys, shape, table)
+        check(same_bits(prng.measured(keys, shape, ties),
+                        prng.measured_plain(keys, shape, ties)),
+              f"measured draw {tag}, table 'float32 ties': differs from the "
+              f"plain version")
         got, want = call(), plain()
         check(same_bits(got, want), f"measured draw {tag}: differs from "
               f"the plain version")
         err = float((got - want).abs().max())
-        del got, want
+        del want
+        base_calls = {
+            name: (lambda lib=lib: kern.launch_draw(
+                keys, n, not prng.is_partitionable(), "measured",
+                factor=factor, table=table, lib=lib))
+            for name, lib in libs.items()}
+        for name, base in base_calls.items():
+            check(same_bits(base().view(got.shape), got),
+                  f"measured draw {tag}: {name} differs from the kernel")
+        del got
         torch.cuda.empty_cache()
+        before = {name: queued_ms(b, reps=7, calls=20)[0]
+                  for name, b in base_calls.items()}
         ms, host = queued_ms(call, reps=7, calls=20)
+        again, _ = queued_ms(call, reps=7, calls=20)
+        after = {name: queued_ms(b, reps=7, calls=20)[0]
+                 for name, b in reversed(base_calls.items())}
         plain_ms = cuda_ms(plain, reps=3)
         lib_ms, _ = queued_ms(lambda: torch.special.ndtr(
             torch.randn(full, generator=gen, device="cuda")), reps=7,
@@ -2750,15 +2840,59 @@ def devices_times():
         b_ms, b_by, pipe = threefry_bound_ms("measured", n_keys, n, True)
         out[tag] = dict(ms=ms, plain_ms=plain_ms, library_ms=lib_ms,
                         bound_ms=b_ms, bound_by=b_by, max_abs_err=err)
-        per_word = sum(sass["measured"]["per_word"].values())
-        log("devices", f"measured draw {tag} {full}: kernel {ms:.4f} ms, "
-            f"plain {plain_ms:.3f} ms, torch.randn + torch.special.ndtr "
-            f"(two calls, other bits) {lib_ms:.4f} ms, bound {b_ms:.4f} ms "
-            f"({b_by}, {pipe}: {threefry_work('measured', True)} per word),"
-            f" share of bound {b_ms / ms:.3f}, {per_word:.2f} SASS "
-            f"instructions per word in the main loop, host enqueue "
-            f"{host:.4f} ms per call")
+        log("devices", f"measured draw {tag} {full}: kernel {ms:.4f} ms "
+            f"(again {again:.4f}), plain {plain_ms:.3f} ms, torch.randn + "
+            f"torch.special.ndtr (two calls, other bits) {lib_ms:.4f} ms, "
+            f"bound {b_ms:.4f} ms ({b_by}, {pipe}: "
+            f"{threefry_work('measured', True)} per word), share of bound "
+            f"{b_ms / ms:.3f}, {per_word:.2f} SASS instructions per word in "
+            f"the main loop, host enqueue {host:.4f} ms per call")
+        for name in base_calls:
+            log("devices", f"measured draw {tag} {full}: baseline {name} "
+                f"{before[name]:.4f} ms before the kernel, "
+                f"{after[name]:.4f} ms after, share of bound "
+                f"{b_ms / max(before[name], after[name]):.3f}")
         torch.cuda.empty_cache()
+    trip = threefry_words(kern.SOURCE)
+    check(ldc * trip <= 2, f"measured main loop: {ldc * trip:g} constant "
+          f"loads a trip of {trip} words, more than the loop's own two")
+    return out
+
+
+def pairs_times():
+    """Phase `devices` (b'): the threefry kernel's pairs launch (fold_in,
+    one block function a key, `threefry_pairs_launch`) at 4 keys (a chunk's
+    chips) and 512 (a layer chunk's dies): device ms a launch, bit-identical
+    to `prng.fold_in_plain`, beside a 1-element torch add (the floor of one
+    launch on the queue) and the bound: each key's 16 bytes, its datum's 8
+    and the 16 written at 3.35 TB/s against its block function (41 ALU, 27
+    adds) on the pipes.  Returns {keys: numbers}."""
+    import torch
+    from repro_torch import prng
+    root = prng.PRNGKey(5, device="cuda")
+    one = torch.zeros(1, device="cuda")
+    floor_ms, _ = queued_ms(lambda: one.add_(1.0), reps=7, calls=50)
+    out = {}
+    for n_keys in (THREEFRY_KEYS, THREEFRY_MASK_KEYS):
+        keys = prng.fold_in(root, torch.arange(n_keys, device="cuda"))
+        data = torch.arange(n_keys, device="cuda") * 7 + 3
+        call = lambda: prng.fold_in(keys, data)
+        check(same_values(call(), prng.fold_in_plain(keys, data)),
+              f"pairs launch, {n_keys} keys: differs from fold_in_plain")
+        ms, host = queued_ms(call, reps=7, calls=50)
+        t_bytes = 40 * n_keys / PEAK_BYTES_PER_S * 1e3
+        blk = THREEFRY_BLOCK[True]
+        t_ops = max(blk["alu"] / PIPE_RATE["alu"],
+                    (blk["alu"] + blk["adds"]) / PIPE_RATE["issue"]) \
+            * n_keys / SM_CLOCKS_PER_S * 1e3
+        out[n_keys] = dict(ms=ms, floor_ms=floor_ms,
+                           bound_ms=max(t_bytes, t_ops),
+                           bound_by="bytes" if t_bytes >= t_ops
+                           else "operations")
+        log("devices", f"threefry pairs launch (fold_in), {n_keys} keys: "
+            f"{ms:.5f} ms a launch, a 1-element torch add {floor_ms:.5f} "
+            f"ms, bound {max(t_bytes, t_ops):.3g} ms "
+            f"({out[n_keys]['bound_by']}), host enqueue {host:.4f} ms")
     return out
 
 
@@ -2817,8 +2951,9 @@ def devices_detector(ops_, main_maps):
             f"wall {wall:.2f}s, peak device memory {peak:.2f} GiB, "
             f"launches K1 {launches['irc_mvm_chips']} (want {want_k1}), "
             f"threefry {launches['threefry']}, of them the measured tail "
-            f"{tails['measured']} and log-normal {tails['lognormal']}; all "
-            f"{launches}")
+            f"{tails['measured']}, log-normal {tails['lognormal']} and "
+            f"fold_in / split (pairs) "
+            f"{launches['threefry'] - sum(tails.values())}; all {launches}")
         check(launches["irc_mvm_chips"] == want_k1
               and tails["measured"] >= 1, f"{device.name}: launches "
               f"{launches}, by tail {tails}")
@@ -2940,12 +3075,13 @@ def devices_irc_linear():
         f"beyond the near-tie bar")
 
 
-def phase_devices(ops_, main_maps=None):
+def phase_devices(ops_, main_maps=None, baselines=()):
     """Phase `devices`: the measured device backend and retention drift on
     the card (`--only devices` runs it alone); returns the measured tail's
     times by shape and its launches on the aging paths."""
     devices_tail_check()
-    times = devices_times()
+    times = devices_times(baselines)
+    pairs_times()
     launches = devices_detector(ops_, main_maps) + devices_layer(ops_)
     devices_irc_linear()
     return dict(times=times, launches=launches)
@@ -2971,7 +3107,8 @@ def main(argv=None) -> int:
     ap.add_argument("--threefry-baseline", default="",
                     help="comma list of other builds of threefry.cu (the "
                          "same C interface, e.g. the parent commit's) that "
-                         "phase 4 times in turns with the tree's")
+                         "phases 4 and `devices` time in turns with the "
+                         "tree's")
     args = ap.parse_args(argv)
     only = set(args.only.split(","))
     baselines = tuple(Path(p).resolve()
@@ -3060,7 +3197,7 @@ def main(argv=None) -> int:
         phase_cli()
     devices = {}
     if "devices" in only:
-        devices = phase_devices(ops, main_maps)
+        devices = phase_devices(ops, main_maps, baselines)
     if "threefry" in only:
         phase_threefry_checks(ops)
         phase_threefry_tails()

@@ -34,8 +34,8 @@
 //     measured.py:98-100`): the normal at scale sqrt(1/2) (the cdf's w, the
 //     two constants folded into one as XLA folds them), XLA's ndtr on it
 //     (erf below |w| = sqrt(1/2), erfc above) and the interpolation over a
-//     table of up to 32 quantiles that travels by value in the launch's
-//     parameters;
+//     table of 2 to 32 quantiles (finite, not decreasing) that travels by
+//     value in the launch's parameters;
 //   * threefry_tail_launch, threefry_measured_tail_launch (checks only): the
 //     same tails on given words.
 // Bit-identity with the plain version: the block function is exact integer
@@ -45,8 +45,9 @@
 // float32(sqrt 2)) come from the host, rounded as the plain version rounds
 // them; erf_inv and exp are the shared `xla_math.cuh` functions that
 // xla_math.cu's kernels use, op for op the plain versions' order, and so
-// are the measured tail's erf, erfc and ndtr (`xla_order.ndtr_from_w`);
-// its interpolation is `xla_order.interp`'s order.  The
+// are the pieces of the measured tail's erf and erfc, which `cdf_word`
+// puts together in `xla_order.ndtr_from_w`'s order; its interpolation is
+// `xla_order.interp`'s order.  The
 // tails take only the top 23 bits of a word, so `chip_smoke.py` phase 3
 // holds each of them on all 2^23 of its inputs (`threefry_tail_launch`
 // against `prng.tail_plain`).
@@ -83,18 +84,32 @@
 //     erf_inv's upper polynomial and its square root run only in warps where
 //     some lane needs them (a vote a word; every loop's trip count is
 //     uniform over a warp, so every lane reaches it).
-// The measured tail finds its segment by a scan over all 32 slots of the
-// table, four selects a slot, whose operands come from the constant bank:
-// simple and exact, not fast (PERF.md has its time against its bound).
+// The measured tail (the normal's instructions, then the cdf and the
+// interpolation) loads nothing from the constant bank in its loop:
+//   * its table travels by value in the launch's parameters, so two
+//     concurrent draws of different tables share nothing, and each block
+//     stages it once into 648 bytes of shared memory (`stage_table`): the
+//     slots' starts xs[32], +inf past the table, and a 16-byte record of
+//     constants a slot, read with one load after the search;
+//   * a 5-step branch-free bisection over xs finds the slot, which is
+//     `jnp.interp`'s searchsorted(xp, u, side='right') clipped to [1, n -
+//     1] (ties pick the last, -0 compares equal to +0); slot 0 (below
+//     xp[0]) and the empty segments hold a constant record, so of XLA's
+//     three clamps only the upper end is left to a compare;
+//   * the cdf (`cdf_word`) runs erf's and erfc's branches on every lane and
+//     selects, as both run in almost every warp anyway; they share w^2 and
+//     one division, and erfc's rare S polynomial waits for a warp vote.
 // Tried and left out (PERF.md): all adds as IMAD for bernoulli (2.7%
 // slower than ptxas's own split), rotations on the FMA pipe as IMAD and
 // IMAD.HI (14-16% slower), log1p's inputs sorted by branch through shared
 // memory (5% slower).
-// Nothing touches shared memory.
+// Only the measured tail touches shared memory.
 
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stdint.h>
+
+#include <cmath>
 
 #include "xla_math.cuh"
 
@@ -122,18 +137,34 @@ constexpr int kMaxTable = 32;
 // the normal's uniform: lo = nextafter(-1, 0), span = 2
 constexpr float kNormalLo = -0x1.fffffep-1f;
 
-// The measured tail's table of n quantiles xp and factors fp, laid out for
-// `jnp.interp`: segment j in [0, n - 2] runs from x0[j] = xp[j] to xp[j +
-// 1], dx[j] and df[j] its float32 widths in x and f; a word takes the last
-// segment whose start is at or below its u (xs[j] = xp[j] from j = 1 to n
-// - 2, +inf elsewhere), segment 0 if none; segments at most 2^-46 wide
-// (bit j of `empty`) give f0[j]; below xp[0] it takes fp[0], above xp[n -
-// 1] fp[n - 1].
+// One slot of the measured table: f = fma((u - x0) / dx, df, f0), read with
+// one 16-byte shared load
+struct __align__(16) Seg {
+  float x0, f0, dx, df;
+};
+
+// The measured tail's table of n quantiles xp (finite, non-decreasing) and
+// factors fp as the slots of a search: a word takes the last slot k whose
+// start xs[k] is at or below its u (slot 0 if none; xs[0] is never read,
+// xs[k] = +inf from k = n on).  Slot k in [1, n - 1] starts at xs[k] =
+// xp[k - 1] and holds `jnp.interp`'s segment k - 1: x0 = xp[k - 1], f0 =
+// fp[k - 1], dx and df its float32 widths in x and f.  Slot 0 (below xp[0])
+// and every segment at most 2^-46 wide hold the constant f0: {0, f0, 1, +-0
+// with f0's sign}, since fma(u, +-0, f0) = f0 for every u >= +0.  Above
+// x_hi = xp[n - 1] a word takes f_hi = fp[n - 1].
 struct Table {
-  float xs[kMaxTable], x0[kMaxTable], f0[kMaxTable], dx[kMaxTable],
-      df[kMaxTable];
-  float x_lo, x_hi, f_lo, f_hi;
-  uint32_t empty;
+  float xs[kMaxTable];
+  Seg seg[kMaxTable];
+  float x_hi, f_hi;
+};
+
+// the table, staged in shared memory once per block
+__shared__ Table staged;
+
+// what each thread keeps of the measured table in registers: the middle
+// slot's start (the bisection's first step) and the upper end
+struct Hot {
+  float mid, x_hi, f_hi;
 };
 
 struct Tail {
@@ -156,7 +187,8 @@ struct Tail {
 // which ptxas splits between IADD3 and IMAD itself (all IMAD was 2.7%
 // slower for bernoulli).  PERF.md has the trials.
 template <int kTail>
-constexpr bool kImadAdds = kTail == kNormal || kTail == kLogNormal;
+constexpr bool kImadAdds =
+    kTail == kNormal || kTail == kLogNormal || kTail == kMeasured;
 
 template <bool kImad>
 __device__ __forceinline__ uint32_t add(uint32_t x, uint32_t y,
@@ -284,31 +316,75 @@ __device__ __forceinline__ float normal_word(float u, float l,
   return __fmul_rn(factor, __fmul_rn(p, u));
 }
 
-// `jnp.interp(u, xp, fp)` over the measured table, u in [0, 1] (the order
-// of `xla_order.interp`): the segment by a scan of compile-time length
-// whose table operands come straight from the kernel's parameters
-__device__ __forceinline__ float interp_word(float u, const Table& t) {
-  float x0 = t.x0[0], f0 = t.f0[0], dx = t.dx[0], df = t.df[0];
-  uint32_t j = 0;
-#pragma unroll
-  for (int k = 1; k < kMaxTable - 1; ++k) {
-    if (t.xs[k] <= u) {
-      x0 = t.x0[k], f0 = t.f0[k], dx = t.dx[k], df = t.df[k];
-      j = k;
-    }
+// The measured table from the launch's parameters into shared memory, by
+// the block's first kMaxTable threads; every thread of the block calls it
+// before its first word.  The upper end goes through shared memory too:
+// taken from the parameters, ptxas would load f_hi from the constant bank
+// for every word's select.
+__device__ __forceinline__ Hot stage_table(const Table& t) {
+  if (threadIdx.x < kMaxTable) {
+    staged.xs[threadIdx.x] = t.xs[threadIdx.x];
+    staged.seg[threadIdx.x] = t.seg[threadIdx.x];
   }
-  float f = __fmaf_rn(__fdiv_rn(__fsub_rn(u, x0), dx), df, f0);
-  if ((t.empty >> j) & 1u) f = f0;
-  if (u < t.x_lo) f = t.f_lo;
-  if (u > t.x_hi) f = t.f_hi;
-  return f;
+  if (threadIdx.x == 0) staged.x_hi = t.x_hi, staged.f_hi = t.f_hi;
+  __syncthreads();
+  return Hot{staged.xs[16], staged.x_hi, staged.f_hi};
+}
+
+// x, computed here: the compiler may not sink its computation into a branch
+// of a later select
+__device__ __forceinline__ float computed(float x) {
+  asm volatile("" : "+f"(x));
+  return x;
+}
+
+// `jax.scipy.special.ndtr` from w = z sqrt(1/2) on, |w| < 4, in the order of
+// `xla_order.ndtr_from_w` (erf below |w| = sqrt(1/2), erfc above), both
+// branches on every lane and the result selected: erf's x^2 and erfc's a^2
+// are one product; one correctly rounded division gives erf's quotient on
+// the lanes below sqrt(1/2) and 1 / a^2 on the others; erfc's S polynomial
+// (a >= 2, ~0.5% of words) runs only where a lane of the warp needs it, so
+// every lane of the warp must reach the vote.  Every operand of the
+// divisions is normal (w is never 0 nor subnormal, Q(w^2) lies in [1, 1.3],
+// a in [2^-24, 4]), so `div_rn_normal` rounds them as `__fdiv_rn` does.
+__device__ __forceinline__ float cdf_word(float w) {
+  const float a = fabsf(w);
+  const float a2 = __fmul_rn(w, w);
+  const bool small = a < kHalfSqrt2;
+  const float num = __fmul_rn(w, erf_p(a2));
+  const float d = div_rn_normal(small ? num : 1.0f, small ? erf_q(a2) : a2);
+  float poly = erfc_r(d);
+  if (__any_sync(kAllLanes, !(a < 2.0f))) {
+    const float s = erfc_s(d);
+    if (!(a < 2.0f)) poly = s;
+  }
+  const float big =
+      __fmul_rn(__fmul_rn(exp_main(-a2), rcp_rn_normal(a)), poly);
+  const float e = a < 1.0f ? erfc_lt1(a, a2) : big;
+  const float upper = computed(w > 0.0f ? __fsub_rn(2.0f, e) : e);
+  return __fmul_rn(small ? __fadd_rn(1.0f, d) : upper, 0.5f);
+}
+
+// `jnp.interp(u, xp, fp)` over the staged table, u in [+0, 1] (the order of
+// `xla_order.interp`): the slot by a 5-step branch-free bisection (the
+// first step's start xs[16] in a register), then one 16-byte load of its
+// constants, the division, the fused multiply-add and the upper end
+__device__ __forceinline__ float interp_word(float u, const Hot& h) {
+  const float* x = staged.xs + (h.mid <= u ? 16 : 0);
+#pragma unroll
+  for (int step = 8; step > 0; step >>= 1)
+    if (x[step] <= u) x += step;
+  const Seg g = staged.seg[x - staged.xs];
+  const float f = __fmaf_rn(__fdiv_rn(__fsub_rn(u, g.x0), g.dx), g.df, g.f0);
+  return u > h.x_hi ? h.f_hi : f;
 }
 
 // Words through the tail, in place (float32 tails leave their bits).
 // Called by every lane of a warp together.
+// (`h`: what the measured tail keeps of its staged table in registers)
 template <int kTail>
 __device__ __forceinline__ void apply_tail(uint32_t (&w)[kWords],
-                                           const Tail& t) {
+                                           const Tail& t, const Hot& h = {}) {
   if constexpr (kTail == kBernoulli) {
     // an IMAD.WIDE and an IMAD, on the FMA pipe
 #pragma unroll
@@ -338,8 +414,8 @@ __device__ __forceinline__ void apply_tail(uint32_t (&w)[kWords],
       float v = normal_word(u[q], l[q], t.factor);
       if constexpr (kTail == kLogNormal) v = xla_exp(v);
       // the measured mask: v = w, the cdf's z sqrt(1/2)
-      if constexpr (kTail == kMeasured) v = interp_word(ndtr_from_w(v),
-                                                        t.table);
+      if constexpr (kTail == kMeasured)
+        v = interp_word(cdf_word(v), h);
       w[q] = __float_as_uint(v);
     }
   }
@@ -402,7 +478,8 @@ __device__ __forceinline__ void store_range(char* row, uint32_t c,
 template <bool kOriginal, int kTail>
 __global__ void __launch_bounds__(kThreads)
 draw_kernel(const long long* __restrict__ keys, long long key_stride,
-            void* __restrict__ out, unsigned n_keys, uint32_t n, Tail t) {
+            void* __restrict__ out, unsigned n_keys, uint32_t n,
+            const __grid_constant__ Tail t) {
   constexpr unsigned kE = kElem<kTail>;
   constexpr bool kImad = kImadAdds<kTail>;
   const uint32_t one = t.one;
@@ -413,6 +490,8 @@ draw_kernel(const long long* __restrict__ keys, long long key_stride,
   const uint32_t lane = threadIdx.x & 31u;
   const uint32_t first = blockIdx.x * kThreads + (threadIdx.x & ~31u);
   const uint32_t step = gridDim.x * kThreads;
+  Hot h{};
+  if constexpr (kTail == kMeasured) h = stage_table(t.table);
   for (unsigned l = blockIdx.y; l < n_keys; l += gridDim.y) {
     const Key k = make_key(keys + (long long)l * key_stride);
     char* row = static_cast<char*>(out) + (size_t)l * n * kE;
@@ -426,10 +505,10 @@ draw_kernel(const long long* __restrict__ keys, long long key_stride,
       const uint32_t c = head + g * kWords;
       uint32_t a[kWords], b[kWords];
       blocks<kOriginal, kImad, false>(k, one, c, m, full, a, b);
-      apply_tail<kTail>(a, t);
+      apply_tail<kTail>(a, t, h);
       if (g < groups) store<kTail>(row, c, a, true);
       if constexpr (kOriginal) {
-        apply_tail<kTail>(b, t);
+        apply_tail<kTail>(b, t, h);
         if (g < groups) store<kTail>(row_b, c, b, vec_b);
       }
     }
@@ -440,10 +519,10 @@ draw_kernel(const long long* __restrict__ keys, long long key_stride,
       uint32_t a[kWords], b[kWords];
       blocks<kOriginal, kImad, true>(k, one, c, m, full, a, b);
       const uint32_t lo = lane == 0 ? 0u : tail0;
-      apply_tail<kTail>(a, t);
+      apply_tail<kTail>(a, t, h);
       if (lane < 2) store_range<kTail>(row, c, a, lo, lane == 0 ? head : m);
       if constexpr (kOriginal) {
-        apply_tail<kTail>(b, t);
+        apply_tail<kTail>(b, t, h);
         if (lane < 2)
           store_range<kTail>(row_b, c, b, lo, lane == 0 ? head : full);
       }
@@ -455,8 +534,10 @@ draw_kernel(const long long* __restrict__ keys, long long key_stride,
 template <int kTail>
 __global__ void __launch_bounds__(kThreads)
 tail_kernel(const long long* __restrict__ words, float* __restrict__ out,
-            uint32_t n, Tail t) {
+            uint32_t n, const __grid_constant__ Tail t) {
   const uint32_t groups = n / kWords;
+  Hot h{};
+  if constexpr (kTail == kMeasured) h = stage_table(t.table);
   for (uint32_t g0 = blockIdx.x * kThreads + (threadIdx.x & ~31u);
        g0 < groups; g0 += gridDim.x * kThreads) {
     const uint32_t g = g0 + (threadIdx.x & 31u);
@@ -464,7 +545,7 @@ tail_kernel(const long long* __restrict__ words, float* __restrict__ out,
 #pragma unroll
     for (int q = 0; q < kWords; ++q)
       w[q] = g < groups ? (uint32_t)words[g * kWords + q] : 0u;
-    apply_tail<kTail>(w, t);
+    apply_tail<kTail>(w, t, h);
     if (g < groups) store<kTail>(reinterpret_cast<char*>(out), g * kWords, w,
                                  false);
   }
@@ -561,26 +642,34 @@ bool tail_ok(int tail, float lo, float span) {
   return true;
 }
 
-// The measured table from n quantiles xp (increasing) and factors fp,
-// float32; false unless 2 <= n <= kMaxTable.  Widths are float32
-// differences, as `jnp.interp` takes them.
+// the slot that gives f0 for every u >= +0
+Seg constant_seg(float f0) { return Seg{0.0f, f0, 1.0f, copysignf(0.0f, f0)}; }
+
+// The measured table from n float32 quantiles xp and factors fp; false
+// unless 2 <= n <= kMaxTable, every value and every float32 difference of
+// neighbours is finite and xp does not decrease (`prng.check_table`'s
+// terms).  Widths are float32 differences, as `jnp.interp` takes them.
 bool make_table(const float* xp, const float* fp, int n, Table& t) {
   if (xp == nullptr || fp == nullptr || n < 2 || n > kMaxTable) return false;
-  t = Table{};
-  for (int j = 0; j < kMaxTable; ++j) {
-    const int s = j < n - 1 ? j : n - 2;
-    t.xs[j] = j >= 1 && j <= n - 2 ? xp[j] : INFINITY;
-    t.x0[j] = xp[s];
-    t.f0[j] = fp[s];
-    const float dx = xp[s + 1] - xp[s];
-    const bool empty = fabsf(dx) <= 0x1p-46f;
-    t.dx[j] = empty ? 1.0f : dx;
-    t.df[j] = fp[s + 1] - fp[s];
-    if (empty) t.empty |= 1u << j;
+  for (int j = 0; j < n; ++j) {
+    if (!std::isfinite(xp[j]) || !std::isfinite(fp[j])) return false;
+    if (j > 0 && (!(xp[j] >= xp[j - 1]) ||
+                  !std::isfinite(xp[j] - xp[j - 1]) ||
+                  !std::isfinite(fp[j] - fp[j - 1])))
+      return false;
   }
-  t.x_lo = xp[0];
+  t = Table{};
+  t.xs[0] = -INFINITY;
+  t.seg[0] = constant_seg(fp[0]);
+  for (int k = 1; k < kMaxTable; ++k) {
+    t.xs[k] = k < n ? xp[k - 1] : INFINITY;
+    if (k >= n) continue;
+    const float dx = xp[k] - xp[k - 1];
+    t.seg[k] = fabsf(dx) <= 0x1p-46f
+                   ? constant_seg(fp[k - 1])
+                   : Seg{xp[k - 1], fp[k - 1], dx, fp[k] - fp[k - 1]};
+  }
   t.x_hi = xp[n - 1];
-  t.f_lo = fp[0];
   t.f_hi = fp[n - 1];
   return true;
 }

@@ -11,7 +11,9 @@ launch is refused and never fall back to the plain versions
 (`repro_torch.prng`).  `launch_tail` runs a draw's tail alone on given
 words, for the checks that hold it against `prng.tail_plain`.  The
 measured tail's quantile table travels by value in the launch's
-parameters (`threefry_measured_launch`, `threefry_measured_tail_launch`).
+parameters (`threefry_measured_launch`, `threefry_measured_tail_launch`),
+and each block stages it in shared memory; the launchers refuse a table
+that `prng.check_table` refuses.
 """
 from __future__ import annotations
 

@@ -306,16 +306,24 @@ MAX_TABLE = 32
 def check_table(table: Table) -> Tuple[Tuple[float, ...], Tuple[float, ...]]:
     """The measured tail's table as two tuples of float32 values (the
     rounding `jnp.asarray(..., float32)` gives them); raises unless they
-    are aligned and hold 2 to `MAX_TABLE` points."""
+    are aligned and hold 2 to `MAX_TABLE` points, every value and every
+    float32 difference of neighbours is finite, and the quantiles do not
+    decrease (`jnp.interp`'s terms; ties are empty intervals)."""
     if table is None:
         raise ValueError("the measured tail needs table=(xp, fp)")
-    xp, fp = (tuple(float(v) for v in np.asarray(t, np.float32).ravel())
-              for t in table)
-    if len(xp) != len(fp) or not 2 <= len(xp) <= MAX_TABLE:
+    xa, fa = (np.asarray(t, np.float32).ravel() for t in table)
+    if len(xa) != len(fa) or not 2 <= len(xa) <= MAX_TABLE:
         raise ValueError(f"a measured table needs 2 to {MAX_TABLE} aligned "
-                         f"(quantile, factor) points, got {len(xp)} and "
-                         f"{len(fp)}")
-    return xp, fp
+                         f"(quantile, factor) points, got {len(xa)} and "
+                         f"{len(fa)}")
+    with np.errstate(over="ignore", invalid="ignore"):
+        steps = np.concatenate([np.diff(xa), np.diff(fa)])
+    if not (np.isfinite(xa).all() and np.isfinite(fa).all()
+            and np.isfinite(steps).all() and (np.diff(xa) >= 0).all()):
+        raise ValueError("a measured table needs finite values, finite "
+                         "float32 steps between neighbours and quantiles "
+                         "that do not decrease")
+    return (tuple(float(v) for v in xa), tuple(float(v) for v in fa))
 
 
 def tail_consts(tail: str, minval: float = 0.0, maxval: float = 1.0

@@ -193,3 +193,90 @@ def test_measured_tail_takes_any_table():
         _normal_tail(b)), xp, fp))(words)
     got = _tail_plain(words, "measured", dict(table=(xp, fp)))
     assert _differ(got, want) == 0
+
+
+def _smoke_tables():
+    """{name: (xp, fp) float32} of every table `chip_smoke.py` holds the
+    card's measured tail on: the packaged one and `MEASURED_TABLES`."""
+    import sys
+    from pathlib import Path
+    sys.path.insert(0, str(Path(__file__).resolve().parent))
+    from torch_smoke_loader import chip_smoke
+    tables = {"packaged": (MEASURED.var_q, MEASURED.var_factor),
+              **chip_smoke().MEASURED_TABLES}
+    return {name: tuple(np.float32(t) for t in prng.check_table(table))
+            for name, table in tables.items()}
+
+
+TABLE_NAMES = ("packaged", "two points", "32 points", "float32 ties",
+               "ends inside")
+
+
+def _words_near(xp, u_of, per_side=4):
+    """Words whose u (monotone in the word's 23 bits) lies nearest each
+    quantile, `per_side` on each side: a search over every 256th word, then
+    over every word of the bracket."""
+    coarse = np.arange(0, N_MANT, 256, dtype=np.uint32)
+    u = u_of(coarse << np.uint32(9))
+    lo = np.clip(np.searchsorted(u, xp) - 1, 0, coarse.size - 1)
+    fine = (coarse[lo][:, None] + np.arange(512, dtype=np.uint32)).clip(
+        0, N_MANT - 1)
+    uf = u_of(fine.ravel() << np.uint32(9)).reshape(fine.shape)
+    at = np.array([np.searchsorted(r, q) for r, q in zip(uf, xp)])
+    cols = (at[:, None] + np.arange(-per_side, per_side)).clip(0, 511)
+    return np.take_along_axis(fine, cols, 1).ravel() << np.uint32(9)
+
+
+@pytest.mark.parametrize("name", TABLE_NAMES)
+def test_measured_tail_on_each_table(name):
+    """`prng.tail_plain`'s measured tail on each table the card's kernel is
+    held on (`chip_smoke.MEASURED_TABLES`: 2 and 32 points, quantiles equal
+    in float32, ends inside the range of u), against jitted
+    `jnp.interp(norm.cdf(normal), xp, fp)`: on sampled words, the extreme
+    words, and the words whose u lies nearest each quantile."""
+    xp, fp = _smoke_tables()[name]
+    u_of = jax.jit(lambda b: jax.scipy.stats.norm.cdf(_normal_tail(b)))
+    r = np.random.default_rng(27)
+    words = np.concatenate([
+        r.integers(0, N_MANT, 1 << 16, dtype=np.uint32) << np.uint32(9),
+        np.uint32([0, 1 << 9, (N_MANT - 1) << 9, (N_MANT - 2) << 9]),
+        _words_near(xp, lambda w: np.asarray(u_of(w)))])
+    want = jax.jit(lambda b: jnp.interp(jax.scipy.stats.norm.cdf(
+        _normal_tail(b)), xp, fp))(words)
+    got = _tail_plain(words, "measured", dict(table=(xp, fp)))
+    assert _differ(got, want) == 0
+
+
+@pytest.mark.parametrize("name", TABLE_NAMES)
+def test_interp_on_each_table(name):
+    """`xla_order.interp` over each of those tables against jitted
+    `jnp.interp`: on every quantile and its two float32 neighbours on
+    each side, u sampled in [0, 1] and beyond, and the ends of [0, 1]."""
+    from repro_torch import xla_order as xo
+    xp, fp = _smoke_tables()[name]
+    near = [xp]
+    for direction in (np.float32(-np.inf), np.float32(np.inf)):
+        v = xp
+        for _ in range(2):
+            v = np.nextafter(v, direction)
+            near.append(v)
+    r = np.random.default_rng(28)
+    x = np.concatenate(near + [r.random(50_000), r.uniform(-1, 2, 5_000),
+                               [0.0, -0.0, 1.0, 1e-30]]).astype(np.float32)
+    got = xo.interp(*map(torch.from_numpy, (x, xp, fp)))
+    assert _differ(got.numpy(), jax.jit(jnp.interp)(x, xp, fp)) == 0
+
+
+@pytest.mark.parametrize("table", [
+    ((0.5, 0.1, 0.9), (1.0, 2.0, 3.0)),
+    ((0.1, float("nan"), 0.9), (1.0, 2.0, 3.0)),
+    ((0.1, 0.5), (1.0, float("inf"))),
+    ((-3e38, 3e38), (1.0, 2.0)),
+    ((0.1, 0.5), (-3e38, 3e38))],
+    ids=["decreasing", "nan", "infinite", "x step overflows",
+         "f step overflows"])
+def test_check_table_refuses_tables_outside_interp_terms(table):
+    """Tables on which `jnp.interp` has no defined or finite answer: the
+    measured tail refuses them before any draw."""
+    with pytest.raises(ValueError, match="do not decrease"):
+        prng.check_table(table)
