@@ -7,8 +7,9 @@ Phases, each printing its own lines:
   1. environment: torch/CUDA versions, the card's name and power limit;
   2. build: compiles src/repro_torch/csrc/{irc_mvm,ternary_matmul,
      flash_attention,xla_math,threefry}.cu for sm_90a, one nvcc process
-     each, all started together; fails if ptxas spills in, or serializes
-     the wgmmas of (C7520), the tensor-core kernels (K3, K4);
+     each, all started together; fails if ptxas spills in any kernel (K1
+     at each of its row tiles among them) or serializes the wgmmas of
+     (C7520) the tensor-core kernels (K3, K4);
   3. kernels against their plain PyTorch versions: the IRC MVM (K1/K2) at
      the detector's full-width shapes (shared/per-chip word lines and
      placement planes, binary and diff outputs, all effects on and off; the
@@ -84,16 +85,32 @@ Phases, each printing its own lines:
   6. one whole-network chunk through the kernel and through the plain
      route; 512-die layer chunks through both routes (proposed, calibrated
      per-chip planes, binary single-shot), flips only at near-ties;
+  autotune (`--only autotune` runs it alone): K1's row tiles and the
+     detector's routing: every candidate tile (`irc_mvm.TILES`)
+     bit-identical to K1's plain version at phase 3's full-width and 28
+     ragged shapes; the autotuner's sweep (CUDA events) of the proposed
+     design's chunk (4 chips x 2 images) and wave (committee 4 x 1 image)
+     problems into a temporary table, never the committed one: each tile
+     and the plain route timed whole, each tile's bare K1 launch beside its
+     bound and the four-bmm yardstick, and the winner per problem against
+     the committed entry for this card; then `run_ablation_detector` at
+     full width (4 chips, one chunk, ideal and all) under `use_kernel`
+     None, True and False: K1 launched exactly where the committed table
+     routes it (none under False, 14 a chunk under True), per-chip mAPs of
+     the three within 0.02.  The phases before it (3, 5, 6, serve) and
+     `devices` pass `use_kernel=True` and hold K1 whatever the table says;
   7. the CLIs `python -m repro_torch.launch.mc --network detector --chips 4`
-     (the proposed design; the baseline, `--det-scheme binary --ablation
-     table2`), `--network layer --chips 64 --ablation table2 --backend
-     kernel`, and the detector after QAT, `--chips 16 --ablation table2
-     --det-steps 3` (and 20) and `--chips 16 --det-steps 2 --train-chips
-     2`, each into a run directory under a temporary one (the layer's
-     checked for manifest.json, metrics.jsonl and results.csv), and
-     `python -m repro_torch.launch.serve --network detector --requests 6
-     --slots 2 --committee 4 --trace`, whose torch.profiler trace must
-     hold a CUDA kernel event of K1; the seven processes run side by side;
+     (the proposed design, at `--det-backend` auto, plain and kernel, with
+     per-chip mAPs within 0.02; the baseline, `--det-scheme binary
+     --ablation table2`), `--network layer --chips 64 --ablation table2
+     --backend kernel`, and the detector after QAT, `--chips 16 --ablation
+     table2 --det-steps 3` (and 20) and `--chips 16 --det-steps 2
+     --train-chips 2`, each into a run directory under a temporary one
+     (the layer's checked for manifest.json, metrics.jsonl and
+     results.csv), and `python -m repro_torch.launch.serve --network
+     detector --requests 6 --slots 2 --committee 4 --det-backend kernel
+     --trace`, whose torch.profiler trace must hold a CUDA kernel event of
+     K1; the nine processes run side by side;
   devices (`--only devices` runs it alone): the measured device backend
      and retention drift: the threefry kernel's measured tail on all 2^23
      of its inputs, in order and shuffled, bit-identical to its plain
@@ -312,12 +329,13 @@ def ragged_case(C: int, B: int, R: int, N: int, per_chip_x: bool,
 
 
 def check_layout(tag, ops_, C, B, per_chip_x, per_chip_g, gen, shape=None,
-                 x_kind="bits"):
+                 x_kind="bits", tiles=(None,)):
     """Kernel vs plain version on one layout, at full width or at `shape`
-    (R, N) with word lines of `x_kind` (`ragged_case`): counts exact, the
-    diff and binary outputs bit-identical (the kernel adds and rounds in the
-    plain version's float32 order).  Returns (max |diff error|, binary
-    flips)."""
+    (R, N) with word lines of `x_kind` (`ragged_case`), at each of K1's row
+    `tiles` (None: the default; C = 1 with both operands shared then goes
+    through K2): counts exact, the diff and binary outputs bit-identical
+    (the kernel adds and rounds in the plain version's float32 order).
+    Returns (max |diff error|, binary flips)."""
     import torch
     from repro_torch.kernels.ref import (IrcEpilogueParams,
                                          irc_mvm_chips_ref, near_tie_flips)
@@ -330,11 +348,14 @@ def check_layout(tag, ops_, C, B, per_chip_x, per_chip_g, gen, shape=None,
                                                   per_chip_g, gen, x_kind)
     single = C == 1 and not per_chip_x and not per_chip_g
 
-    def run(params, a, b, c, d):
-        if single:
+    def run(params, a, b, c, d, tile):
+        if single and tile is None:
             return ops_.irc_mvm(x, a[0], b[0], c, d, eps[0], rnd[0],
                                 params)[None]
-        return ops_.irc_mvm_chips(x, a, b, c, d, eps, rnd, params)
+        return ops_.irc_mvm_chips(x, a, b, c, d, eps, rnd, params, tile=tile)
+
+    def tagged(tile):
+        return tag if tile is None else f"{tag} tile {tile}"
 
     off = dict(apply_nonlinearity=False, apply_ir=False, apply_sa=False,
                apply_range=False)
@@ -348,9 +369,13 @@ def check_layout(tag, ops_, C, B, per_chip_x, per_chip_g, gen, shape=None,
     # rounding; their counts reach the outputs checked below)
     counted = ((gpc, zeros, 1.0, gp), (zeros, gnc, -1.0, gn))
     for a, b, sign, g in counted if x_kind == "bits" else ():
-        got = run(p_diff, a, b, gp, gn)
-        want = sign * (x @ g).expand(got.shape)
-        check(torch.equal(got, want), f"{tag}: counts differ")
+        want = sign * (x @ g)
+        for tile in tiles:
+            got = run(p_diff, a, b, gp, gn, tile)
+            check(torch.equal(got, want.expand(got.shape)),
+                  f"{tagged(tile)}: counts differ")
+            del got
+        del want
     del gpc, gnc, zeros
     worst, flips = 0.0, 0
     for effects in ("all", "none"):
@@ -358,40 +383,59 @@ def check_layout(tag, ops_, C, B, per_chip_x, per_chip_g, gen, shape=None,
         for output in ("diff", "binary"):
             params = IrcEpilogueParams.from_macro(DEFAULT_MACRO,
                                                   output=output, **eff)
-            got = run(params, ep, en, gp, gn)
             want, margin = irc_mvm_chips_ref(x, ep, en, gp, gn, eps, rnd,
                                              params, margin=True)
-            if output == "diff":
-                err = float((got - want).abs().max())
-                worst = max(worst, err)
-                same = float((got == want).float().mean())
-                if shape is None:
-                    log("3 kernels", f"{tag} {effects}: diff bit-identical "
-                        f"to the plain version on {same:.6f} of outputs")
-                check(torch.equal(got, want),
-                      f"{tag} {effects}: diff not bit-identical, max|err| "
-                      f"{err}")
-            else:
-                n, _ = near_tie_flips(got, want, margin)
-                check(n == 0, f"{tag} {effects}: {n} binary flips")
-                flips += n
-            del got, want, margin
+            for tile in tiles:
+                got = run(params, ep, en, gp, gn, tile)
+                if output == "diff":
+                    err = float((got - want).abs().max())
+                    worst = max(worst, err)
+                    same = float((got == want).float().mean())
+                    if shape is None:
+                        log("3 kernels", f"{tagged(tile)} {effects}: diff "
+                            f"bit-identical to the plain version on "
+                            f"{same:.6f} of outputs")
+                    check(torch.equal(got, want),
+                          f"{tagged(tile)} {effects}: diff not "
+                          f"bit-identical, max|err| {err}")
+                else:
+                    n, _ = near_tie_flips(got, want, margin)
+                    check(n == 0, f"{tagged(tile)} {effects}: {n} binary "
+                          f"flips")
+                    flips += n
+                del got
+            del want, margin
     torch.cuda.synchronize()
     return worst, flips
+
+
+# K1/K2 at the detector's full width: (tag, C, B, per-chip x, per-chip g)
+K1_FULL_CASES = (
+    ("s0b0 shared x, shared g", 4, 2 * S0_ROWS_PER_IMAGE, False, False),
+    ("s0b1 per-chip x, shared g", 4, 2 * S0_ROWS_PER_IMAGE, True, False),
+    ("s1 per-chip x, per-chip g", 4, 2 * S1_ROWS_PER_IMAGE, True, True),
+    ("K2 single chip C=1", 1, 2 * S0_ROWS_PER_IMAGE, False, False))
+
+
+def ptxas_spills(text, stack=False):
+    """The `ptxas -v` lines of a build log that report spill stores or
+    loads, or (unless `stack`) a stack frame."""
+    import re
+    bad = []
+    for ln in text.splitlines():
+        m = re.search(r"(\d+) bytes stack frame, (\d+) bytes spill stores, "
+                      r"(\d+) bytes spill loads", ln)
+        if m and (int(m[2]) or int(m[3]) or (int(m[1]) and not stack)):
+            bad.append(ln.strip())
+    return bad
 
 
 def phase_kernels(ops_):
     """Phase 3: the kernel against its plain version at full width."""
     import torch
     gen = torch.Generator(device="cuda").manual_seed(1234)
-    B0 = 2 * S0_ROWS_PER_IMAGE
-    B1 = 2 * S1_ROWS_PER_IMAGE
-    cases = (("s0b0 shared x, shared g", 4, B0, False, False),
-             ("s0b1 per-chip x, shared g", 4, B0, True, False),
-             ("s1 per-chip x, per-chip g", 4, B1, True, True),
-             ("K2 single chip C=1", 1, B0, False, False))
     report = {}
-    for tag, C, B, pcx, pcg in cases:
+    for tag, C, B, pcx, pcg in K1_FULL_CASES:
         t0 = time.perf_counter()
         err, flips = check_layout(tag, ops_, C, B, pcx, pcg, gen)
         report[tag] = (err, flips)
@@ -1773,7 +1817,8 @@ def phase_main_path(ops_):
     ops_.reset_launches()
     t0 = time.perf_counter()
     results = run_ablation_detector(key, det, params, images, ev.boxes,
-                                    ev.classes, ablations=columns, mc=mc)
+                                    ev.classes, ablations=columns, mc=mc,
+                                    use_kernel=True)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     launches = dict(ops_.LAUNCHES)
@@ -1854,7 +1899,7 @@ def early_stop_check(det, params, images, ev, key, mc, full):
     for pipeline in (False, True):
         res = run_mc_detector(key, det, params, images, ev.boxes, ev.classes,
                               mc=mc_all, stderr_target=target,
-                              pipeline=pipeline)
+                              pipeline=pipeline, use_kernel=True)
         got[pipeline] = res
         check(res.n_chips == stop and np.array_equal(res.per_chip["map50"],
                                                      full[:stop]),
@@ -2137,7 +2182,7 @@ def phase_network(ops_):
         outs[impl] = _sample_and_forward(
             params, images, key, ids, planes, det_cfg=cfg, spec=det.spec,
             cfg_ni=NonidealConfig.all(), sa_extra=0.0, meta=meta,
-            kernel_impl=impl).cpu().numpy()
+            use_kernel=True, kernel_impl=impl).cpu().numpy()
         torch.cuda.empty_cache()
     a, b = outs["kernel"], outs["ref"]
     check(a.shape == b.shape == (2, 1) + det.head_geometry()
@@ -2192,7 +2237,8 @@ def phase_serve(ops_):
 
     def engine(**kw):
         return DetectorServeEngine(det, params, committee=SERVE_COMMITTEE,
-                                   batch_slots=SERVE_SLOTS, seed=0, **kw)
+                                   batch_slots=SERVE_SLOTS, seed=0,
+                                   use_kernel=True, **kw)
 
     eng = engine()
     torch.cuda.synchronize()
@@ -2263,7 +2309,7 @@ def phase_serve(ops_):
         return _sample_and_forward(
             params, img, key, ids, planes, det_cfg=cfg, spec=det.spec,
             cfg_ni=NonidealConfig.all(), sa_extra=0.0, meta=meta,
-            kernel_impl=impl)[:, 0]
+            use_kernel=True, kernel_impl=impl)[:, 0]
 
     outs = {impl: lane(impl).cpu().numpy() for impl in ("kernel", "ref")}
     same = bool(np.array_equal(got, outs["kernel"]))
@@ -2559,7 +2605,8 @@ def phase_profile():
     def detector_chunk():
         return _sample_and_forward(
             params, images, key, ids, planes, det_cfg=cfg, spec=det.spec,
-            cfg_ni=NonidealConfig.all(), sa_extra=0.0, meta=meta)
+            cfg_ni=NonidealConfig.all(), sa_extra=0.0, meta=meta,
+            use_kernel=True)
 
     profile_breakdown("detector chunk (4 chips x 2 images, all effects)",
                       detector_chunk)
@@ -2606,6 +2653,206 @@ def qat_profile(det, data):
         torch.cuda.empty_cache()
 
 
+# phase `autotune`: K1's row tiles, the autotuner's sweep and the
+# detector's auto routing.  Problems: one sweep chunk (4 chips x 2 images)
+# and the service's lanes (a committee of 4 on 1 image) of the proposed
+# design; the per-chip mAP bar between routes (the detector parity tests')
+AUTOTUNE_CHIPS, AUTOTUNE_BATCH, AUTOTUNE_WAVE_BATCH = 4, 2, 1
+MAP_NEAR_TIE = 0.02
+
+
+def tuning_prefix(card_name):
+    """The tuning table's key prefix of a card: "cuda/<slug>/"."""
+    from repro_torch.kernels.autotune import card_slug
+    return f"cuda/{card_slug(card_name)}/"
+
+
+def autotune_verdicts(measured, committed):
+    """Each measured record (table key -> record) against the committed
+    table: [(key, (bm, tm, use_kernel) measured, the committed triple or
+    None, verdict)], the verdict "agrees" (same route and tile), "same
+    route" (the tile differs), "differs" (the route differs) or "absent"
+    (no committed entry)."""
+    out = []
+    for key in sorted(measured):
+        m = measured[key]
+        got = (int(m["bm"]), int(m["tm"]), bool(m["use_kernel"]))
+        c = committed.get(key)
+        if c is None:
+            out.append((key, got, None, "absent"))
+            continue
+        want = (int(c["bm"]), int(c["tm"]), bool(c["use_kernel"]))
+        verdict = ("agrees" if got == want
+                   else "same route" if got[2] == want[2] else "differs")
+        out.append((key, got, want, verdict))
+    return out
+
+
+def autotune_tiles(ops_):
+    """Phase `autotune` (a): every candidate tile of K1 bit-identical to
+    its plain version at the full-width shapes of phase 3 (K2's C = 1 case
+    through K1) and at its 28 ragged shapes."""
+    import torch
+    from repro_torch.kernels.irc_mvm import TILES
+    gen = torch.Generator(device="cuda").manual_seed(1234)
+    t0 = time.perf_counter()
+    for tag, C, B, pcx, pcg in K1_FULL_CASES:
+        err, flips = check_layout(tag, ops_, C, B, pcx, pcg, gen,
+                                  tiles=TILES)
+        check(err == 0.0 and flips == 0, f"{tag}: tiles differ")
+        torch.cuda.empty_cache()
+    gen = torch.Generator(device="cuda").manual_seed(4321)
+    for C, B, R, N, pcx, pcg in k1_ragged_cases():
+        err, flips = check_layout(f"ragged C={C} B={B} R={R} N={N}", ops_,
+                                  C, B, pcx, pcg, gen, shape=(R, N),
+                                  tiles=TILES)
+        check(err == 0.0 and flips == 0, f"ragged {C, B, R, N}: tiles "
+              f"differ")
+    torch.cuda.empty_cache()
+    log("autotune", f"K1 tiles {list(TILES)}: counts exact, diff and "
+        f"binary outputs bit-identical to the plain version at the "
+        f"{len(K1_FULL_CASES)} full-width and {len(k1_ragged_cases())} "
+        f"ragged shapes ({time.perf_counter() - t0:.1f}s)")
+
+
+def autotune_sweep(ops_):
+    """Phase `autotune` (b): the autotuner's sweep (`autotune.sweep`,
+    CUDA events) of the proposed design's chunk and wave problems into a
+    temporary table, never the committed one: each candidate tile and the
+    plain route, timed whole; then each tile's bare K1 launch at the chunk
+    problems beside its bound and the four-bmm yardstick; the winner per
+    problem against the committed entry for this card.  Returns the
+    measured records and the bare times."""
+    import tempfile
+    import torch
+    from repro_torch.configs import yolo_irc
+    from repro_torch.core.macro import DEFAULT_MACRO
+    from repro_torch.kernels import autotune
+    from repro_torch.kernels.irc_mvm import TILES
+    from repro_torch.kernels.ref import IrcEpilogueParams
+    cfg = yolo_irc.proposed()
+    chunk = autotune.detector_problems(cfg, AUTOTUNE_BATCH, AUTOTUNE_CHIPS)
+    wave = autotune.detector_problems(cfg, AUTOTUNE_WAVE_BATCH,
+                                      SERVE_COMMITTEE)
+    committed_bytes = autotune.TUNING_JSON.read_bytes()
+    tmp = Path(tempfile.mkdtemp(prefix="chip_smoke_tuning_")) / "tuning.json"
+    t0 = time.perf_counter()
+    measured = autotune.sweep(chunk + wave, write=True, path=tmp)
+    check(set(json.loads(tmp.read_text())) == set(measured)
+          and autotune.TUNING_JSON.read_bytes() == committed_bytes,
+          "the sweep must write its temporary table only")
+    card = gpu_name_and_limit()
+    prefix = tuning_prefix(torch.cuda.get_device_name(0))
+    for key, rec in measured.items():
+        check(key.startswith(prefix), f"sweep key {key} not this card's")
+        tiles = ", ".join(f"{t} {us / 1e3:.3f}"
+                          for t, us in rec["candidates_us"].items())
+        log("autotune", f"{key}: route ms by tile: {tiles}; plain route "
+            f"{rec['plain_us'] / 1e3:.3f}; winner bm={rec['bm']} "
+            f"tm={rec['tm']} use_kernel={rec['use_kernel']}; {card}")
+    log("autotune", f"sweep of {len(measured)} problems "
+        f"({time.perf_counter() - t0:.1f}s) into {tmp}")
+    verdicts = autotune_verdicts(measured, autotune.load_table())
+    for key, got, want, verdict in verdicts:
+        log("autotune", f"{key}: measured {got}, committed {want}: "
+            f"{verdict}")
+    params = IrcEpilogueParams.from_macro(DEFAULT_MACRO)
+    bare = {}
+    for C, M, N, K in chunk:
+        ens, x, _ = autotune._problem(C, M, N, K)
+        gen = torch.Generator(device="cuda").manual_seed(M)
+        eps = torch.randn((C, M, N), generator=gen, device="cuda")
+        rnd = (torch.rand((C, M, N), generator=gen, device="cuda")
+               < 0.5).float()
+        ms = {}
+        for tile in TILES:
+            ms[f"{tile[0]}x{tile[1]}"] = cuda_ms(
+                lambda: ops_.irc_mvm_chips(x, ens.ep, ens.en, ens.gp, ens.gn,
+                                           eps, rnd, params, tile=tile))
+        lib_ms = cuda_ms(bmm_yardstick(x, ens.ep, ens.en, ens.gp))
+        b_ms, b_by = bound_ms(C, M, K, N, True, False)
+        key = autotune.problem_key(C, M, N, K)
+        bare[key] = dict(ms=ms, bound_ms=b_ms, bound_by=b_by,
+                         library_ms=lib_ms,
+                         plain_route_ms=measured[key]["plain_us"] / 1e3)
+        log("autotune", f"{key}, per-chip x: K1 alone ms by tile "
+            + ", ".join(f"{t} {v:.3f}" for t, v in ms.items())
+            + f"; bound {b_ms:.3f} ({b_by}); bmm yardstick {lib_ms:.3f}; "
+            f"plain route {bare[key]['plain_route_ms']:.3f}")
+        del ens, x, eps, rnd
+        torch.cuda.empty_cache()
+    return measured, bare
+
+
+def autotune_routing(ops_):
+    """Phase `autotune` (c): `run_ablation_detector` at full width (4
+    chips, one chunk, columns ideal and all) with `use_kernel` None, True
+    and False, launches from 0: under None K1 runs for exactly the group
+    convs whose problem the committed table routes to it on this card
+    (untuned: all 14 a chunk), under True 14 a chunk, under False none;
+    per-chip mAPs of every pair of routes within MAP_NEAR_TIE.  Returns
+    K1's launches under None."""
+    import numpy as np
+    import torch
+    from repro_torch.kernels import autotune
+    from repro_torch.mc.detector_mc import run_ablation_detector
+    from repro_torch.mc.engine import McConfig
+    det, params, images, ev, key, columns = main_detector()
+    cfg = det.cfg
+    K = cfg.bias_rows + 9 * cfg.group
+    routed, tiles = 0, []
+    for _, _, s, _, ch in det.blocks():
+        M = AUTOTUNE_BATCH * (cfg.img_hw[0] // 2 >> s) * (
+            cfg.img_hw[1] // 2 >> s)
+        problem = (AUTOTUNE_CHIPS, M, cfg.group, K)
+        if autotune.kernel_wins(*problem):
+            routed += ch // cfg.group
+            tiles.append(autotune.best_blocks(*problem))
+    mc = McConfig(n_chips=AUTOTUNE_CHIPS, chunk_size=AUTOTUNE_CHIPS)
+    want = {None: routed, True: K1_PER_LANE, False: 0}
+    maps, k1 = {}, {}
+    for use_kernel in (None, True, False):
+        torch.cuda.synchronize()
+        ops_.reset_launches()
+        t0 = time.perf_counter()
+        res = run_ablation_detector(key, det, params, images, ev.boxes,
+                                    ev.classes, ablations=columns, mc=mc,
+                                    use_kernel=use_kernel)
+        torch.cuda.synchronize()
+        k1[use_kernel] = ops_.LAUNCHES["irc_mvm_chips"]
+        maps[use_kernel] = {n: r.per_chip["map50"] for n, r in res.items()}
+        log("autotune", f"run_ablation_detector use_kernel={use_kernel}: "
+            f"K1 launches {k1[use_kernel]} (want {want[use_kernel]} x "
+            f"{len(columns)} columns), threefry "
+            f"{ops_.LAUNCHES['threefry']}, per-chip map50 "
+            + "; ".join(f"{n} {v.tolist()}"
+                        for n, v in maps[use_kernel].items())
+            + f" ({time.perf_counter() - t0:.1f}s)")
+        check(k1[use_kernel] == want[use_kernel] * len(columns),
+              f"use_kernel={use_kernel}: K1 launches {k1[use_kernel]}")
+        check(all(np.isfinite(v).all() and v.shape == (AUTOTUNE_CHIPS,)
+                  for v in maps[use_kernel].values()),
+              f"use_kernel={use_kernel}: bad per-chip mAPs")
+    gap = max(float(np.max(np.abs(maps[a][n] - maps[b][n])))
+              for a, b in ((None, True), (None, False), (True, False))
+              for n in maps[a])
+    log("autotune", f"auto routes {routed} of {K1_PER_LANE} group convs a "
+        f"chunk to K1 (tiles {sorted(set(tiles))}); per-chip mAPs of the "
+        f"three routes within {gap:.4f} (<= {MAP_NEAR_TIE})")
+    check(gap <= MAP_NEAR_TIE, f"routes disagree: per-chip mAP gap {gap}")
+    torch.cuda.empty_cache()
+    return k1[None]
+
+
+def phase_autotune(ops_):
+    """Phase `autotune` (`--only autotune` runs it alone): (a)
+    `autotune_tiles`, (b) `autotune_sweep`, (c) `autotune_routing`."""
+    autotune_tiles(ops_)
+    measured, bare = autotune_sweep(ops_)
+    auto_k1 = autotune_routing(ops_)
+    return {"measured": measured, "bare": bare, "auto_k1": auto_k1}
+
+
 def trace_kernels(path):
     """Names of the CUDA kernel events in a `torch.profiler` Chrome trace."""
     events = json.loads(Path(path).read_text()).get("traceEvents", [])
@@ -2615,8 +2862,11 @@ def trace_kernels(path):
 def phase_cli():
     """Phase 7: the CLIs (the detector for both designs, the layer, the
     detector service with a trace), side by side, run to their end on the
-    card, each mc CLI with its run directory under a temporary one."""
+    card, each mc CLI with its run directory under a temporary one; the
+    detector also at `--det-backend plain` and `kernel`, its per-chip mAPs
+    at the three backends within MAP_NEAR_TIE."""
     import shutil
+    import numpy as np
     import tempfile
     env = dict(os.environ)
     env["PYTHONPATH"] = str(SRC) + os.pathsep + env.get("PYTHONPATH", "")
@@ -2631,14 +2881,19 @@ def phase_cli():
                 ["--network", "detector", "--chips", "16", "--ablation",
                  "table2", "--det-steps", "20"],
                 ["--network", "detector", "--chips", "16", "--det-steps",
-                 "2", "--train-chips", "2"])
+                 "2", "--train-chips", "2"],
+                ["--network", "detector", "--chips", "4", "--det-backend",
+                 "plain"],
+                ["--network", "detector", "--chips", "4", "--det-backend",
+                 "kernel"])
     cmds = [("repro_torch.launch.mc", argv + ["--run-dir", str(runs),
                                              "--run-id", f"mc{i}"])
             for i, argv in enumerate(mc_argvs)]
     cmds.append(("repro_torch.launch.serve", [
         "--network", "detector", "--requests", str(SERVE_REQUESTS),
         "--slots", str(SERVE_SLOTS), "--committee", str(SERVE_COMMITTEE),
-        "--run-dir", str(runs), "--run-id", "serve", "--trace"]))
+        "--det-backend", "kernel", "--run-dir", str(runs), "--run-id",
+        "serve", "--trace"]))
     t0 = time.perf_counter()
     procs = [(argv, subprocess.Popen(
         [sys.executable, "-m", module, *argv], cwd=ROOT, env=env,
@@ -2660,6 +2915,25 @@ def phase_cli():
         check({"manifest.json", "metrics.jsonl", "results.csv"} <= set(files)
               and json.loads((layer_run / "manifest.json").read_text())[
                   "status"] == "ok", f"layer run dir {files}")
+        # the detector at --det-backend auto (mc0), plain and kernel
+        maps = {}
+        for run in ("mc0", "mc6", "mc7"):
+            rep = json.loads((runs / run / "report.json").read_text())
+            maps[rep["args"]["det_backend"]] = {
+                col: np.asarray(r["per_chip_map50"])
+                for col, r in rep["results"]["init"].items()}
+            check(rep["kernel_launches"]["irc_mvm_chips"] == 0
+                  if rep["args"]["det_backend"] == "plain"
+                  else rep["kernel_launches"]["irc_mvm_chips"] > 0,
+                  f"{run}: launches {rep['kernel_launches']}")
+        gap = max(float(np.max(np.abs(maps[a][c] - maps[b][c])))
+                  for a in maps for b in maps for c in maps[a])
+        shown = {b: {c: v.tolist() for c, v in m.items()}
+                 for b, m in maps.items()}
+        log("7 cli", f"detector CLI --det-backend auto / plain / kernel: "
+            f"per-chip map50 {shown}, within {gap:.4f} (<= "
+            f"{MAP_NEAR_TIE})")
+        check(gap <= MAP_NEAR_TIE, f"--det-backend runs disagree: {gap}")
         names = trace_kernels(runs / "serve" / "trace" / "trace.json")
         k1 = sorted(n for n in names if "irc_mvm_chips_kernel" in n)
         log("7 cli", f"serve CLI trace: {len(names)} CUDA kernel names, "
@@ -2922,7 +3196,7 @@ def devices_detector(ops_, main_maps):
             key, det, params, images, ev.boxes, ev.classes,
             ablations=columns, mc=McConfig(n_chips=DEVICE_CHIPS,
                                            chunk_size=DEVICE_CHUNK,
-                                           device=device))
+                                           device=device), use_kernel=True)
         torch.cuda.synchronize()
         return (res, time.perf_counter() - t0, dict(ops_.LAUNCHES),
                 dict(ops_.TAIL_LAUNCHES),
@@ -3088,7 +3362,7 @@ def phase_devices(ops_, main_maps=None, baselines=()):
 
 
 PHASES = ("kernels", "times", "main", "train", "serve", "network",
-          "cli", "devices")
+          "autotune", "cli", "devices")
 
 
 def main(argv=None) -> int:
@@ -3146,14 +3420,13 @@ def main(argv=None) -> int:
                 log("2 build", "ptxas: " + line.strip())
     # the tensor-core kernels serialize every wgmma if ptxas spills or
     # cannot prove a warpgroup's wgmmas uniform (C7520); the die sampling
-    # and the elementwise math keep every value in registers
+    # and the elementwise math keep every value in registers; K1 parks its
+    # block currents in a local array by design (a stack frame), and no
+    # instantiation of its row tiles may spill
     for src in (ternary_matmul.SOURCE, flash.SOURCE, threefry.SOURCE,
-                xla_math.SOURCE):
+                xla_math.SOURCE, irc_mvm.SOURCE):
         text = build.BUILD_LOG.get(src.name, "")
-        spills = [ln.strip() for ln in text.splitlines()
-                  if "spill" in ln and not ln.strip().startswith(
-                      "0 bytes stack frame, 0 bytes spill stores, 0 bytes "
-                      "spill loads")]
+        spills = ptxas_spills(text, stack=src == irc_mvm.SOURCE)
         check("C7520" not in text and not spills,
               f"{src.name}: ptxas serialized wgmma, spilled or kept a "
               f"stack frame: {spills}")
@@ -3193,6 +3466,9 @@ def main(argv=None) -> int:
     if "network" in only:
         phase_network(ops)
         phase_layer_network(ops)
+    tuned = {}
+    if "autotune" in only:
+        tuned = phase_autotune(ops)
     if "cli" in only:
         phase_cli()
     devices = {}
@@ -3226,6 +3502,14 @@ def main(argv=None) -> int:
             "ms": t["ms"],
             "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],
             "bound_by": t["bound_by"], "library_ms": t["library_ms"]})
+    # K1's row tiles (phase `autotune`): each alone at the chunk problems,
+    # the plain route there, and the tile the sweep chose per problem
+    kernels[0]["tiles"] = [list(t) for t in irc_mvm.TILES]
+    kernels[0]["tile_ms"] = {k: v["ms"] for k, v in tuned["bare"].items()}
+    kernels[0]["plain_route_ms"] = {k: v["plain_route_ms"]
+                                    for k, v in tuned["bare"].items()}
+    kernels[0]["chosen"] = {k: [r["bm"], r["tm"], r["use_kernel"]]
+                            for k, r in tuned["measured"].items()}
     # K3 at the layer path's shape; its launches are the two layer runs'
     t = k3_times["layer"]
     kernels.append({
@@ -3290,7 +3574,8 @@ def main(argv=None) -> int:
         f"({SERVE_REQUESTS} requests) {served['threefry']}")
     log("8 summary", f"K1 launches by path: detector proposed "
         f"{launches['irc_mvm_chips']}, QAT {qat['irc_mvm_chips']}, service "
-        f"{served['irc_mvm_chips']}")
+        f"{served['irc_mvm_chips']}; the auto-routed chunk of phase "
+        f"`autotune` {tuned['auto_k1']}")
     log("8 summary", f"QAT path launches ({TRAIN_STEPS} ensemble steps of "
         f"quick_qat): {qat}; per step by configuration: "
         + "; ".join(f"{k}: {v['launches']}"

@@ -47,9 +47,14 @@
 // B=294,912, R=572, N=60): the two block-current products need 8.1e10 f32
 // FFMAs, 2.4 ms at the 67 TFLOP/s FFMA peak, against 1.06 ms of device
 // memory traffic (3.55 GB, 2.7 GB of it x).  The design:
-//   * a thread block owns one chip, 32 word-line rows and 32 columns, with
-//     256 threads; thread (ty, tx) owns rows ty and ty + 16 and columns 2tx
-//     and 2tx + 1, a 2x2 micro-tile of FFMA chains;
+//   * a thread block owns one chip, BM word-line rows and 32 columns, with
+//     BM / TM x 16 threads; thread (ty, tx) owns the TM rows ty + i BM / TM
+//     and columns 2tx and 2tx + 1, a TM x 2 micro-tile of FFMA chains.  The
+//     row tile (BM, TM) is a launch argument, one of the candidates that
+//     `launch_tile` instantiates (kernels/irc_mvm.py::TILES; (32, 2), 256
+//     threads, by default), picked per problem by the port's autotuner
+//     (kernels/autotune.py).  It changes only which thread owns which row,
+//     never the order of a sum, so every tile gives the same bits;
 //   * it walks R in 32-row IR blocks, double-buffered: cp.async stages the
 //     next block's x tile (16-byte copies; rows padded to 36 floats, so the
 //     float4 reads of four word-line rows hit distinct banks) and its four
@@ -205,7 +210,10 @@ struct Tile {
   static constexpr int kGMasks = BM;
   static constexpr int kOk = BM + 4 * kTileN;
   static constexpr int kMasks = kOk + kWarps;
+  static constexpr int kSmemBytes = 4 * 2 * (kStage + kMasks);
   static_assert(kRowThreads % 4 == 0, "a warp spans 4 row threads");
+  static_assert(kThreads <= 1024, "at most 1024 threads a block");
+  static_assert(kSmemBytes <= 232448, "the H100's opt-in shared memory");
 };
 
 // Copy IR block k (rows r0..r0+31) of the x tile and the four plane slices
@@ -459,15 +467,17 @@ irc_mvm_chips_kernel(const float* __restrict__ x, const float* __restrict__ ep,
       const int b = row0 + ty + T::kRowThreads * i;
       const int n = col0 + 2 * tx + j;
       if (b >= B || n >= N) continue;
-      float Ip[NB], In[NB];
+      // one plane's currents at a time: with both arrays live at once
+      // ptxas spilled at some tiles (52 bytes at NB = 18, (32, 2))
+      float I[NB];
       const float* pk = park + 4 * i + 2 * j;
 #pragma unroll
-      for (int k = 0; k < NB; ++k) {
-        Ip[k] = k < nb ? pk[k * T::kPark] : 0.0f;
-        In[k] = k < nb ? pk[k * T::kPark + 1] : 0.0f;
-      }
-      float i_pos = line_current<NB>(Ip, nb, prm.ir_alpha, ir);
-      float i_neg = line_current<NB>(In, nb, prm.ir_alpha, ir);
+      for (int k = 0; k < NB; ++k) I[k] = k < nb ? pk[k * T::kPark] : 0.0f;
+      float i_pos = line_current<NB>(I, nb, prm.ir_alpha, ir);
+#pragma unroll
+      for (int k = 0; k < NB; ++k)
+        I[k] = k < nb ? pk[k * T::kPark + 1] : 0.0f;
+      float i_neg = line_current<NB>(I, nb, prm.ir_alpha, ir);
       float diff;
       if (prm.flags & kNonlinearity) {
         const float r_pos = nl_ratio(cp[i][j]);
@@ -508,30 +518,47 @@ bool aligned(const void* p, uintptr_t bytes) {
   return (reinterpret_cast<uintptr_t>(p) & (bytes - 1)) == 0;
 }
 
+// One launch's operands, as the C interface receives them.
+struct Args {
+  const float *x, *ep, *en, *gp, *gn, *eps, *rnd;
+  float* out;
+  int C, B, R, N;
+  long long x_chip_stride, g_chip_stride;
+  Params prm;
+  cudaStream_t stream;
+};
+
 template <int NB, int BM, int TM>
-cudaError_t launch(const float* x, const float* ep, const float* en,
-                   const float* gp, const float* gn, const float* eps,
-                   const float* rnd, float* out, int C, int B, int R, int N,
-                   long long x_chip_stride, long long g_chip_stride,
-                   Params prm, cudaStream_t stream) {
+cudaError_t launch(const Args& a) {
   using T = Tile<BM, TM>;
-  const size_t smem = sizeof(float) * 2 * (T::kStage + T::kMasks);
   auto kern = irc_mvm_chips_kernel<NB, BM, TM>;
   cudaError_t err = cudaFuncSetAttribute(
-      kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+      kern, cudaFuncAttributeMaxDynamicSharedMemorySize, T::kSmemBytes);
   if (err != cudaSuccess) return err;
   const int vec =
-      (R % 4 == 0 && aligned(x, 16) ? kVecX : 0) |
-      (N % 2 == 0 && aligned(ep, 8) && aligned(en, 8) && aligned(gp, 8) &&
-       aligned(gn, 8) ? kVecPlanes : 0);
-  const int col_tiles = (N + kTileN - 1) / kTileN;
-  const long long blocks = (long long)((B + BM - 1) / BM) * col_tiles;
+      (a.R % 4 == 0 && aligned(a.x, 16) ? kVecX : 0) |
+      (a.N % 2 == 0 && aligned(a.ep, 8) && aligned(a.en, 8) &&
+       aligned(a.gp, 8) && aligned(a.gn, 8) ? kVecPlanes : 0);
+  const int col_tiles = (a.N + kTileN - 1) / kTileN;
+  const long long blocks = (long long)((a.B + BM - 1) / BM) * col_tiles;
   if (blocks > 2147483647LL) return cudaErrorInvalidValue;
-  dim3 grid((unsigned)blocks, C);
-  kern<<<grid, T::kThreads, smem, stream>>>(
-      x, ep, en, gp, gn, eps, rnd, out, B, R, N, col_tiles, x_chip_stride,
-      g_chip_stride, prm, vec);
+  dim3 grid((unsigned)blocks, a.C);
+  kern<<<grid, T::kThreads, T::kSmemBytes, a.stream>>>(
+      a.x, a.ep, a.en, a.gp, a.gn, a.eps, a.rnd, a.out, a.B, a.R, a.N,
+      col_tiles, a.x_chip_stride, a.g_chip_stride, a.prm, vec);
   return cudaGetLastError();
+}
+
+// The candidate row tiles (BM, TM), the same list as
+// kernels/irc_mvm.py::TILES; any other tile is refused.
+template <int NB>
+cudaError_t launch_tile(int bm, int tm, const Args& a) {
+  if (bm == 16 && tm == 1) return launch<NB, 16, 1>(a);
+  if (bm == 32 && tm == 1) return launch<NB, 32, 1>(a);
+  if (bm == 32 && tm == 2) return launch<NB, 32, 2>(a);
+  if (bm == 64 && tm == 2) return launch<NB, 64, 2>(a);
+  if (bm == 64 && tm == 4) return launch<NB, 64, 4>(a);
+  return cudaErrorInvalidValue;
 }
 
 }  // namespace
@@ -541,28 +568,20 @@ extern "C" int irc_mvm_chips_launch(
     const void* gn, const void* eps, const void* rnd, void* out, int C,
     int B, int R, int N, long long x_chip_stride, long long g_chip_stride,
     float ir_alpha, float sense_low, float sense_high, float sa_c0,
-    float sa_c1, float sa_c2, float sa_extra, int flags, void* stream) {
+    float sa_c1, float sa_c2, float sa_extra, int flags, int bm, int tm,
+    void* stream) {
   if (C <= 0 || B <= 0 || R <= 0 || N <= 0 || C > 65535)
     return (int)cudaErrorInvalidValue;
-  Params prm{ir_alpha, sense_low, sense_high, sa_c0, sa_c1, sa_c2, sa_extra,
-             flags};
+  const Args a{static_cast<const float*>(x), static_cast<const float*>(ep),
+               static_cast<const float*>(en), static_cast<const float*>(gp),
+               static_cast<const float*>(gn), static_cast<const float*>(eps),
+               static_cast<const float*>(rnd), static_cast<float*>(out),
+               C, B, R, N, x_chip_stride, g_chip_stride,
+               Params{ir_alpha, sense_low, sense_high, sa_c0, sa_c1, sa_c2,
+                      sa_extra, flags},
+               static_cast<cudaStream_t>(stream)};
   const int nb = (R + kBlk - 1) / kBlk;
-  auto st = static_cast<cudaStream_t>(stream);
-  auto fx = static_cast<const float*>(x);
-  auto fep = static_cast<const float*>(ep);
-  auto fen = static_cast<const float*>(en);
-  auto fgp = static_cast<const float*>(gp);
-  auto fgn = static_cast<const float*>(gn);
-  auto feps = static_cast<const float*>(eps);
-  auto frnd = static_cast<const float*>(rnd);
-  auto fout = static_cast<float*>(out);
-  if (nb <= 18)
-    return (int)launch<18, 32, 2>(fx, fep, fen, fgp, fgn, feps, frnd, fout,
-                                  C, B, R, N, x_chip_stride, g_chip_stride,
-                                  prm, st);
-  if (nb <= 32)
-    return (int)launch<32, 32, 2>(fx, fep, fen, fgp, fgn, feps, frnd, fout,
-                                  C, B, R, N, x_chip_stride, g_chip_stride,
-                                  prm, st);
+  if (nb <= 18) return (int)launch_tile<18>(bm, tm, a);
+  if (nb <= 32) return (int)launch_tile<32>(bm, tm, a);
   return (int)cudaErrorInvalidValue;   // more rows than one 1024-row macro
 }

@@ -5,13 +5,19 @@ The source compiles at first use into `build/repro_torch/libirc_mvm.so`
 imported: the CPU tests import it on machines without nvcc or a card.
 
 `launch_chips` takes tensors that `repro_torch.kernels.ops` has already
-checked (device, dtype, shapes, contiguity) and enqueues the kernel on the
-current CUDA stream; it raises if the launch is refused.  It never falls
-back to the plain version.
+checked (device, dtype, shapes, contiguity, tile) and enqueues the kernel
+on the current CUDA stream; it raises if the launch is refused.  It never
+falls back to the plain version.
+
+The kernel's row tile `(bm, tm)` (bm word-line rows a thread block, tm of
+them a thread) is one of `TILES`, the instantiations the source holds;
+`repro_torch.kernels.autotune` picks one per problem from a table measured
+on the card.  Every tile gives the same bits.
 """
 from __future__ import annotations
 
 import ctypes
+from typing import Optional, Tuple
 
 import torch
 
@@ -22,12 +28,31 @@ SOURCE = build.CSRC / "irc_mvm.cu"
 
 _FLAG_NL, _FLAG_IR, _FLAG_SA, _FLAG_RANGE, _FLAG_DIFF = 1, 2, 4, 8, 16
 
+#: the row tiles (bm, tm) the kernel is instantiated for (`launch_tile` in
+#: csrc/irc_mvm.cu): bm / tm x 16 threads a block, at most 512
+TILES: Tuple[Tuple[int, int], ...] = ((16, 1), (32, 1), (32, 2), (64, 2),
+                                      (64, 4))
+#: the tile of a launch that names none
+DEFAULT_TILE: Tuple[int, int] = (32, 2)
+
+
+def check_tile(tile: Optional[Tuple[int, int]]) -> Tuple[int, int]:
+    """`tile` as a (bm, tm) pair of `TILES` (None: `DEFAULT_TILE`); raises
+    ValueError for any other."""
+    if tile is None:
+        return DEFAULT_TILE
+    t = tuple(int(v) for v in tile)
+    if t not in TILES:
+        raise ValueError(f"K1 has no tile {tuple(tile)}; its tiles are "
+                         f"{TILES}")
+    return t
+
 
 def _bind(lib: ctypes.CDLL) -> None:
     fn = lib.irc_mvm_chips_launch
     fn.argtypes = ([ctypes.c_void_p] * 8 + [ctypes.c_int] * 4
                    + [ctypes.c_longlong] * 2 + [ctypes.c_float] * 7
-                   + [ctypes.c_int, ctypes.c_void_p])
+                   + [ctypes.c_int] * 3 + [ctypes.c_void_p])
     fn.restype = ctypes.c_int
 
 
@@ -50,10 +75,13 @@ def epilogue_flags(params: IrcEpilogueParams) -> int:
 def launch_chips(x: torch.Tensor, ep: torch.Tensor, en: torch.Tensor,
                  gp: torch.Tensor, gn: torch.Tensor, eps_sa: torch.Tensor,
                  rnd_bits: torch.Tensor, out: torch.Tensor,
-                 params: IrcEpilogueParams) -> None:
-    """Enqueue one chip-batched launch on the current stream.  x is [B,R]
-    or [C,B,R], gp/gn [R,N] or [C,R,N]; a shared operand gets chip stride 0.
-    All tensors are contiguous float32 on one CUDA device."""
+                 params: IrcEpilogueParams,
+                 tile: Optional[Tuple[int, int]] = None) -> None:
+    """Enqueue one chip-batched launch on the current stream at row tile
+    `tile` (None: `DEFAULT_TILE`).  x is [B,R] or [C,B,R], gp/gn [R,N] or
+    [C,R,N]; a shared operand gets chip stride 0.  All tensors are
+    contiguous float32 on one CUDA device."""
+    bm, tm = check_tile(tile)
     if params.ir_block != 32:
         raise ValueError(f"the kernel's IR block is 32 rows, got "
                          f"{params.ir_block}")
@@ -68,6 +96,6 @@ def launch_chips(x: torch.Tensor, ep: torch.Tensor, en: torch.Tensor,
         C, B, R, N, x_stride, g_stride,
         params.ir_alpha, params.sense_low, params.sense_high, params.sa_c0,
         params.sa_c1, params.sa_c2, params.sa_extra, epilogue_flags(params),
-        stream)
+        bm, tm, stream)
     if err != 0:
         raise RuntimeError(f"irc_mvm_chips launch failed: cudaError {err}")

@@ -19,12 +19,13 @@ Nothing needs padding: the kernels mask their ragged edges themselves.
 from __future__ import annotations
 
 import math
-from typing import Dict, Sequence
+from typing import Dict, Optional, Sequence, Tuple
 
 import torch
 
 from repro_torch import prng
 from repro_torch import xla_order as xo
+from repro_torch.kernels.irc_mvm import check_tile
 from repro_torch.kernels.ref import (IrcEpilogueParams,
                                      flash_attention_ref, irc_mvm_chips_ref,
                                      irc_mvm_ref, ternary_matmul_ref)
@@ -71,16 +72,19 @@ def _check(x, ep, en, gp, gn, eps_sa, rnd_bits):
 
 def irc_mvm_chips(x: torch.Tensor, ep: torch.Tensor, en: torch.Tensor,
                   gp: torch.Tensor, gn: torch.Tensor, eps_sa: torch.Tensor,
-                  rnd_bits: torch.Tensor, params: IrcEpilogueParams
-                  ) -> torch.Tensor:
+                  rnd_bits: torch.Tensor, params: IrcEpilogueParams,
+                  tile: Optional[Tuple[int, int]] = None) -> torch.Tensor:
     """Chip-batched fused IRC MVM: x [B,R] shared (or [C,B,R] per chip),
     effective planes ep/en [C,R,N], placement planes gp/gn [R,N] shared or
     [C,R,N], periphery noise eps_sa/rnd_bits [C,B,N] -> [C,B,N] float32,
-    in ONE kernel launch on the card."""
+    in ONE kernel launch on the card, at row tile `tile` (one of
+    `irc_mvm.TILES`; None: the default).  Any other tile raises ValueError,
+    on the CPU too, where the plain version serves every tile."""
+    tile = check_tile(tile)
     dev = _check(x, ep, en, gp, gn, eps_sa, rnd_bits)
     if dev.type == "cpu":
         return irc_mvm_chips_ref(x, ep, en, gp, gn, eps_sa, rnd_bits, params)
-    out = _launch(dev, x, ep, en, gp, gn, eps_sa, rnd_bits, params)
+    out = _launch(dev, x, ep, en, gp, gn, eps_sa, rnd_bits, params, tile)
     LAUNCHES["irc_mvm_chips"] += 1
     return out
 
@@ -103,9 +107,10 @@ def irc_mvm(x: torch.Tensor, ep: torch.Tensor, en: torch.Tensor,
     return out
 
 
-def _launch(dev, x, ep, en, gp, gn, eps_sa, rnd_bits, params):
-    """One kernel launch on checked operands; raises if the kernel cannot
-    be built or the launch is refused (there is no fallback)."""
+def _launch(dev, x, ep, en, gp, gn, eps_sa, rnd_bits, params, tile=None):
+    """One kernel launch on checked operands at row tile `tile`; raises if
+    the kernel cannot be built or the launch is refused (there is no
+    fallback)."""
     if dev.type != "cuda":
         raise RuntimeError(f"the IRC MVM runs on CPU or CUDA, not {dev}")
     from repro_torch.kernels import irc_mvm as kern
@@ -114,7 +119,7 @@ def _launch(dev, x, ep, en, gp, gn, eps_sa, rnd_bits, params):
            (x, ep, en, gp, gn, eps_sa, rnd_bits)]
     C, _, N = ep.shape
     out = torch.empty((C, x.shape[-2], N), dtype=torch.float32, device=dev)
-    kern.launch_chips(*ops, out, params)
+    kern.launch_chips(*ops, out, params, tile)
     return out
 
 

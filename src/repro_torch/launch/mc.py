@@ -19,6 +19,12 @@
       --ablation table2 [--det-scheme binary] [--det-steps 50 \\
       [--train-chips 4 --resample-every 5]]
 
+`--det-backend` routes the detector's group convs as the JAX CLI's flag
+does: `auto` (default) as `repro_torch.kernels.autotune`'s table measured
+on this card says (a problem it has no entry for runs the kernel),
+`kernel` forces the fused IRC MVM, `plain` the plain batched route (the
+JAX CLI's `jnp`).
+
 Weights from the seed, drawn through the port's threefry as the
 reference's CLI draws them (the detector's by `IRCDetector.init(PRNGKey(
 seed))`, the reference's `materialize`), so both CLIs sweep the same
@@ -59,6 +65,9 @@ import argparse
 import dataclasses
 import json
 from pathlib import Path
+
+#: --det-backend -> the detector's `use_kernel`
+DET_BACKENDS = {"auto": None, "plain": False, "kernel": True}
 
 
 def _ablation_columns(ablation: str, table):
@@ -339,10 +348,12 @@ def run_detector(args) -> dict:
     images = torch.from_numpy(ev.images).to(dev)
     key = prng.PRNGKey(args.seed, device=dev)
     mc = McConfig(n_chips=args.chips, chunk_size=args.chunk)
+    use_kernel = DET_BACKENDS[args.det_backend]
 
     print(f"# detector {args.det_scheme} {cfg.img_hw[0]}x{cfg.img_hw[1]} "
           f"batch={args.det_batch} chips={args.chips} chunk={args.chunk} "
           f"qat_steps={args.det_steps} train_chips={args.train_chips} "
+          f"backend={args.det_backend} "
           f"device={dev} pipeline={not args.no_pipeline} "
           f"device_model={args.device_model} "
           f"t_days={','.join(f'{t:g}' for t in ts)}")
@@ -368,7 +379,7 @@ def run_detector(args) -> dict:
                     key, det, params, images, ev.boxes, ev.classes,
                     mc=dataclasses.replace(mc, cfg=cfg_ni, device=device),
                     obs=obs, stderr_target=args.stderr_target,
-                    pipeline=not args.no_pipeline)
+                    pipeline=not args.no_pipeline, use_kernel=use_kernel)
             # the drop is measured against the same age's simulated ideal
             ideal = sweeps[_age_label("ideal", t, ts)].metrics[
                 "map50"]["mean"]
@@ -414,6 +425,12 @@ def main(argv=None) -> None:
                          "over this many chips (needs --det-steps > 0)")
     ap.add_argument("--resample-every", type=int, default=1,
                     help="QAT steps between chip-population resamples")
+    ap.add_argument("--det-backend", default="auto",
+                    choices=list(DET_BACKENDS),
+                    help="detector group-conv routing: auto follows the "
+                         "autotuner's table for this card (untuned: the "
+                         "kernel), kernel forces the fused IRC MVM, plain "
+                         "the plain batched route (the JAX CLI's jnp)")
     ap.add_argument("--no-pipeline", action="store_true",
                     help="detector: serial chunk loop instead of the "
                          "overlapped one")
@@ -473,7 +490,7 @@ def main(argv=None) -> None:
               "accumulation", "backend", "calibrate", "batch")
              if args.network == "detector"
              else ("det_scheme", "det_batch", "det_steps", "train_chips",
-                   "resample_every", "no_pipeline"))
+                   "resample_every", "det_backend", "no_pipeline"))
     misused = [f"--{n.replace('_', '-')}" for n in other
                if getattr(args, n) != ap.get_default(n)]
     if misused:

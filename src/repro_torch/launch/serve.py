@@ -7,6 +7,10 @@ synthetic images through `DetectorServeEngine`'s background scheduler:
 every request is answered by a committee of `--committee` sampled chips
 with mean/std/quantile confidence, each group conv through the fused IRC
 MVM kernel and every die draw through the threefry kernel on the card.
+`--det-backend` routes each group conv as in `repro_torch.launch.mc`:
+`auto` (default) as the autotuner's table for this card says (untuned:
+the kernel), `kernel` the fused IRC MVM, `plain` the plain batched route
+(the JAX CLI's `jnp`).
 `--network lm` (the reference's default) names the LM serving engine,
 which comes with a later slice of the port: it exits non-zero.
 
@@ -25,6 +29,8 @@ import argparse
 import json
 import time
 
+from repro_torch.launch.mc import DET_BACKENDS
+
 
 def _build_parser() -> argparse.ArgumentParser:
     ap = argparse.ArgumentParser(
@@ -38,6 +44,10 @@ def _build_parser() -> argparse.ArgumentParser:
                     help="chips answering each request")
     ap.add_argument("--max-queue", type=int, default=64,
                     help="admission-control queue bound")
+    ap.add_argument("--det-backend", default="auto",
+                    choices=list(DET_BACKENDS),
+                    help="group-conv routing: auto (the autotuner's table), "
+                         "kernel (fused IRC MVM) or plain (batched route)")
     ap.add_argument("--requests", type=int, default=8)
     ap.add_argument("--slots", type=int, default=4,
                     help="requests per wave at most")
@@ -75,7 +85,8 @@ def _serve_detector(args, obs) -> None:
 
     engine = DetectorServeEngine(
         det, params, committee=args.committee, batch_slots=args.slots,
-        max_queue=args.max_queue, seed=args.seed, obs=obs)
+        max_queue=args.max_queue, seed=args.seed,
+        use_kernel=DET_BACKENDS[args.det_backend], obs=obs)
     images = calib.images
     ops.reset_launches()
     engine.start()

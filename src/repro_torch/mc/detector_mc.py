@@ -5,8 +5,9 @@ Chip `c`, layer `l = s*10+b`, group `g` is sampled with
 `fold_in(fold_in(fold_in(key, c), l), g)`, the reference's key lattice, so
 chip `c` here is chip `c` of the JAX package and of `apply(mode="eval",
 key=fold_in(key, c))`.  Each chunk of chips runs one ensemble forward on the
-device (every group conv one launch of the fused IRC MVM kernel), then its
-predictions come back to the host, where each chip's mAP folds into
+device (every group conv one launch of the fused IRC MVM kernel, or the
+plain batched route where the autotuner's table says it is faster on this
+card: `use_kernel`), then its predictions come back to the host, where each chip's mAP folds into
 streaming Welford/quantile accumulators.
 
 `build_train_ensemble` draws the same dies as deviation planes for
@@ -116,10 +117,13 @@ def detector_planes(det, params):
 
 def _sample_and_forward(params, images, key, chip_ids, planes, *, det_cfg,
                         spec: MacroSpec, cfg_ni: ni.NonidealConfig,
-                        sa_extra: float, meta, kernel_impl: str = "kernel",
+                        sa_extra: float, meta,
+                        use_kernel: Optional[bool] = None,
+                        kernel_impl: str = "kernel",
                         device=None) -> torch.Tensor:
     """Sample one chunk's `DetectorEnsemble` from the hoisted planes and run
-    the ensemble forward: [chips, B, gh, gw, A*(5+C)]."""
+    the ensemble forward, each group conv routed by `use_kernel`
+    (`IRCDetector.apply`): [chips, B, gh, gw, A*(5+C)]."""
     from repro_torch.models.detector import IRCDetector
     det = IRCDetector(det_cfg, spec)
     layers = {}
@@ -134,13 +138,14 @@ def _sample_and_forward(params, images, key, chip_ids, planes, *, det_cfg,
                 zip(layer_planes, gmeta)))
     ens = DetectorEnsemble(layers=layers, chip_ids=chip_ids)
     return det.apply(params, images, mode="ensemble", ensemble=ens,
-                     cfg_ni=cfg_ni, sa_extra=sa_extra,
+                     cfg_ni=cfg_ni, sa_extra=sa_extra, use_kernel=use_kernel,
                      kernel_impl=kernel_impl, device=device)
 
 
 def committee_wave_forward(params, images, request_keys, chip_ids, planes,
                            *, det_cfg, spec: MacroSpec,
                            cfg_ni: ni.NonidealConfig, sa_extra: float, meta,
+                           use_kernel: Optional[bool] = None,
                            kernel_impl: str = "kernel",
                            device=None) -> torch.Tensor:
     """One serving wave: every request lane gets its own chip committee.
@@ -158,7 +163,8 @@ def committee_wave_forward(params, images, request_keys, chip_ids, planes,
         _sample_and_forward(params, images[i:i + 1], request_keys[i],
                             chip_ids, planes, det_cfg=det_cfg, spec=spec,
                             cfg_ni=cfg_ni, sa_extra=sa_extra, meta=meta,
-                            kernel_impl=kernel_impl, device=device)[:, 0]
+                            use_kernel=use_kernel, kernel_impl=kernel_impl,
+                            device=device)[:, 0]
         for i in range(images.shape[0])])
 
 
@@ -192,6 +198,7 @@ def run_mc_detector(key: torch.Tensor, det, params, images: torch.Tensor,
                     obs: Optional[RunLog] = None,
                     stderr_target: Optional[float] = None,
                     pipeline: bool = True,
+                    use_kernel: Optional[bool] = None,
                     kernel_impl: str = "kernel") -> McResult:
     """Stream a chip population of the whole detector over an eval batch.
 
@@ -206,7 +213,12 @@ def run_mc_detector(key: torch.Tensor, det, params, images: torch.Tensor,
     `stderr_target` stops at the first chunk boundary where the mAP's
     standard error reaches it.  The pipelined sweep then drops the one
     chunk it has in flight, so both paths stop at the same boundary with
-    the same moments, those of the full run's prefix."""
+    the same moments, those of the full run's prefix.
+
+    `use_kernel` routes each group conv (`IRCDetector.apply`): None (the
+    default) as the autotuner's table says for this card, True through the
+    fused IRC MVM, False through the plain batched route; `kernel_impl`
+    ("kernel" | "ref") is the kernel route's implementation."""
     from repro_torch.train.det_loss import evaluate_map_per_chip
 
     obs = as_runlog(obs)
@@ -242,7 +254,8 @@ def run_mc_detector(key: torch.Tensor, det, params, images: torch.Tensor,
             return _ToHost(_sample_and_forward(
                 params, images, key, ids, planes, det_cfg=det.cfg,
                 spec=det.spec, cfg_ni=mc.cfg, sa_extra=sa_extra, meta=meta,
-                kernel_impl=kernel_impl, device=mc.device))
+                use_kernel=use_kernel, kernel_impl=kernel_impl,
+                device=mc.device))
 
     n_done = 0
     for chunk_i, ids in enumerate(chunks):
@@ -263,6 +276,7 @@ def run_mc_detector(key: torch.Tensor, det, params, images: torch.Tensor,
                     out = det.apply(params, images, mode="ensemble",
                                     ensemble=ens, cfg_ni=mc.cfg,
                                     sa_extra=sa_extra,
+                                    use_kernel=use_kernel,
                                     kernel_impl=kernel_impl,
                                     device=mc.device)
                 with dev_timer.lap(items=n_chunk):
@@ -306,11 +320,12 @@ def run_ablation_detector(key: torch.Tensor, det, params, images,
                           obs: Optional[RunLog] = None,
                           stderr_target: Optional[float] = None,
                           pipeline: bool = True,
+                          use_kernel: Optional[bool] = None,
                           kernel_impl: str = "kernel"
                           ) -> Dict[str, McResult]:
     """Table II for the detector: one population mAP sweep per effect
-    column, on the same chip key stream; each column opens with an
-    `ablation_column` event."""
+    column, on the same chip key stream, each routed by `use_kernel` as in
+    `run_mc_detector`; each column opens with an `ablation_column` event."""
     obs = as_runlog(obs)
     results = {}
     for name, cfg in ablations:
@@ -319,5 +334,5 @@ def run_ablation_detector(key: torch.Tensor, det, params, images,
             key, det, params, images, gt_boxes, gt_classes,
             mc=dataclasses.replace(mc, cfg=cfg), obs=obs,
             stderr_target=stderr_target, pipeline=pipeline,
-            kernel_impl=kernel_impl)
+            use_kernel=use_kernel, kernel_impl=kernel_impl)
     return results

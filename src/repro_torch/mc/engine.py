@@ -89,21 +89,24 @@ def ensemble_apply_kernel(ens: ChipEnsemble, x_bits: torch.Tensor, *,
                           spec: MacroSpec = DEFAULT_MACRO,
                           sa_extra_units: float = 0.0, output: str = "binary",
                           per_chip_x: bool = False, impl: str = "kernel",
+                          tile: Optional[Tuple[int, int]] = None,
                           device=None) -> torch.Tensor:
     """Every chip of `ens` on x_bits -> [chips, B, n_out] in one launch.
 
     x_bits is [B, fan_in] shared by every chip, or [chips, B, fan_in] with
     `per_chip_x` (chip-diverged activations downstream of the first IRC
-    layer).  `impl="kernel"` goes through `ops.irc_mvm_chips` (the CUDA
-    kernel for CUDA tensors, its plain version for CPU tensors);
-    `impl="ref"` calls the plain version on any device, the route against
-    which the kernel is held.  Single-shot accumulation and the analytic
-    periphery only: the kernel's epilogue bakes both in."""
+    layer).  `impl="kernel"` goes through `ops.irc_mvm_chips` at row tile
+    `tile` (None: the default; `repro_torch.kernels.autotune.best_blocks`
+    gives the tuned one), the CUDA kernel for CUDA tensors, its plain
+    version for CPU tensors; `impl="ref"` calls the plain version on any
+    device, the route against which the kernel is held.  Single-shot
+    accumulation and the analytic periphery only: the kernel's epilogue
+    bakes both in."""
     if device is not None and not device.analytic_periphery:
         raise NotImplementedError(
             f"device model {device.name!r} has a non-analytic periphery; "
-            "the fused kernel supports analytic-periphery backends only; "
-            "use the plain route (backend='plain')")
+            "the chip-batched kernel supports analytic-periphery backends "
+            "only — use the plain route (backend='plain')")
     if per_chip_x:
         assert x_bits.ndim == 3 and x_bits.shape[0] == ens.n_chips, (
             f"per_chip_x needs [chips={ens.n_chips}, batch, fan_in] inputs, "
@@ -121,7 +124,7 @@ def ensemble_apply_kernel(ens: ChipEnsemble, x_bits: torch.Tensor, *,
     if impl != "kernel":
         raise ValueError(f"impl must be 'kernel' or 'ref', got {impl!r}")
     return ops.irc_mvm_chips(x_ext, ens.ep, ens.en, ens.gp, ens.gn, eps_sa,
-                             rnd, params)
+                             rnd, params, tile=tile)
 
 
 @dataclasses.dataclass(frozen=True)

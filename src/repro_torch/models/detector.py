@@ -15,9 +15,11 @@ partial-sum accumulation), in four modes:
   * mode="eval": single-chip structural crossbar sim per group (chip
     identity = `key`), through `crossbar_forward`;
   * mode="ensemble": every chip of a pre-sampled `DetectorEnsemble` at once.
-    A single-shot group conv is one launch of the fused IRC MVM kernel; a
-    partial-sum group conv goes through the plain batched `ensemble_apply`,
-    as in the reference, whose kernel fuses single-shot accumulation only.
+    A single-shot group conv is one launch of the fused IRC MVM kernel, or
+    the plain batched `ensemble_apply` where `use_kernel` says so (None:
+    the autotuner's table for this card, `repro_torch.kernels.autotune`);
+    a partial-sum group conv always takes the plain route, as in the
+    reference, whose kernel fuses single-shot accumulation only.
 The stem and head are digital (`F.conv2d` / `matmul`, TF32 off).  Every
 public function keeps the reference's NHWC layout; params keep its layout
 too (stem HWIO, block weights [540, group, n_groups], the baseline's block
@@ -332,40 +334,61 @@ class IRCDetector:
 
     def _gconv_ensemble(self, groups, x: torch.Tensor, cin: int, cout: int,
                         *, cfg_ni: ni.NonidealConfig, sa_extra: float = 0.0,
-                        output: str = "binary", kernel_impl: str = "kernel",
+                        output: str = "binary",
+                        use_kernel: Optional[bool] = None,
+                        kernel_impl: str = "kernel",
                         device=None) -> torch.Tensor:
-        """Ensemble group conv over every chip.  Single-shot accumulation:
-        each group is ONE launch of the fused IRC MVM
-        (`ensemble_apply_kernel`; `kernel_impl="ref"` routes through the
-        kernel's plain version instead, on any device).  Partial sums: the
-        plain batched `ensemble_apply`, as the reference routes them; the
-        kernel fuses single-shot accumulation only, so `kernel_impl` does
-        not apply there and the baseline launches no kernel.
+        """Ensemble group conv over every chip: per group, one launch of the
+        fused IRC MVM (`ensemble_apply_kernel`) or the plain batched route
+        (`ensemble_apply`).
+
+        `use_kernel` routes each group, as the reference's does: True forces
+        the kernel (single-shot accumulation only: its fused epilogue;
+        anything else raises); False forces the plain route; None (default)
+        takes the kernel where the accumulation is single-shot, the device
+        model's periphery is the analytic one (the epilogue bakes it in)
+        and `kernels.autotune.kernel_wins` says so for this problem on the
+        tensors' device (an untuned problem runs the kernel).  The kernel
+        runs at `autotune.best_blocks`' row tile.  `kernel_impl="ref"`
+        routes the kernel's groups through its plain version instead, on
+        any device.  Partial sums (the baseline) take the plain route.
 
         x is [B,H,W,cin] (chip-shared: the first IRC layer) or
         [chips,B,H,W,cin]; returns [chips,B,H,W,cout]."""
+        from repro_torch.kernels import autotune
         from repro_torch.mc.engine import ensemble_apply, ensemble_apply_kernel
         cfg = self.cfg
         if kernel_impl not in ("kernel", "ref"):
             raise ValueError(f"kernel_impl must be 'kernel' or 'ref', got "
                              f"{kernel_impl!r}")
+        if use_kernel and cfg.accumulation != "single_shot":
+            raise ValueError(
+                "use_kernel=True requires single_shot accumulation (fused "
+                f"kernel epilogue); got {cfg.accumulation!r}")
         n_groups = cout // cfg.group
         per_chip = x.ndim == 5
         B, H, W = x.shape[-4], x.shape[-3], x.shape[-2]
         xg = self._im2col_groups(x, cin, n_groups)
+        backend = autotune.backend_of(x.device)
         del x
         outs = []
         for g, ens in enumerate(groups):
             x_bits = xg[..., g, :].reshape(
                 (xg.shape[0], -1, 9 * cfg.group) if per_chip
                 else (-1, 9 * cfg.group))
-            if cfg.accumulation == "single_shot":
-                out = ensemble_apply_kernel(ens, x_bits, cfg=cfg_ni,
-                                            spec=self.spec,
-                                            sa_extra_units=sa_extra,
-                                            output=output,
-                                            per_chip_x=per_chip,
-                                            impl=kernel_impl, device=device)
+            problem = (ens.n_chips, x_bits.shape[-2], ens.n_out, ens.rows)
+            route = use_kernel
+            if route is None:
+                route = (cfg.accumulation == "single_shot"
+                         and (device is None or device.analytic_periphery)
+                         and autotune.kernel_wins(*problem, backend=backend))
+            if route:
+                out = ensemble_apply_kernel(
+                    ens, x_bits, cfg=cfg_ni, spec=self.spec,
+                    sa_extra_units=sa_extra, output=output,
+                    per_chip_x=per_chip, impl=kernel_impl,
+                    tile=autotune.best_blocks(*problem, backend=backend),
+                    device=device)
             else:
                 out = ensemble_apply(ens, x_bits, cfg=cfg_ni, spec=self.spec,
                                      accumulation=cfg.accumulation,
@@ -380,15 +403,17 @@ class IRCDetector:
     def _gconv_train_ensemble(self, blk, groups, x: torch.Tensor, cin: int,
                               cout: int, *, key: torch.Tensor,
                               cfg_ni: ni.NonidealConfig,
+                              use_kernel: Optional[bool] = None,
                               kernel_impl: str = "kernel", device=None
                               ) -> torch.Tensor:
         """mode="train_ensemble" group conv (paper Sec. V at population
         scale): the differentiable pre-activation, chips folded into the
         batch so one conv serves every chip, plus for each chip of the
         deviation population `groups`:
-          * its frozen linear device-variation error, the fused IRC MVM on
-            the (effective - nominal) conductance deltas with every effect
-            off (`output="diff"`), without gradient;
+          * its frozen linear device-variation error, the ensemble group
+            conv on the (effective - nominal) conductance deltas with every
+            effect off (`output="diff"`, routed by `use_kernel` as in
+            `_gconv_ensemble`), without gradient;
           * a fresh SA-offset draw (std 0.5 g(p_pair)) keyed
             fold_in(key, chip_id), so a chip's slice does not depend on the
             ensemble it is evaluated in.
@@ -403,7 +428,8 @@ class IRCDetector:
                 dev = self._gconv_ensemble(
                     groups, x.detach(), cin, cout,
                     cfg_ni=ni.NonidealConfig.none(), output="diff",
-                    kernel_impl=kernel_impl, device=device)
+                    use_kernel=use_kernel, kernel_impl=kernel_impl,
+                    device=device)
             pre = pre + dev                    # adds the chips axis
         if pre.ndim == 4:
             pre = pre.expand((n_chips,) + pre.shape)
@@ -459,6 +485,7 @@ class IRCDetector:
               mode: str = "eval", key: Optional[torch.Tensor] = None,
               cfg_ni: ni.NonidealConfig = ni.NonidealConfig.none(),
               sa_extra: float = 0.0, ensemble=None,
+              use_kernel: Optional[bool] = None,
               kernel_impl: str = "kernel", device=None) -> torch.Tensor:
         """images [B,H,W,3] in [0,1] -> head predictions.
 
@@ -472,7 +499,10 @@ class IRCDetector:
         fold_in(base_key, c) up to float32 near-ties.  `key` defaults to
         PRNGKey(0) on the images' device.  The train modes normalize the
         stem with batch statistics, the others with `calibrate_bn`'s.
-        `device` is the device model (None: analytic)."""
+        The ensemble modes route each group conv by `use_kernel` (None:
+        the autotuner's table; True: the fused IRC MVM; False: the plain
+        batched route; see `_gconv_ensemble`).  `device` is the device
+        model (None: analytic)."""
         if mode not in ("train", "train_ensemble", "eval", "ensemble"):
             raise ValueError(f"unknown mode {mode!r}")
         if key is None:
@@ -496,12 +526,14 @@ class IRCDetector:
             if mode == "ensemble":
                 x = self._gconv_ensemble(
                     ensemble.layers[name], x, cin, ch, cfg_ni=cfg_ni,
-                    sa_extra=sa_extra, kernel_impl=kernel_impl, device=device)
+                    sa_extra=sa_extra, use_kernel=use_kernel,
+                    kernel_impl=kernel_impl, device=device)
             elif mode == "train_ensemble":
                 x = self._gconv_train_ensemble(
                     params[name], ensemble.layers[name], x, cin, ch,
                     key=prng.fold_in(key, layer_id), cfg_ni=cfg_ni,
-                    kernel_impl=kernel_impl, device=device)
+                    use_kernel=use_kernel, kernel_impl=kernel_impl,
+                    device=device)
             elif mode == "train":
                 x = self._gconv_train(params[name], x, cin, ch,
                                       key=prng.fold_in(key, layer_id),

@@ -102,9 +102,11 @@ class DetectorServeEngine:
     `result`) or start the background scheduler thread (`start`/`stop`)
     and submit from anywhere.
 
-    `kernel_impl` is `run_mc_detector`'s: "kernel" runs each group conv
-    through the fused IRC MVM (its plain version on the CPU), "ref" through
-    the plain version.  `device` is the device model (None: analytic).
+    `use_kernel` and `kernel_impl` are `run_mc_detector`'s: `use_kernel`
+    routes each group conv (None: the autotuner's table for this card;
+    True: the fused IRC MVM; False: the plain batched route), and on the
+    kernel route `kernel_impl` "kernel" runs the fused IRC MVM (its plain
+    version on the CPU), "ref" its plain version.  `device` is the device model (None: analytic).
     `params` should carry calibrated stem-BN running stats
     (`det.calibrate_bn`).
     """
@@ -115,6 +117,7 @@ class DetectorServeEngine:
                  sa_extra: float = 0.0, seed: int = 0,
                  conf_thresh: float = 0.1, nms_thresh: float = 0.45,
                  quantiles: Tuple[float, ...] = DEFAULT_QUANTILES,
+                 use_kernel: Optional[bool] = None,
                  kernel_impl: str = "kernel",
                  keep_committee: bool = False,
                  obs: Optional[RunLog] = None,
@@ -129,6 +132,7 @@ class DetectorServeEngine:
         self.conf_thresh = conf_thresh
         self.nms_thresh = nms_thresh
         self.quantiles = quantiles
+        self.use_kernel = use_kernel
         self.kernel_impl = kernel_impl
         self.device = device
         self.keep_committee = keep_committee
@@ -275,7 +279,8 @@ class DetectorServeEngine:
                 self.params, images, keys, self._chip_ids, self._planes,
                 det_cfg=self.det.cfg, spec=self.det.spec, cfg_ni=self.cfg_ni,
                 sa_extra=self.sa_extra, meta=self._meta,
-                kernel_impl=self.kernel_impl, device=self.device))
+                use_kernel=self.use_kernel, kernel_impl=self.kernel_impl,
+                device=self.device))
 
     def _complete(self, wave: List[_Pending],
                   preds: np.ndarray) -> List[DetectionResponse]:
