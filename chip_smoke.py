@@ -129,6 +129,16 @@ Phases, each printing its own lines:
      per-chip mAPs; the layer CLI's sweep (540x60, 2048 dies in chunks of
      512, K1 and K3) at 0, 30 and 365 days; `IRCLinear(mode="eval")` over
      two macros card vs CPU, flips only at near-ties;
+  paper (`--only paper` runs it alone): the paper's task through the
+     port's twins of the JAX package's drivers (`repro_torch.examples`),
+     each with the launch counts set to 0 just before it: the quickstart
+     (K2 against the structural simulation, agreement >= 99%; K3; threefry),
+     every row of the paper tables with a finite time (K3 and threefry;
+     K1 on the proposed smoke detector's sweeps), and `train_detector
+     --full --steps 4 --batch 2 --eval-batches 1 --mc-chips 2 --mc-chunk 1`
+     for both designs into a temporary run directory (K1 14 a proposed
+     chunk and none on the baseline, whose partial sums launch xla_fma;
+     threefry on both sweeps);
   8. a JSON line of every ported kernel (the measured tail among them),
      the card's name and power limit, and the final `{"ok": true, ...}`
      line.
@@ -3137,10 +3147,11 @@ def pairs_times():
     """Phase `devices` (b'): the threefry kernel's pairs launch (fold_in,
     one block function a key, `threefry_pairs_launch`) at 4 keys (a chunk's
     chips) and 512 (a layer chunk's dies): device ms a launch, bit-identical
-    to `prng.fold_in_plain`, beside a 1-element torch add (the floor of one
-    launch on the queue) and the bound: each key's 16 bytes, its datum's 8
-    and the 16 written at 3.35 TB/s against its block function (41 ALU, 27
-    adds) on the pipes.  Returns {keys: numbers}."""
+    to `prng.fold_in_plain`, beside that plain version, a 1-element torch
+    add (the floor of one launch on the queue) and the bound: each key's
+    16 bytes, its datum's 8 and the 16 written at 3.35 TB/s against its
+    block function (41 ALU, 27 adds) on the pipes.  Returns {keys:
+    numbers}."""
     import torch
     from repro_torch import prng
     root = prng.PRNGKey(5, device="cuda")
@@ -3154,18 +3165,22 @@ def pairs_times():
         check(same_values(call(), prng.fold_in_plain(keys, data)),
               f"pairs launch, {n_keys} keys: differs from fold_in_plain")
         ms, host = queued_ms(call, reps=7, calls=50)
+        # the plain version waits on the card mid-call, so it cannot be
+        # queued behind a sleep: CUDA events around one call
+        plain_ms = cuda_ms(lambda: prng.fold_in_plain(keys, data), reps=7)
         t_bytes = 40 * n_keys / PEAK_BYTES_PER_S * 1e3
         blk = THREEFRY_BLOCK[True]
         t_ops = max(blk["alu"] / PIPE_RATE["alu"],
                     (blk["alu"] + blk["adds"]) / PIPE_RATE["issue"]) \
             * n_keys / SM_CLOCKS_PER_S * 1e3
-        out[n_keys] = dict(ms=ms, floor_ms=floor_ms,
+        out[n_keys] = dict(ms=ms, floor_ms=floor_ms, plain_ms=plain_ms,
                            bound_ms=max(t_bytes, t_ops),
                            bound_by="bytes" if t_bytes >= t_ops
                            else "operations")
         log("devices", f"threefry pairs launch (fold_in), {n_keys} keys: "
-            f"{ms:.5f} ms a launch, a 1-element torch add {floor_ms:.5f} "
-            f"ms, bound {max(t_bytes, t_ops):.3g} ms "
+            f"{ms:.5f} ms a launch, its plain version "
+            f"(`prng.fold_in_plain`) {plain_ms:.5f} ms, a 1-element torch "
+            f"add {floor_ms:.5f} ms, bound {max(t_bytes, t_ops):.3g} ms "
             f"({out[n_keys]['bound_by']}), host enqueue {host:.4f} ms")
     return out
 
@@ -3361,8 +3376,123 @@ def phase_devices(ops_, main_maps=None, baselines=()):
     return dict(times=times, launches=launches)
 
 
+# phase `paper`: the paper's task end to end, through the port's twins of
+# the JAX package's drivers (`repro_torch.examples`)
+PAPER_TRAIN_ARGV = ("--full", "--steps", "4", "--batch", "2",
+                    "--eval-batches", "1", "--mc-chips", "2", "--mc-chunk",
+                    "1", "--designs", "proposed,baseline")
+PAPER_MIN_AGREEMENT = 0.99
+
+
+def paper_quickstart(ops_):
+    """The quickstart on the card: K2 against the structural simulation
+    (agreement >= PAPER_MIN_AGREEMENT), K3 for the ideal signs, threefry
+    for every chip; returns its launches."""
+    from repro_torch.examples import quickstart
+    ops_.reset_launches()
+    res = quickstart.main([])
+    launches = dict(ops_.LAUNCHES)
+    agree = res["kernel_agreement"]
+    log("paper", f"quickstart: kernel vs structural sim agreement "
+        f"{agree:.6f} (>= {PAPER_MIN_AGREEMENT}); effects "
+        f"{ {k: round(v, 4) for k, v in res['effects'].items()} }; "
+        f"launches {launches} (want irc_mvm >= 1, ternary_matmul >= 1, "
+        f"threefry >= 1)")
+    check(agree >= PAPER_MIN_AGREEMENT, f"quickstart: K2 agrees {agree}")
+    check(launches["irc_mvm"] >= 1 and launches["ternary_matmul"] >= 1,
+          f"quickstart launches {launches}")
+    check_xla_launched("quickstart", launches)
+    return launches
+
+
+def paper_tables_rows(ops_):
+    """Every row of the paper tables on the card, each with a finite time;
+    K1 on the proposed smoke detector's sweeps, K3 for the ideal outputs,
+    threefry for every chip; returns the launches."""
+    import torch
+    from repro_torch.examples import paper_tables
+    ops_.reset_launches()
+    t0 = time.perf_counter()
+    rows = paper_tables.main([])
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = dict(ops_.LAUNCHES)
+    names = [r[0] for r in rows]
+    log("paper", f"paper_tables: {len(rows)} rows of {len(paper_tables.ALL)}"
+        f" functions in {wall:.1f}s, launches {launches} (want "
+        f"ternary_matmul, irc_mvm_chips and threefry >= 1)")
+    check(len(rows) == 26 and len(set(names)) == len(names)
+          and all(math.isfinite(us) and us >= 0.0 for _, us, _ in rows),
+          f"paper_tables rows {rows}")
+    check(launches["ternary_matmul"] >= 1
+          and launches["irc_mvm_chips"] >= 1, f"paper_tables {launches}")
+    check_xla_launched("paper_tables", launches)
+    return launches
+
+
+def paper_train_detector(ops_):
+    """`train_detector` at full width, both designs (PAPER_TRAIN_ARGV) into
+    a temporary run directory: QAT, BN calibration and the five-column
+    sweep of each; K1 14 a proposed chunk and none on the baseline, whose
+    partial sums launch `xla_fma`; threefry on both sweeps.  Returns the
+    launches of the whole run."""
+    import shutil
+    import tempfile
+    import numpy as np
+    import torch
+    from repro_torch.examples import train_detector
+    runs = Path(tempfile.mkdtemp(prefix="chip_smoke_paper_"))
+    try:
+        ops_.reset_launches()
+        t0 = time.perf_counter()
+        rep = train_detector.main(list(PAPER_TRAIN_ARGV) + [
+            "--run-dir", str(runs), "--run-id", "paper"])
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = dict(ops_.LAUNCHES)
+        files = sorted(p.name for p in (runs / "paper").iterdir())
+        manifest = json.loads((runs / "paper" / "manifest.json").read_text())
+    finally:
+        shutil.rmtree(runs, ignore_errors=True)
+    n_cols, chips = len(train_detector.ABLATION), 2
+    chunks = n_cols * chips                      # --mc-chunk 1
+    sweep = {d: rep["launches"][d]["sweep"] for d in rep["launches"]}
+    log("paper", f"train_detector {' '.join(PAPER_TRAIN_ARGV)}: "
+        f"{wall:.1f}s, Table II {rep['results']}, drops {rep['summary']}, "
+        f"peak GiB {rep['peak_gib']}")
+    for design in ("proposed", "baseline"):
+        log("paper", f"train_detector {design}: launches qat "
+            f"{rep['launches'][design]['qat']}, sweep {sweep[design]}")
+    log("paper", f"train_detector run dir: {files}")
+    check(all(np.isfinite(v).all() for cols in rep["per_chip"].values()
+              for v in cols.values())
+          and set(rep["summary"]) == {"drop_proposed", "drop_baseline"}
+          and manifest["status"] == "ok" and "metrics.jsonl" in files
+          and len([f for f in files if f.startswith("per_chip_")])
+          == 2 * n_cols, f"train_detector run: {files}, {rep['summary']}")
+    check(sweep["proposed"]["irc_mvm_chips"] == 14 * chunks,
+          f"proposed sweep: K1 {sweep['proposed']['irc_mvm_chips']}, want "
+          f"14 x {chunks}")
+    check(sweep["baseline"]["irc_mvm_chips"] == 0,
+          f"baseline sweep launched K1: {sweep['baseline']}")
+    check_xla_launched("train_detector proposed sweep", sweep["proposed"])
+    check_xla_launched("train_detector baseline sweep", sweep["baseline"],
+                       XLA_PLAIN_ROUTE)
+    return launches
+
+
+def phase_paper(ops_):
+    """Phase `paper` (`--only paper` runs it alone): the port's twins of
+    the JAX package's drivers on the card, each with the launch counts
+    set to 0 just before it and read just after; returns them by
+    driver."""
+    return {"quickstart": paper_quickstart(ops_),
+            "tables": paper_tables_rows(ops_),
+            "train_detector": paper_train_detector(ops_)}
+
+
 PHASES = ("kernels", "times", "main", "train", "serve", "network",
-          "autotune", "cli", "devices")
+          "autotune", "cli", "devices", "paper")
 
 
 def main(argv=None) -> int:
@@ -3474,6 +3604,9 @@ def main(argv=None) -> int:
     devices = {}
     if "devices" in only:
         devices = phase_devices(ops, main_maps, baselines)
+    paper = {}
+    if "paper" in only:
+        paper = phase_paper(ops)
     if "threefry" in only:
         phase_threefry_checks(ops)
         phase_threefry_tails()
@@ -3487,12 +3620,16 @@ def main(argv=None) -> int:
     kernels = []
     qat = train["launches"]
     served = serve["launches"]
+
+    def on_paper(name):
+        """Launches of `name` on phase `paper`'s three drivers."""
+        return sum(counts[name] for counts in paper.values())
     for name, replaces, n in (
             ("irc_mvm_chips", "src/repro/kernels/irc_mvm.py:228",
              launches["irc_mvm_chips"] + qat["irc_mvm_chips"]
-             + served["irc_mvm_chips"]),
+             + served["irc_mvm_chips"] + on_paper("irc_mvm_chips")),
             ("irc_mvm", "src/repro/kernels/irc_mvm.py:184",
-             single["irc_mvm"])):
+             single["irc_mvm"] + on_paper("irc_mvm"))):
         t = times[name]
         kernels.append({
             "name": name, "route": "cuda",
@@ -3511,12 +3648,14 @@ def main(argv=None) -> int:
     kernels[0]["chosen"] = {k: [r["bm"], r["tm"], r["use_kernel"]]
                             for k, r in tuned["measured"].items()}
     # K3 at the layer path's shape; its launches are the two layer runs'
+    # and the paper drivers'
     t = k3_times["layer"]
     kernels.append({
         "name": "ternary_matmul", "route": "cuda",
         "source": "src/repro_torch/csrc/ternary_matmul.cu",
         "replaces": "src/repro/kernels/ternary_matmul.py:38",
-        "launches": sum(c["ternary_matmul"] for c in layer.values()),
+        "launches": sum(c["ternary_matmul"] for c in layer.values())
+        + on_paper("ternary_matmul"),
         "max_abs_err": max(v["max_abs_err"] for v in k3_times.values()),
         "ms": t["ms"], "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],
         "bound_by": t["bound_by"], "library_ms": t["library_ms"]})
@@ -3532,26 +3671,27 @@ def main(argv=None) -> int:
             "ms": t["ms"], "plain_ms": t["plain_ms"],
             "bound_ms": t["bound_ms"], "bound_by": t["bound_by"],
             "library_ms": t["library_ms"]})
-    # the elementwise kernels; their launches are the two detector runs'
-    # and the QAT path's
+    # the elementwise kernels; their launches are the two detector runs',
+    # the QAT path's and the paper drivers'
     for name, t in xla_times.items():
         kernels.append({
             "name": name, "route": "cuda",
             "source": "src/repro_torch/csrc/xla_math.cu",
             "replaces": XLA_REPLACES[name],
-            "launches": launches[name] + baseline[name] + qat[name],
+            "launches": launches[name] + baseline[name] + qat[name]
+            + on_paper(name),
             "max_abs_err": t["max_abs_err"], "ms": t["ms"],
             "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],
             "bound_by": t["bound_by"], "library_ms": t["library_ms"]})
     # the die sampling at the periphery draw; its launches are the two
-    # detector runs', the QAT path's and the service's
+    # detector runs', the QAT path's, the service's and the paper drivers'
     t = tf_times["normal"]
     kernels.append({
         "name": "threefry", "route": "cuda",
         "source": "src/repro_torch/csrc/threefry.cu",
         "replaces": "src/repro/core/nonideal.py:64",
         "launches": launches["threefry"] + baseline["threefry"]
-        + qat["threefry"] + served["threefry"],
+        + qat["threefry"] + served["threefry"] + on_paper("threefry"),
         "max_abs_err": max(v["max_abs_err"] for v in tf_times.values()),
         "ms": t["ms"], "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],
         "bound_by": t["bound_by"], "library_ms": t["library_ms"]})
@@ -3576,6 +3716,7 @@ def main(argv=None) -> int:
         f"{launches['irc_mvm_chips']}, QAT {qat['irc_mvm_chips']}, service "
         f"{served['irc_mvm_chips']}; the auto-routed chunk of phase "
         f"`autotune` {tuned['auto_k1']}")
+    log("8 summary", f"paper drivers' launches (phase `paper`): {paper}")
     log("8 summary", f"QAT path launches ({TRAIN_STEPS} ensemble steps of "
         f"quick_qat): {qat}; per step by configuration: "
         + "; ".join(f"{k}: {v['launches']}"

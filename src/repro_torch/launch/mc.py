@@ -22,8 +22,8 @@
 `--det-backend` routes the detector's group convs as the JAX CLI's flag
 does: `auto` (default) as `repro_torch.kernels.autotune`'s table measured
 on this card says (a problem it has no entry for runs the kernel),
-`kernel` forces the fused IRC MVM, `plain` the plain batched route (the
-JAX CLI's `jnp`).
+`kernel` forces the fused IRC MVM, `jnp` (the JAX CLI's name) or its
+alias `plain` the plain batched route.
 
 Weights from the seed, drawn through the port's threefry as the
 reference's CLI draws them (the detector's by `IRCDetector.init(PRNGKey(
@@ -66,8 +66,9 @@ import dataclasses
 import json
 from pathlib import Path
 
-#: --det-backend -> the detector's `use_kernel`
-DET_BACKENDS = {"auto": None, "plain": False, "kernel": True}
+#: --det-backend -> the detector's `use_kernel`; `jnp` is the JAX CLI's
+#: name of the plain batched route, `plain` its alias
+DET_BACKENDS = {"auto": None, "jnp": False, "plain": False, "kernel": True}
 
 
 def _ablation_columns(ablation: str, table):
@@ -429,8 +430,8 @@ def main(argv=None) -> None:
                     choices=list(DET_BACKENDS),
                     help="detector group-conv routing: auto follows the "
                          "autotuner's table for this card (untuned: the "
-                         "kernel), kernel forces the fused IRC MVM, plain "
-                         "the plain batched route (the JAX CLI's jnp)")
+                         "kernel), kernel forces the fused IRC MVM, jnp "
+                         "(or its alias plain) the plain batched route")
     ap.add_argument("--no-pipeline", action="store_true",
                     help="detector: serial chunk loop instead of the "
                          "overlapped one")

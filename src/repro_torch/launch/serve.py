@@ -9,8 +9,8 @@ with mean/std/quantile confidence, each group conv through the fused IRC
 MVM kernel and every die draw through the threefry kernel on the card.
 `--det-backend` routes each group conv as in `repro_torch.launch.mc`:
 `auto` (default) as the autotuner's table for this card says (untuned:
-the kernel), `kernel` the fused IRC MVM, `plain` the plain batched route
-(the JAX CLI's `jnp`).
+the kernel), `kernel` the fused IRC MVM, `jnp` (the JAX CLI's name) or
+its alias `plain` the plain batched route.
 `--network lm` (the reference's default) names the LM serving engine,
 which comes with a later slice of the port: it exits non-zero.
 
@@ -47,7 +47,8 @@ def _build_parser() -> argparse.ArgumentParser:
     ap.add_argument("--det-backend", default="auto",
                     choices=list(DET_BACKENDS),
                     help="group-conv routing: auto (the autotuner's table), "
-                         "kernel (fused IRC MVM) or plain (batched route)")
+                         "kernel (fused IRC MVM) or jnp / plain (batched "
+                         "route)")
     ap.add_argument("--requests", type=int, default=8)
     ap.add_argument("--slots", type=int, default=4,
                     help="requests per wave at most")

@@ -12,6 +12,7 @@ the digital stem and head in other orders, `test_torch_detector_mc.py`);
 across routes the reference's `tests/test_kernel_detector.py` bar, >= 99%
 of outputs equal, with the same 1e-4; per-chip mAP@0.5 within 0.02."""
 import json
+import re
 import sys
 from pathlib import Path
 
@@ -405,14 +406,53 @@ def test_mc_cli_det_backend_matches_the_jax_cli(port, ref, tmp_path,
 
 
 def test_layer_cli_refuses_det_backend():
+    """The layer network refuses every non-default `--det-backend`, the
+    JAX CLI's `jnp` and its alias `plain` among them."""
     from repro_torch.launch import mc as cli
-    for backend in ("plain", "kernel"):
+    for backend in ("jnp", "plain", "kernel"):
         with pytest.raises(SystemExit, match="does not take --det-backend"):
             cli.main(["--network", "layer", "--det-backend", backend,
                       "--device", "cpu"])
-    with pytest.raises(SystemExit):
-        cli.main(["--network", "detector", "--det-backend", "jnp",
-                  "--device", "cpu"])
+
+
+def _per_chip(report):
+    return {ck: {col: r["per_chip_map50"] for col, r in cols.items()}
+            for ck, cols in report["results"].items()}
+
+
+def test_jnp_is_the_plain_route_on_both_clis(tmp_path, capsys):
+    """`--det-backend jnp` (the JAX CLIs' name) takes the plain batched
+    route on both port CLIs: the mc CLI's per-chip mAPs and the serve
+    CLI's responses equal those of `--det-backend plain` (CPU, smoke
+    geometry)."""
+    from repro_torch.launch import mc as mcli
+    from repro_torch.launch import serve as scli
+    assert mcli.DET_BACKENDS["jnp"] is mcli.DET_BACKENDS["plain"] is False
+    common = ["--network", "detector", "--chips", "2", "--chunk", "2",
+              "--ablation", "all", "--seed", "1", "--device", "cpu",
+              "--run-dir", ""]
+    maps = {}
+    for backend in ("jnp", "plain"):
+        out = tmp_path / f"{backend}.json"
+        mcli.main(common + ["--det-backend", backend, "--json", str(out)])
+        maps[backend] = _per_chip(json.loads(out.read_text()))
+    assert maps["jnp"] == maps["plain"]
+    assert "backend=jnp " in capsys.readouterr().out
+    served = {}
+    for backend in ("jnp", "plain"):
+        scli.main(["--network", "detector", "--device", "cpu", "--requests",
+                   "2", "--slots", "2", "--committee", "2", "--det-backend",
+                   backend, "--run-dir", str(tmp_path), "--run-id", backend])
+        man = json.loads((tmp_path / backend / "manifest.json").read_text())
+        assert man["status"] == "ok" and man["args"]["det_backend"] == backend
+        # each request's boxes and committee confidence, without its wave
+        # and queue time, which follow the scheduler's timing
+        served[backend] = [
+            re.sub(r" \(wave \d+\)|, queue \d+ms", "", line)
+            for line in capsys.readouterr().out.splitlines()
+            if line.startswith("req ")]
+    assert len(served["jnp"]) == 2
+    assert served["jnp"] == served["plain"]
 
 
 def test_serve_cli_det_backend(tmp_path, capsys):

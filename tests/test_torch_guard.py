@@ -42,3 +42,6 @@ def test_guard_sees_the_port():
            for p in _port_files()[:-1]}
     assert {"serve/detector.py", "serve/__init__.py",
             "launch/serve.py"} <= rel
+    assert {"examples/__init__.py", "examples/train_detector.py",
+            "examples/quickstart.py", "examples/paper_tables.py"} <= rel
+    assert {"train_detector.py", "quickstart.py", "paper_tables.py"} <= names
