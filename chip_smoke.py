@@ -139,6 +139,31 @@ Phases, each printing its own lines:
      for both designs into a temporary run directory (K1 14 a proposed
      chunk and none on the baseline, whose partial sums launch xla_fma;
      threefry on both sweeps);
+  lm (`--only lm` runs it alone): the LM serving path, TF32 checked off
+     first: every registered arch's smoke config, `LM.init(PRNGKey(0))`
+     on the card bit-identical to the port on the CPU (threefry kernel
+     against plain) and 4 decode steps within atol 1e-5 + rtol 1e-4;
+     phi3-medium-14b, hymba-1.5b and rwkv6-3b at full width cut to 2
+     layers in float32, drawn on the card and copied to the CPU, 4 decode
+     steps at batch 2 within 1e-4 (max|ref| + |ref|), greedy agreement
+     printed; qwen3-moe-235b-a22b at full width, 2 layers, float32, decode
+     against the teacher-forced forward within 2e-2 and the assignments
+     dropped for capacity; the threefry kernel's 3.67e9-word draw of
+     phi3-medium-14b's stacked w_gate (past 2^31 words under one key)
+     under both schemes, windows of 1M counters at its start, around 2^31
+     and at its end held bit for bit against their plain words; `python -m
+     repro_torch.launch.serve --network lm --variant full` at full width
+     and depth in bfloat16 for phi3-medium-14b (8 requests, 4 slots, 16
+     new tokens), hymba-1.5b and rwkv6-3b (4 requests, 8 new tokens), one
+     after another (steady decode and prefill tokens/s beside the decode
+     bound, first wave, peak memory, the init's threefry launches, the
+     run dir); a smoke checkpoint saved by the port's CheckpointManager in
+     bfloat16 and float32, restored by the CLI's `--ckpt-dir` with the
+     tokens of an in-process engine on the restored params; and the CLI at
+     `--temperature 0.8` with one threefry uniform launch a sampling step
+     and the tokens of the engine on the CPU up to counted near-ties;
+     then one phi3-medium-14b decode step at full width and depth timed
+     (wall, device span, kernels' busy time) and broken down by kernel;
   8. a JSON line of every ported kernel (the measured tail among them),
      the card's name and power limit, and the final `{"ok": true, ...}`
      line.
@@ -3491,8 +3516,583 @@ def phase_paper(ops_):
             "train_detector": paper_train_detector(ops_)}
 
 
+# phase `lm`: the LM serving path (ckpt, the LM zoo's decode, ServeEngine,
+# `launch.serve --network lm`); it runs no port of a TPU kernel but the
+# threefry kernel (the init's normal leaves and split, the prompts' bits,
+# the sampling's uniforms)
+LM_DECODE_STEPS = 4
+LM_SMOKE_ATOL, LM_SMOKE_RTOL = 1e-5, 1e-4
+LM_WIDE = ("phi3-medium-14b", "hymba-1.5b", "rwkv6-3b")
+LM_WIDE_RTOL = 1e-4             # and atol LM_WIDE_RTOL * max|ref|
+LM_MOE = "qwen3-moe-235b-a22b"
+LM_MOE_ATOL = 2e-2              # the reference's decode-vs-forward bar
+LM_CLI = (("phi3-medium-14b", 8, 16), ("hymba-1.5b", 4, 8),
+          ("rwkv6-3b", 4, 8))   # (arch, requests, max new tokens)
+LM_SLOTS = 4
+LM_WINDOW = 1 << 20             # counters per window of the big draw
+LM_BIG_LEAF = ("phi3-medium-14b", "seg0_dense/mlp/w_gate")
+LM_NEAR_TIE = 1e-4
+LM_TEMPERATURE = 0.8
+
+
+def lm_decode_bound(cfg, slots: int) -> dict:
+    """The card's least time for one decode step at `slots` tokens: every
+    parameter of `LM(cfg).specs()` read once (an untied embedding only
+    gathers `slots` rows; a tied one is read whole as the unembedding), at
+    PEAK_BYTES_PER_S; and the tokens/s that gives."""
+    import torch
+    from repro_torch.models.common import tree_leaves_with_path
+    from repro_torch.models.transformer import LM
+    nbytes = 0
+    for path, spec in tree_leaves_with_path(LM(cfg).specs()):
+        size = torch.empty((), dtype=spec.dtype).element_size()
+        rows = spec.shape[0] if path == ("embed",) \
+            and not cfg.tie_embeddings else None
+        words = math.prod(spec.shape)
+        if rows is not None:
+            words = words // rows * min(slots, rows)
+        nbytes += words * size
+    ms = nbytes / PEAK_BYTES_PER_S * 1e3
+    return {"bytes": nbytes, "ms": ms, "tokens_per_s": slots / ms * 1e3}
+
+
+def threefry_window(key, n: int, a: int, b: int, partitionable: bool):
+    """Words [a, b) of an n-word threefry draw under one key ([2] int64),
+    computed plainly from their counters alone (int64 [b - a]):
+    partitionable, word i is o0 ^ o1 at counters (i >> 32, i & mask);
+    original, with h = (n + 1) // 2, word i < h is o0 at (i, i + h) and
+    word i >= h is o1 at (i - h, i)."""
+    import torch
+    from repro_torch import prng
+    idx = torch.arange(a, b, dtype=torch.int64, device=key.device)
+    if partitionable:
+        o0, o1 = prng.threefry2x32(key[0], key[1], idx >> 32,
+                                   idx & prng.MASK32)
+        return o0 ^ o1
+    h = (n + 1) // 2
+    first = idx < h
+    x0 = torch.where(first, idx, idx - h)
+    x1 = x0 + h
+    x1 = torch.where(x1 < n, x1, torch.zeros_like(x1))
+    o0, o1 = prng.threefry2x32(key[0], key[1], x0, x1)
+    return torch.where(first, o0, o1)
+
+
+def lm_windows(n: int, partitionable: bool, w: int = LM_WINDOW) -> list:
+    """The counter windows held plainly: the first and last w words, w
+    around 2**31 and, under the original scheme, around the halves'
+    seam."""
+    starts = [0, (1 << 31) - w // 2, n - w]
+    if not partitionable:
+        starts.append((n + 1) // 2 - w // 2)
+    return [(max(0, s), min(n, s + w)) for s in starts if s < n]
+
+
+def lm_cli_stats(lines) -> dict:
+    """The `# lm stats` and `# kernel launches` lines of the serving CLI."""
+    out = {}
+    for line in lines:
+        if line.startswith("# lm stats "):
+            out.update(json.loads(line[len("# lm stats "):]))
+        elif line.startswith("# kernel launches "):
+            counts, tails = line[len("# kernel launches "):].split(" by tail ")
+            out["launches"] = json.loads(counts)
+            out["tail_launches"] = json.loads(tails)
+    return out
+
+
+def lm_samples(requests: int, slots: int, max_new: int) -> int:
+    """Sampling calls of a run without EOS: each wave samples once after
+    its prefill and once after each of its max_new decode steps."""
+    return -(-requests // slots) * (max_new + 1)
+
+
+def _lm_same_bits(a, b) -> bool:
+    import torch
+    from repro_torch.models.common import tree_leaves_with_path
+    la = list(tree_leaves_with_path(a))
+    lb = list(tree_leaves_with_path(b))
+    return [p for p, _ in la] == [p for p, _ in lb] and all(
+        x.dtype == y.dtype and torch.equal(
+            x.cpu().view(torch.int16 if x.element_size() == 2
+                         else torch.int32),
+            y.cpu().view(torch.int16 if y.element_size() == 2
+                         else torch.int32))
+        for (_, x), (_, y) in zip(la, lb))
+
+
+def _lm_decode(lm, params, toks, device):
+    """Teacher-forced decode of toks [B, S] (numpy) on `device`: the
+    stacked float32 logits [B, S, V] on the CPU."""
+    import torch
+    cache = lm.init_cache(toks.shape[0], 16, device=device)
+    out = []
+    for t in range(toks.shape[1]):
+        logits, cache = lm.decode_step(
+            params, torch.from_numpy(toks[:, t:t + 1]).to(device), cache)
+        out.append(logits[:, 0].float().cpu())
+    return torch.stack(out, 1)
+
+
+def lm_smoke_archs(ops_):
+    """Step 1: every registered arch's smoke config, card against the port
+    on the CPU: `LM.init(PRNGKey(0))` bit-identical (the threefry kernel
+    against its plain version), LM_DECODE_STEPS decode steps within
+    LM_SMOKE_ATOL + LM_SMOKE_RTOL.  Returns the card inits' launches."""
+    import numpy as np
+    import torch
+    from repro_torch import prng
+    from repro_torch.configs.registry import get_config, list_archs
+    from repro_torch.models.transformer import LM
+    launches = 0
+    for arch in list_archs():
+        lm = LM(get_config(arch, "smoke"))
+        ops_.reset_launches()
+        card = lm.init(prng.PRNGKey(0, device="cuda"), device="cuda")
+        torch.cuda.synchronize()
+        launches += ops_.LAUNCHES["threefry"]
+        n_draws = ops_.TAIL_LAUNCHES["normal"]
+        host = lm.init(prng.PRNGKey(0, device="cpu"), device="cpu")
+        same = _lm_same_bits(card, host)
+        toks = np.random.default_rng(0).integers(
+            0, lm.cfg.vocab_size, (2, LM_DECODE_STEPS)).astype(np.int32)
+        got = _lm_decode(lm, card, toks, "cuda")
+        ref = _lm_decode(lm, host, toks, "cpu")
+        err = float(torch.max(torch.abs(got - ref)))
+        ok = bool(torch.all(torch.abs(got - ref)
+                            <= LM_SMOKE_ATOL + LM_SMOKE_RTOL * ref.abs()))
+        log("lm", f"{arch} smoke: init bit-identical card vs CPU {same} "
+            f"({n_draws} normal draws + 1 split on the card); "
+            f"{LM_DECODE_STEPS} decode steps max|diff| {err:.3e} within "
+            f"{LM_SMOKE_ATOL} + {LM_SMOKE_RTOL}|ref| {ok}")
+        check(same and ok, f"{arch} smoke: init {same}, decode {ok}")
+    return launches
+
+
+def lm_full_width(ops_):
+    """Step 2: LM_WIDE at full width cut to 2 layers in float32: params
+    drawn on the card and copied to the CPU, LM_DECODE_STEPS decode steps
+    at batch 2 on both, logits within LM_WIDE_RTOL * (max|ref| + |ref|),
+    greedy-token agreement printed.  Returns the card inits' launches."""
+    import numpy as np
+    import torch
+    from repro_torch import prng
+    from repro_torch.configs.registry import get_config
+    from repro_torch.models.common import tree_map
+    from repro_torch.models.transformer import LM
+    launches = 0
+    for arch in LM_WIDE:
+        cfg = dataclasses.replace(get_config(arch, "full"), n_layers=2,
+                                  dtype="float32", param_dtype="float32")
+        lm = LM(cfg)
+        ops_.reset_launches()
+        t0 = time.perf_counter()
+        card = lm.init(prng.PRNGKey(0, device="cuda"), device="cuda")
+        torch.cuda.synchronize()
+        init_s = time.perf_counter() - t0
+        launches += ops_.LAUNCHES["threefry"]
+        host = tree_map(lambda t: t.cpu(), card)
+        toks = np.random.default_rng(1).integers(
+            0, cfg.vocab_size, (2, LM_DECODE_STEPS)).astype(np.int32)
+        t0 = time.perf_counter()
+        got = _lm_decode(lm, card, toks, "cuda")
+        card_s = time.perf_counter() - t0
+        ref = _lm_decode(lm, host, toks, "cpu")
+        top = float(ref.abs().max())
+        err = float(torch.max(torch.abs(got - ref)))
+        ok = bool(torch.all(torch.abs(got - ref)
+                            <= LM_WIDE_RTOL * (top + ref.abs())))
+        agree = float(torch.mean((got.argmax(-1) == ref.argmax(-1)).float()))
+        log("lm", f"{arch} full width, 2 layers, float32 "
+            f"({cfg.param_count() / 1e9:.3f}e9 params, init {init_s:.2f}s "
+            f"on the card): {LM_DECODE_STEPS} decode steps at batch 2, "
+            f"max|diff| {err:.3e} (max|ref| {top:.3e}) within "
+            f"{LM_WIDE_RTOL} (max|ref| + |ref|) {ok}; greedy tokens agree "
+            f"{agree:.4f}; card decode {card_s:.3f}s")
+        check(ok, f"{arch} full width card vs CPU: {err} of {top}")
+        del card, host
+        torch.cuda.empty_cache()
+    return launches
+
+
+def lm_moe(ops_):
+    """Step 3: LM_MOE at full width cut to 2 layers, float32, on the card:
+    decode against the teacher-forced forward within LM_MOE_ATOL, and the
+    assignments dropped for capacity at the forward's and at a 128-token
+    batch.  Returns the init's launches."""
+    import numpy as np
+    import torch
+    from repro_torch import prng
+    from repro_torch.configs.registry import get_config
+    from repro_torch.models import moe as moe_mod
+    from repro_torch.models.transformer import LM
+    cfg = dataclasses.replace(get_config(LM_MOE, "full"), n_layers=2,
+                              dtype="float32", param_dtype="float32")
+    lm = LM(cfg)
+    torch.cuda.reset_peak_memory_stats()
+    ops_.reset_launches()
+    params = lm.init(prng.PRNGKey(0, device="cuda"), device="cuda")
+    torch.cuda.synchronize()
+    launches = ops_.LAUNCHES["threefry"]
+    toks = np.random.default_rng(2).integers(
+        0, cfg.vocab_size, (1, 5)).astype(np.int32)
+    full, _ = lm.apply(params, torch.from_numpy(toks).cuda())
+    steps = _lm_decode(lm, params, toks, "cuda")
+    err = float(torch.max(torch.abs(full.cpu() - steps)))
+    layer = {k: v[0] for k, v in params["seg0_moe"]["moe"].items()}
+    drops = {}
+    for shape in ((1, 5), (2, 64)):
+        x = torch.randn(shape + (cfg.d_model,), device="cuda",
+                        generator=torch.Generator("cuda").manual_seed(0))
+        _, aux = moe_mod.moe_block(layer, x, cfg)
+        drops[shape[0] * shape[1]] = (int(aux["dropped"]),
+                                      moe_mod._capacity(cfg, x.shape[0]
+                                                        * x.shape[1]))
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    log("lm", f"{LM_MOE} full width, 2 layers, float32 "
+        f"({cfg.param_count() / 1e9:.3f}e9 params, peak {peak:.2f} GiB): "
+        f"decode vs teacher-forced forward max|diff| {err:.3e} (<= "
+        f"{LM_MOE_ATOL}); assignments dropped for capacity by tokens: "
+        f"{ {t: f'{d} of {t * cfg.top_k} (capacity {c})' for t, (d, c) in drops.items()} }")
+    check(err <= LM_MOE_ATOL, f"{LM_MOE}: decode vs forward {err}")
+    del params
+    torch.cuda.empty_cache()
+    return launches
+
+
+def lm_threefry_windows(ops_):
+    """Step 4: the phi3-medium-14b init's largest leaf (LM_BIG_LEAF,
+    3.67e9 words under one key, past 2**31) drawn by the threefry kernel
+    under both schemes at its own key, held bit for bit against the plain
+    computation of the words in each of `lm_windows` (the whole plain draw
+    would need ~29 GB of int64); the partitionable draw timed against its
+    bound (the float32 output written once)."""
+    import torch
+    from repro_torch import prng
+    from repro_torch.configs.registry import get_config
+    from repro_torch.models.common import tree_leaves_with_path
+    from repro_torch.models.transformer import LM
+    arch, leaf = LM_BIG_LEAF
+    specs = list(tree_leaves_with_path(LM(get_config(arch, "full")).specs()))
+    i = ["/".join(p) for p, _ in specs].index(leaf)
+    shape = specs[i][1].shape
+    n = math.prod(shape)
+    out = {}
+    for partitionable in (True, False):
+        with prng.threefry_partitionable(partitionable):
+            key = prng.split(prng.PRNGKey(0, device="cuda"), len(specs))[i]
+            draw = prng.normal(key, shape).view(-1)
+            ms = cuda_ms(lambda: prng.normal(key, shape), reps=3) \
+                if partitionable else float("nan")
+            rows = []
+            for a, b in lm_windows(n, partitionable):
+                want = prng.tail_plain(
+                    threefry_window(key, n, a, b, partitionable), "normal")
+                same = torch.equal(draw[a:b].view(torch.int32),
+                                   want.view(torch.int32))
+                rows.append((a, b, same))
+            del draw
+            torch.cuda.empty_cache()
+        scheme = "partitionable" if partitionable else "original"
+        bound = 4 * n / PEAK_BYTES_PER_S * 1e3
+        log("lm", f"threefry normal {leaf} {shape} = {n} words under one "
+            f"key ({scheme}): windows bit-identical to the plain words "
+            f"{[(a, b, s) for a, b, s in rows]}"
+            + (f"; {ms:.3f} ms (bound {bound:.3f} ms: 4 bytes a word "
+               f"written)" if partitionable else ""))
+        check(all(s for _, _, s in rows), f"threefry windows ({scheme}) "
+              f"differ: {rows}")
+        out[scheme] = ms
+    return out
+
+
+def _lm_cli(argv, runs, tag, env):
+    """`python -m repro_torch.launch.serve --network lm ARGV` into a run
+    dir under `runs`; its printed lines and stats."""
+    t0 = time.perf_counter()
+    proc = subprocess.run(
+        [sys.executable, "-m", "repro_torch.launch.serve", "--network", "lm",
+         *argv, "--run-dir", str(runs), "--run-id", tag], cwd=ROOT, env=env,
+        capture_output=True, text=True, timeout=600)
+    wall = time.perf_counter() - t0
+    lines = proc.stdout.strip().splitlines()
+    check(proc.returncode == 0, f"serve {' '.join(argv)}: "
+          f"{proc.stderr[-2000:]}")
+    stats = lm_cli_stats(lines)
+    stats["process_s"] = wall
+    stats["files"] = sorted(p.name for p in (runs / tag).iterdir())
+    stats["lines"] = [l for l in lines if not l.startswith("# lm stats")]
+    return stats
+
+
+def lm_cli_full(runs, env):
+    """Step 5: the CLI at full width and full depth in bfloat16 for each of
+    LM_CLI, one after another: every request gets its tokens, all in the
+    vocabulary, the logits finite; tokens/s, first wave, peak memory and
+    the init's threefry launches printed beside the decode bound."""
+    from repro_torch.configs.registry import get_config
+    card = gpu_name_and_limit()
+    out = {}
+    for arch, requests, max_new in LM_CLI:
+        argv = ["--arch", arch, "--variant", "full", "--requests",
+                str(requests), "--slots", str(LM_SLOTS), "--max-new",
+                str(max_new)]
+        st = _lm_cli(argv, runs, f"full-{arch}", env)
+        for line in st["lines"]:
+            log("lm", f"serve {arch} full: {line}")
+        bound = lm_decode_bound(get_config(arch, "full"), LM_SLOTS)
+        log("lm", f"serve {arch} full ({st['params'] / 1e9:.3f}e9 params, "
+            f"{st['param_dtype']}), {requests} requests x {max_new} new "
+            f"tokens at {LM_SLOTS} slots: steady decode "
+            f"{st['decode_tokens_per_sec']:.2f} tok/s (bound "
+            f"{bound['tokens_per_s']:.1f}: {bound['bytes'] / 1e9:.2f} GB of "
+            f"weights a step in {bound['ms']:.3f} ms), prefill "
+            f"{st['prefill_tokens_per_sec']:.2f} tok/s, first wave "
+            f"{st['first_wave_s']:.3f} s, init {st['init_s']:.2f} s with "
+            f"{st['init_threefry_launches']} threefry launches, peak "
+            f"{st['init_peak_gib']:.2f} GiB at init and "
+            f"{st['serve_peak_gib']:.2f} GiB serving; process "
+            f"{st['process_s']:.1f} s; run dir {st['files']}; {card}")
+        check(st["requests"] == requests
+              and st["new_tokens"] == requests * max_new
+              and all(len(t) == max_new for t in st["tokens"])
+              and st["in_vocab"] and st["logits_finite"]
+              and {"manifest.json", "metrics.jsonl"} <= set(st["files"]),
+              f"serve {arch} full: {st}")
+        manifest = json.loads((runs / f"full-{arch}" / "manifest.json")
+                              .read_text())
+        check(manifest["status"] == "ok", f"{arch} manifest {manifest}")
+        out[arch] = st
+    return out
+
+
+def _lm_cpu_gaps(engine, temperature):
+    """Wrap a CPU engine's `_sample` to record, per call, the top-2 gap of
+    the scores it samples from (logits, or gumbel + logits / T)."""
+    import torch
+    from repro_torch import prng
+    inner = engine._sample
+    gaps = []
+
+    def sample(logits, *, wave, step):
+        last = logits[:, -1, :]
+        if temperature > 0:
+            k = prng.fold_in(prng.fold_in(engine._root_key, wave), step)
+            last = prng.gumbel(k, tuple(last.shape)) + last / torch.tensor(
+                float(temperature))
+        top = torch.topk(last, 2, dim=-1).values
+        gaps.append((top[:, 0] - top[:, 1]).tolist())
+        return inner(logits, wave=wave, step=step)
+    engine._sample = sample
+    return gaps
+
+
+def lm_tokens_agree(card_tokens, cpu_tokens, gaps, slots, max_new):
+    """Card tokens equal the CPU's per request up to the first sampling
+    step where the CPU's top-2 gap is under LM_NEAR_TIE; returns (compared,
+    near-ties, mismatches)."""
+    compared = ties = bad = 0
+    for r, (a, b) in enumerate(zip(card_tokens, cpu_tokens)):
+        wave, slot = divmod(r, slots)
+        for s in range(len(b)):
+            if gaps[wave * (max_new + 1) + s][slot] < LM_NEAR_TIE:
+                ties += 1
+                break
+            compared += 1
+            bad += s >= len(a) or a[s] != b[s]
+    return compared, ties, bad
+
+
+def lm_cli_smoke(ops_, runs, env):
+    """Steps 6 and 7, at the smoke config: the port's CheckpointManager
+    saves random phi3 smoke params (PRNGKey(3)) in bfloat16 and in
+    float32; the CLI restores each (`restored step`) and serves the same
+    greedy tokens as an in-process ServeEngine on the restored params;
+    the CLI at --temperature LM_TEMPERATURE launches the threefry uniform
+    once a sampling step, its tokens equal to a CPU engine's up to counted
+    near-ties.  The three CLIs run side by side.  Returns their
+    launches."""
+    import torch
+    from repro_torch import prng
+    from repro_torch.ckpt import CheckpointManager
+    from repro_torch.configs.registry import get_config
+    from repro_torch.launch.serve import lm_prompts
+    from repro_torch.models.common import tree_map
+    from repro_torch.models.transformer import LM
+    from repro_torch.serve import ServeEngine
+    arch, requests, max_new, slots = "phi3-medium-14b", 6, 6, 2
+    lm = LM(get_config(arch, "smoke"))
+    other = lm.init(prng.PRNGKey(3, device="cuda"), device="cuda")
+    dirs = {}
+    for dtype in (torch.bfloat16, torch.float32):
+        d = runs / f"ckpt-{str(dtype).split('.')[-1]}"
+        CheckpointManager(d).save(tree_map(lambda t: t.to(dtype), other), 11)
+        dirs[dtype] = d
+    base = ["--requests", str(requests), "--slots", str(slots),
+            "--max-new", str(max_new)]
+    jobs = {str(dt).split(".")[-1]: base + ["--ckpt-dir", str(d)]
+            for dt, d in dirs.items()}
+    jobs["sampled"] = base + ["--temperature", str(LM_TEMPERATURE)]
+    procs = {tag: subprocess.Popen(
+        [sys.executable, "-m", "repro_torch.launch.serve", "--network", "lm",
+         *argv, "--run-dir", str(runs), "--run-id", tag], cwd=ROOT, env=env,
+        stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+        for tag, argv in jobs.items()}
+    stats = {}
+    try:
+        for tag, proc in procs.items():
+            out, err = proc.communicate(timeout=600)
+            check(proc.returncode == 0, f"serve {tag}: {err[-2000:]}")
+            stats[tag] = lm_cli_stats(out.splitlines())
+            stats[tag]["lines"] = out.splitlines()
+    finally:
+        for proc in procs.values():
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+    prompts = lm_prompts(requests, lm.cfg.vocab_size, "cuda")
+    for dtype, d in dirs.items():
+        tag = str(dtype).split(".")[-1]
+        restored, step = CheckpointManager(d).restore_latest(
+            lm.abstract_params(), device="cuda")
+        eng = ServeEngine(lm, restored, batch_slots=slots, max_len=128)
+        want = [r.tokens for r in eng.generate(prompts, max_new)]
+        said = f"restored step 11 from {d}" in stats[tag]["lines"]
+        log("lm", f"--ckpt-dir ({tag} checkpoint, step {step}): CLI printed "
+            f"'restored step 11' {said}; its tokens equal the in-process "
+            f"engine's on the restored params "
+            f"{stats[tag]['tokens'] == want} ({stats[tag]['tokens'][:2]}...)")
+        check(said and stats[tag]["tokens"] == want,
+              f"--ckpt-dir {tag}: {stats[tag]['tokens']} vs {want}")
+    st = stats["sampled"]
+    want_u = lm_samples(requests, slots, max_new)
+    host_lm = LM(get_config(arch, "smoke"))
+    host = host_lm.init(prng.PRNGKey(0, device="cpu"), device="cpu")
+    cpu = ServeEngine(host_lm, host, batch_slots=slots, max_len=128,
+                      temperature=LM_TEMPERATURE)
+    gaps = _lm_cpu_gaps(cpu, LM_TEMPERATURE)
+    cpu_tokens = [r.tokens for r in cpu.generate(
+        lm_prompts(requests, host_lm.cfg.vocab_size, "cpu"), max_new)]
+    compared, ties, bad = lm_tokens_agree(st["tokens"], cpu_tokens, gaps,
+                                          slots, max_new)
+    log("lm", f"--temperature {LM_TEMPERATURE}: threefry launches "
+        f"{st['launches']['threefry']} (uniform tail "
+        f"{st['tail_launches']['uniform']}, want {want_u}: one a sampling "
+        f"step), tokens equal the CPU engine's at {compared - bad} of "
+        f"{compared} compared steps, {ties} near-ties (top-2 gap < "
+        f"{LM_NEAR_TIE})")
+    check(st["tail_launches"]["uniform"] == want_u and bad == 0
+          and compared > 0, f"sampled CLI: uniform "
+          f"{st['tail_launches']['uniform']} (want {want_u}), "
+          f"{bad} mismatches")
+    del other
+    torch.cuda.empty_cache()
+    return {tag: s["launches"] for tag, s in stats.items()}
+
+
+def lm_step_profile():
+    """Step 8, a measurement: phi3-medium-14b at full width and depth in
+    bfloat16 (LM_SLOTS slots, a 128-position cache): one decode step's
+    wall time (host clock around steps that end in a synchronize), its
+    device span (CUDA events) and torch.profiler's kernels of one step by
+    name (the matmuls apart), their sum the card's busy time, beside the
+    decode bound.  (`queued_ms` cannot time it: a step's ~3,000 launches
+    overflow the launch queue behind any sleep.)"""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    from repro_torch import prng
+    from repro_torch.configs.registry import get_config
+    from repro_torch.models.transformer import LM
+    cfg = get_config(LM_BIG_LEAF[0], "full")
+    lm = LM(cfg)
+    params = lm.init(prng.PRNGKey(0, device="cuda"), device="cuda")
+    cache = lm.init_cache(LM_SLOTS, 128, device="cuda")
+    tok = torch.zeros((LM_SLOTS, 1), dtype=torch.int32, device="cuda")
+
+    def step():
+        return lm.decode_step(params, tok, {**cache, "index": 5})
+    span_ms = cuda_ms(step, reps=5)
+    t0 = time.perf_counter()
+    for _ in range(5):
+        step()
+    torch.cuda.synchronize()
+    wall_ms = (time.perf_counter() - t0) * 1e3 / 5
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        step()
+        torch.cuda.synchronize()
+
+    def dev_us(e):
+        return getattr(e, "self_device_time_total",
+                       getattr(e, "self_cuda_time_total", 0.0))
+    rows = sorted((e for e in prof.key_averages()
+                   if not e.key.startswith("aten::") and dev_us(e) > 0),
+                  key=dev_us, reverse=True)
+    busy_ms = sum(dev_us(e) for e in rows) / 1e3
+    launches = sum(e.count for e in rows)
+    mm = [e for e in rows if any(w in e.key.lower() for w in
+                                 ("gemm", "gemv", "nvjet", "cutlass",
+                                  "sm90_", "xmma", "cublas"))]
+    mm_ms = sum(dev_us(e) for e in mm) / 1e3
+    bound = lm_decode_bound(cfg, LM_SLOTS)
+    log("lm", f"{cfg.name} full, one decode step at {LM_SLOTS} slots: wall "
+        f"{wall_ms:.3f} ms, device span {span_ms:.3f} ms (CUDA events), "
+        f"kernels {busy_ms:.3f} ms in {launches} launches (card idle "
+        f"{1 - busy_ms / wall_ms:.4f} of the wall), matmuls {mm_ms:.3f} ms "
+        f"in {sum(e.count for e in mm)} launches; bound {bound['ms']:.3f} "
+        f"ms (bytes); {gpu_name_and_limit()}")
+    for e in rows[:8]:
+        log("lm", f"  {dev_us(e) / 1e3:8.3f} ms x{e.count:<5d} {e.key[:90]}")
+    del params, cache
+    torch.cuda.empty_cache()
+    return {"wall_ms": wall_ms, "span_ms": span_ms, "busy_ms": busy_ms,
+            "launches": launches, "matmul_ms": mm_ms}
+
+
+def phase_lm(ops_):
+    """Phase `lm` (`--only lm` runs it alone): the LM serving path on the
+    card, steps 1-7 of `lm_smoke_archs`, `lm_full_width`, `lm_moe`,
+    `lm_threefry_windows`, `lm_cli_full` and `lm_cli_smoke`, TF32 checked
+    off first, and the measurement `lm_step_profile`.  Every launch
+    counted on these paths is the threefry kernel's (this path runs no
+    port of a TPU kernel); returns them."""
+    import shutil
+    import tempfile
+    import torch
+    check(not torch.backends.cuda.matmul.allow_tf32
+          and not torch.backends.cudnn.allow_tf32
+          and torch.get_float32_matmul_precision() == "highest",
+          "TF32 is on: the float32 legs would not be true float32")
+    torch.cuda.empty_cache()
+    log("lm", f"TF32 off (matmul and cuDNN); {gpu_name_and_limit()}")
+    t0 = time.perf_counter()
+    launches = {"smoke": lm_smoke_archs(ops_),
+                "full_width": lm_full_width(ops_), "moe": lm_moe(ops_)}
+    windows = lm_threefry_windows(ops_)
+    env = dict(os.environ)
+    env["PYTHONPATH"] = str(SRC) + os.pathsep + env.get("PYTHONPATH", "")
+    runs = Path(tempfile.mkdtemp(prefix="chip_smoke_lm_"))
+    try:
+        full = lm_cli_full(runs, env)
+        smoke = lm_cli_smoke(ops_, runs, env)
+    finally:
+        shutil.rmtree(runs, ignore_errors=True)
+    step = lm_step_profile()
+    for arch, st in full.items():
+        launches[f"cli {arch}"] = st["launches"]["threefry"]
+    for tag, counts in smoke.items():
+        launches[f"cli {tag}"] = counts["threefry"]
+    others = {k: v for st in full.values() for k, v in st["launches"].items()
+              if k != "threefry" and v}
+    check(not others, f"the LM path launched other kernels: {others}")
+    log("lm", f"threefry launches on the LM paths {launches}; "
+        f"{time.perf_counter() - t0:.1f}s")
+    return {"threefry": sum(launches.values()), "by_path": launches,
+            "full": full, "windows": windows, "step": step}
+
+
 PHASES = ("kernels", "times", "main", "train", "serve", "network",
-          "autotune", "cli", "devices", "paper")
+          "autotune", "cli", "devices", "paper", "lm")
 
 
 def main(argv=None) -> int:
@@ -3607,6 +4207,9 @@ def main(argv=None) -> int:
     paper = {}
     if "paper" in only:
         paper = phase_paper(ops)
+    lm = {}
+    if "lm" in only:
+        lm = phase_lm(ops)
     if "threefry" in only:
         phase_threefry_checks(ops)
         phase_threefry_tails()
@@ -3691,7 +4294,8 @@ def main(argv=None) -> int:
         "source": "src/repro_torch/csrc/threefry.cu",
         "replaces": "src/repro/core/nonideal.py:64",
         "launches": launches["threefry"] + baseline["threefry"]
-        + qat["threefry"] + served["threefry"] + on_paper("threefry"),
+        + qat["threefry"] + served["threefry"] + on_paper("threefry")
+        + lm["threefry"],
         "max_abs_err": max(v["max_abs_err"] for v in tf_times.values()),
         "ms": t["ms"], "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],
         "bound_by": t["bound_by"], "library_ms": t["library_ms"]})
@@ -3711,7 +4315,12 @@ def main(argv=None) -> int:
         f"layer {dict((d, c['threefry']) for d, c in layer.items())}, "
         f"single-chip layer {single['threefry']}, QAT (quick_qat, "
         f"{TRAIN_STEPS} ensemble steps) {qat['threefry']}, service "
-        f"({SERVE_REQUESTS} requests) {served['threefry']}")
+        f"({SERVE_REQUESTS} requests) {served['threefry']}, LM paths "
+        f"(phase `lm`) {lm['threefry']}")
+    log("8 summary", "the LM serving path (phase `lm`) runs no port of a "
+        "TPU kernel: its device work is torch matmul / einsum, as the "
+        "reference's is plain jnp; its only kernel is threefry, launched "
+        f"by path {lm['by_path']}")
     log("8 summary", f"K1 launches by path: detector proposed "
         f"{launches['irc_mvm_chips']}, QAT {qat['irc_mvm_chips']}, service "
         f"{served['irc_mvm_chips']}; the auto-routed chunk of phase "

@@ -1,1 +1,1 @@
-"""Synthetic detection data (numpy, seeded)."""
+"""Synthetic data (numpy, seeded): detection images and LM token streams."""

@@ -199,6 +199,57 @@ def measured(key: torch.Tensor, shape: Sequence[int], table: Table
     return _ops().threefry_draw(key, shape, "measured", table=table)
 
 
+#: float32's smallest normal, the gumbel's uniform's floor
+F32_TINY = float(np.finfo(np.float32).tiny)
+
+
+def randint(key: torch.Tensor, shape: Sequence[int], minval: int,
+            maxval: int) -> torch.Tensor:
+    """`jax.random.randint(key, shape, minval, maxval)` (int32): `split`
+    into k1, k2, 32 bits under each, and `jax._src.random._randint`'s span
+    arithmetic in wrapping uint32 (with a span above 2**16, 2**32 % span
+    wraps to 0 and the first draw drops out, as it does there)."""
+    info = np.iinfo(np.int32)
+    out_of_range = maxval > info.max
+    lo = min(max(int(minval), info.min), info.max)
+    hi = min(max(int(maxval), info.min), info.max)
+    span = (hi - lo) & MASK32 if hi > lo else 1
+    if out_of_range and hi > lo:
+        span = (span + 1) & MASK32
+
+    def rem(a, b):                 # XLA's unsigned remainder: x rem 0 = x
+        return a if b == 0 else a % b
+    mult = rem((rem(1 << 16, span) ** 2) & MASK32, span)
+    keys = split(key, 2)
+    high = random_bits(keys[..., 0, :], shape)
+    low = random_bits(keys[..., 1, :], shape)
+    offset = ((rem(high, span) * mult) & MASK32) + rem(low, span)
+    offset = rem(offset & MASK32, span)
+    # int32(offset) + minval in wrapping int32
+    val = (offset + lo) & MASK32
+    return torch.where(val > info.max, val - (1 << 32), val).to(torch.int32)
+
+
+def gumbel(key: torch.Tensor, shape: Sequence[int]) -> torch.Tensor:
+    """`jax.random.gumbel(key, shape, float32)` (mode "low"):
+    -log(-log(u)) with u `uniform(key, shape, finfo.tiny, 1)`, XLA's
+    float32 log (`xla_order.log`)."""
+    u = uniform(key, shape, minval=F32_TINY, maxval=1.0)
+    return -xo.log(-xo.log(u))
+
+
+def categorical(key: torch.Tensor, logits: torch.Tensor,
+                axis: int = -1) -> torch.Tensor:
+    """`jax.random.categorical(key, logits, axis)` for float32 logits,
+    sampling with replacement: the argmax of `gumbel + logits` (the first
+    index of the maximum, as `jnp.argmax`), int64."""
+    if logits.dtype != torch.float32:
+        raise ValueError(f"categorical takes float32 logits, got "
+                         f"{logits.dtype}")
+    g = gumbel(key.to(logits.device), tuple(logits.shape))
+    return torch.argmax(g + logits, dim=axis)
+
+
 # ---------------------------------------------------------- plain versions
 
 def _as_words(data: IntLike, device) -> torch.Tensor:

@@ -213,6 +213,13 @@ def _log(y: torch.Tensor) -> torch.Tensor:
     return torch.where(y == float("inf"), y, r)
 
 
+def log(x: torch.Tensor) -> torch.Tensor:
+    """`jnp.log` on float32 as XLA's CPU backend computes it (normal and
+    zero inputs; subnormal ones are read as the smallest normal); plain
+    torch on any device."""
+    return _log(x)
+
+
 def log1p(x: torch.Tensor) -> torch.Tensor:
     """`jnp.log1p` on float32 as XLA's CPU backend computes it (subnormal
     inputs flushed to zero, as there); plain torch on any device."""

@@ -1,6 +1,6 @@
 """The port stands alone: no module of `src/repro_torch/` and not
-`chip_smoke.py` imports JAX or the JAX package `repro` (only the tests import
-both)."""
+`chip_smoke.py` imports JAX, the JAX package `repro` or `ml_dtypes` (only
+the tests import them)."""
 import ast
 from pathlib import Path
 
@@ -16,7 +16,7 @@ def _port_files():
 
 def _forbidden(name: str) -> bool:
     top = name.split(".")[0]
-    return top in ("jax", "jaxlib", "repro")
+    return top in ("jax", "jaxlib", "repro", "ml_dtypes")
 
 
 @pytest.mark.parametrize("path", _port_files(),
@@ -45,3 +45,14 @@ def test_guard_sees_the_port():
     assert {"examples/__init__.py", "examples/train_detector.py",
             "examples/quickstart.py", "examples/paper_tables.py"} <= rel
     assert {"train_detector.py", "quickstart.py", "paper_tables.py"} <= names
+    assert {"ckpt/checkpoint.py", "models/transformer.py", "serve/engine.py",
+            "configs/registry.py"} <= rel
+
+
+def test_serve_cli_takes_network_lm(capsys):
+    """`--network lm`, the JAX CLI's default, serves (it once exited)."""
+    from repro_torch.launch import serve
+    serve.main(["--network", "lm", "--device", "cpu", "--requests", "2",
+                "--slots", "2", "--max-new", "2"])
+    out = capsys.readouterr().out
+    assert "req 0: 2 prompt toks" in out and "2 requests, 4 new tokens" in out

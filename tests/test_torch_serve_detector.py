@@ -280,5 +280,7 @@ def test_cli_serves_on_the_cpu(tmp_path, capsys):
     assert [e["kind"] for e in evs[-5:]] == ["phase"] * 4 + ["serve_latency"]
     out = capsys.readouterr().out
     assert "3 requests over 2-chip committees" in out
-    with pytest.raises(SystemExit, match="later slice"):
-        cli.main(["--network", "lm", "--device", "cpu"])
+    # --network lm, the JAX CLI's default, serves the LM (it once exited)
+    cli.main(["--network", "lm", "--device", "cpu", "--requests", "1",
+              "--max-new", "2"])
+    assert "1 requests, 2 new tokens" in capsys.readouterr().out
