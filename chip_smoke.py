@@ -164,6 +164,25 @@ Phases, each printing its own lines:
      and the tokens of the engine on the CPU up to counted near-ties;
      then one phi3-medium-14b decode step at full width and depth timed
      (wall, device span, kernels' busy time) and broken down by kernel;
+  train_lm (`--only train_lm` runs it alone): LM training, TF32 checked
+     off first: every registered arch's smoke config with IRC off and on,
+     one value_and_grad on the card (remat block) against the CPU from the
+     same params (loss within 1e-5 + 1e-4|ref|, each gradient leaf within
+     relative L2 1e-5 / 1e-3) and one train step on the card;
+     hymba-1.5b, musicgen-medium and rwkv6-3b at full width cut to 2
+     layers in float32, card against CPU the same way; `python -m
+     repro_torch.launch.train` at full width and depth (batch 8 x 4096,
+     microbatch 4, remat block): hymba-1.5b 8 steps with checkpoints,
+     resumed from them to 10 (it must start at 8) where /dev/shm and the
+     host's memory hold 5 checkpoints of 14.75 GB, else 8 steps without
+     and a resume from 1 to 2 steps on disk, 2 steps with --irc,
+     musicgen-medium 3 steps, each
+     with a `# train stats` line (steady
+     steps/s and tokens/s, compile_s, peak memory, the losses, the
+     model-FLOPs share) and its kernel launches (threefry; xla_fma on
+     hymba); hymba-1.5b's peak memory under each remat mode at batch 1 x
+     1024 and one micro-slice broken down by kernel; the examples
+     `train_lm --size 100m --steps 50` and `serve_lm` at its defaults;
   8. a JSON line of every ported kernel (the measured tail among them),
      the card's name and power limit, and the final `{"ok": true, ...}`
      line.
@@ -4091,8 +4110,526 @@ def phase_lm(ops_):
             "full": full, "windows": windows, "step": step}
 
 
+# phase `train_lm`: LM training (train/steps.py's LM half with remat and
+# microbatching, the associative SSM scan, Trainer, `launch.train`, the LM
+# examples); its kernels are threefry (the init's draws) and xla_fma (the
+# scan's fused multiply-add, on the hybrid configs)
+TRAIN_LM_ATOL, TRAIN_LM_RTOL = 1e-5, 1e-4      # the loss, card vs CPU
+TRAIN_LM_GRAD_RTOL = {False: 1e-5, True: 1e-3}  # relative L2 per leaf
+TRAIN_LM_LR = 1e-3
+TRAIN_LM_WIDE = ("hymba-1.5b", "musicgen-medium", "rwkv6-3b")
+TRAIN_LM_WIDE_SHAPE = (2, 64)                  # (rows, seq), 2 layers, f32
+TRAIN_LM_FULL = ("--variant", "full", "--batch", "8", "--seq", "4096",
+                 "--microbatch", "4", "--remat", "block")
+TRAIN_LM_STEPS = (8, 10)          # hymba-1.5b's run, then resumed to
+# a full-width checkpoint is 14.75 GB (bf16 params, float32 m and v); the
+# Trainer keeps 3 (a 4th while it writes) and holds one more as its host
+# snapshot.  Those go to /dev/shm (memory) where the host has room for
+# them and TRAIN_LM_HOST_MARGIN besides; else the resume runs 1 -> 2
+# steps on disk (2 saves, 29.5 GB: the card's hosts cap what a run may
+# write to disk at 45 GiB, deleted files included)
+TRAIN_LM_KEEP = 3
+TRAIN_LM_HOST_MARGIN = 8e9
+TRAIN_LM_SHORT_STEPS = (1, 2)
+TRAIN_LM_IRC_STEPS = 2
+TRAIN_LM_MUSICGEN_STEPS = 3       # fewer than 8: the phase's wall
+TRAIN_LM_REMAT = ("none", "names", "dots", "block")
+TRAIN_LM_REMAT_SHAPE = (1, 1024)  # (batch, seq) of the remat peaks
+TRAIN_LM_PROFILE_SHAPE = (2, 4096)  # one micro-slice of the full run
+TRAIN_LM_EXAMPLE = ("--size", "100m", "--steps", "50")
+
+
+def train_flops_share(params: int, tokens: int, step_s: float) -> float:
+    """The model-FLOPs share of a step: 6 * params * tokens (forward and
+    backward of every weight, no recompute, no attention) over the step's
+    wall and PEAK_BF16_FLOPS."""
+    return 6.0 * params * tokens / step_s / PEAK_BF16_FLOPS
+
+
+def train_stats(lines) -> dict:
+    """The `# train stats` and `# kernel launches` lines of the training
+    CLI, and its last line."""
+    out = {"last": lines[-1] if lines else ""}
+    for line in lines:
+        if line.startswith("# train stats "):
+            out.update(json.loads(line[len("# train stats "):]))
+        elif line.startswith("# kernel launches "):
+            counts, tails = line[len("# kernel launches "):].split(" by tail ")
+            out["launches"] = json.loads(counts)
+            out["tail_launches"] = json.loads(tails)
+    return out
+
+
+def log_train_stats(tag: str, st: dict, card: str) -> dict:
+    """Print one `# train stats` line (steady steps/s and tokens/s,
+    compile_s, peak memory, the losses, the model-FLOPs share) beside the
+    card; returns it."""
+    steady = st["step_times_s"][1:] or st["step_times_s"]
+    step_s = statistics.median(steady)
+    line = {"run": tag, "arch": st["arch"], "params": st["params"],
+            "tokens_per_step": st["tokens_per_step"],
+            "steps": st["steps"], "resumed_at": st["resumed_at"],
+            "steps_per_sec": st["steps_per_sec"],
+            "tokens_per_sec": st["tokens_per_sec"],
+            "median_step_s": step_s, "compile_s": st["compile_s"],
+            "peak_gib": st["peak_gib"], "losses": st["losses"],
+            "model_flops_share": train_flops_share(
+                st["params"], st["tokens_per_step"], step_s),
+            "card": card}
+    print(f"# train stats {json.dumps(line)}", flush=True)
+    return line
+
+
+def _rel_l2(got, want) -> float:
+    import torch
+    got, want = got.double().cpu(), want.double().cpu()
+    return float(torch.linalg.norm(got - want)
+                 / max(float(torch.linalg.norm(want)), 1e-30))
+
+
+def _train_batch(vocab: int, rows: int, seq: int, seed: int, device):
+    import numpy as np
+    import torch
+    toks = np.random.default_rng(seed).integers(
+        0, vocab, (rows, seq + 1)).astype(np.int32)
+    return {"tokens": torch.from_numpy(toks[:, :-1]).to(device),
+            "labels": torch.from_numpy(toks[:, 1:]).to(device)}
+
+
+def _card_vs_cpu_grads(lm, card_params, rows, seq, seed, rtol):
+    """One `value_and_grad` of `lm.loss` on the card (remat "block") and
+    on the CPU (remat "none") from the same params: (loss error, worst
+    leaf (relative L2, path)); checks them against TRAIN_LM_* / rtol."""
+    from repro_torch.models.common import tree_leaves_with_path, tree_map
+    from repro_torch.train.steps import value_and_grad
+    host = tree_map(lambda t: t.cpu(), card_params)
+    vocab = lm.cfg.vocab_size
+    lc, _, gc = value_and_grad(lm, card_params,
+                               _train_batch(vocab, rows, seq, seed, "cuda"),
+                               remat="block")
+    lh, _, gh = value_and_grad(lm, host,
+                               _train_batch(vocab, rows, seq, seed, "cpu"),
+                               remat="none")
+    lerr = abs(float(lc) - float(lh))
+    worst = max((_rel_l2(a, b), "/".join(p)) for (p, a), (_, b) in
+                zip(tree_leaves_with_path(gc), tree_leaves_with_path(gh)))
+    check(lerr <= TRAIN_LM_ATOL + TRAIN_LM_RTOL * abs(float(lh))
+          and worst[0] <= rtol and math.isfinite(float(lc)),
+          f"{lm.cfg.name}: loss {float(lc)} vs {float(lh)}, worst grad "
+          f"{worst}")
+    del gc, gh
+    return lerr, worst
+
+
+def train_lm_smoke(ops_):
+    """Step 1: every registered arch's smoke config with IRC off and on:
+    one value_and_grad card ("block") against the CPU ("none") from the
+    same params (`LM.init(PRNGKey(0))` on the card, copied), then one
+    `make_train_step` on the card (step 1, finite metrics)."""
+    import torch
+    from repro_torch import prng
+    from repro_torch.configs.registry import get_config, list_archs
+    from repro_torch.models.common import scalar
+    from repro_torch.models.lm_config import IRCMode
+    from repro_torch.models.transformer import LM
+    from repro_torch.train.steps import init_train_state, make_train_step
+    lr = scalar(TRAIN_LM_LR, torch.float32, torch.device("cuda"))
+    for arch in list_archs():
+        for irc in (False, True):
+            cfg = get_config(arch, "smoke")
+            if irc:
+                cfg = dataclasses.replace(cfg, irc=IRCMode(enabled=True))
+            lm = LM(cfg)
+            state = init_train_state(lm, prng.PRNGKey(0, device="cuda"),
+                                     device="cuda")
+            lerr, worst = _card_vs_cpu_grads(lm, state.params, 2, 8, 0,
+                                             TRAIN_LM_GRAD_RTOL[irc])
+            new, m = make_train_step(lm, remat="block", lr_fn=lambda s: lr)(
+                state, _train_batch(cfg.vocab_size, 2, 8, 0, "cuda"))
+            ok = int(new.step) == 1 and all(
+                math.isfinite(float(v)) for v in m.values())
+            log("train_lm", f"{arch} smoke, irc {irc}: loss card vs CPU "
+                f"|diff| {lerr:.3e}, worst gradient rel L2 {worst[0]:.3e} "
+                f"({worst[1]}) within {TRAIN_LM_GRAD_RTOL[irc]}; one step "
+                f"on the card: step {int(new.step)}, loss "
+                f"{float(m['loss']):.6f}, grad_norm "
+                f"{float(m['grad_norm']):.4f}")
+            check(ok, f"{arch} smoke irc {irc}: the card's step {m}")
+
+
+def train_lm_wide():
+    """Step 2: TRAIN_LM_WIDE at full width cut to 2 layers in float32: one
+    value_and_grad card against CPU from the same params at
+    TRAIN_LM_WIDE_SHAPE."""
+    import torch
+    from repro_torch import prng
+    from repro_torch.configs.registry import get_config
+    from repro_torch.models.transformer import LM
+    rows, seq = TRAIN_LM_WIDE_SHAPE
+    for arch in TRAIN_LM_WIDE:
+        cfg = dataclasses.replace(get_config(arch, "full"), n_layers=2,
+                                  dtype="float32", param_dtype="float32")
+        lm = LM(cfg)
+        params = lm.init(prng.PRNGKey(0, device="cuda"), device="cuda")
+        t0 = time.perf_counter()
+        lerr, worst = _card_vs_cpu_grads(lm, params, rows, seq, 1,
+                                         TRAIN_LM_GRAD_RTOL[False])
+        log("train_lm", f"{arch} full width, 2 layers, float32 "
+            f"({cfg.param_count() / 1e9:.3f}e9 params), batch {rows} x "
+            f"{seq}: loss card vs CPU |diff| {lerr:.3e}, worst gradient rel "
+            f"L2 {worst[0]:.3e} ({worst[1]}) within "
+            f"{TRAIN_LM_GRAD_RTOL[False]}; {time.perf_counter() - t0:.1f}s")
+        del params
+        torch.cuda.empty_cache()
+
+
+def _train_cli(argv, runs, tag, env):
+    """`python -m repro_torch.launch.train ARGV` into the run dir
+    runs/tag: its stats, lines, run-dir files and event kinds; checks the
+    exit code, the manifest's status, finite losses and the last line's
+    wording."""
+    t0 = time.perf_counter()
+    proc = subprocess.run(
+        [sys.executable, "-m", "repro_torch.launch.train", *argv,
+         "--run-dir", str(runs), "--run-id", tag], cwd=ROOT, env=env,
+        capture_output=True, text=True, timeout=900)
+    wall = time.perf_counter() - t0
+    lines = proc.stdout.strip().splitlines()
+    check(proc.returncode == 0, f"train {' '.join(argv)}: "
+          f"{proc.stderr[-3000:]}")
+    st = train_stats(lines)
+    st["process_s"] = wall
+    st["lines"] = [l for l in lines if not l.startswith("# ")]
+    st["files"] = sorted(p.name for p in (runs / tag).iterdir())
+    st["kinds"] = [json.loads(l)["kind"] for l in
+                   (runs / tag / "metrics.jsonl").read_text().splitlines()]
+    manifest = json.loads((runs / tag / "manifest.json").read_text())
+    check(manifest["status"] == "ok"
+          and st["last"].startswith("final loss ")
+          and all(math.isfinite(x) for x in st["losses"]),
+          f"train {tag}: {manifest['status']}, {st['last']}, "
+          f"{st['losses']}")
+    return st
+
+
+def checkpoint_bytes(cfg) -> int:
+    """Bytes of one training checkpoint of `LM(cfg)`: every parameter in
+    its dtype, and its float32 m and v."""
+    import torch
+    from repro_torch.models.common import tree_leaves_with_path
+    from repro_torch.models.transformer import LM
+    total = 0
+    for _, spec in tree_leaves_with_path(LM(cfg).specs()):
+        size = torch.empty((), dtype=spec.dtype).element_size()
+        total += math.prod(spec.shape) * (size + 8)
+    return total
+
+
+def mem_available() -> int:
+    """The host's MemAvailable (/proc/meminfo), in bytes; 0 if unknown."""
+    try:
+        for line in Path("/proc/meminfo").read_text().splitlines():
+            if line.startswith("MemAvailable:"):
+                return int(line.split()[1]) * 1024
+    except OSError:
+        pass
+    return 0
+
+
+def train_resume_plan(ckpt_bytes: int, shm_free: int,
+                      available: int) -> tuple:
+    """(steps of the first run, steps resumed to, checkpoints in memory):
+    TRAIN_LM_STEPS with the checkpoints under /dev/shm when it and the
+    host's free memory hold TRAIN_LM_KEEP + 1 of them, the host snapshot
+    and TRAIN_LM_HOST_MARGIN; else TRAIN_LM_SHORT_STEPS on disk."""
+    kept = (TRAIN_LM_KEEP + 1) * ckpt_bytes
+    if shm_free >= kept and available >= (
+            kept + ckpt_bytes + TRAIN_LM_HOST_MARGIN):
+        return TRAIN_LM_STEPS + (True,)
+    return TRAIN_LM_SHORT_STEPS + (False,)
+
+
+def train_lm_cli(runs, env, card):
+    """Step 3: `launch.train` at full width and depth, one run after
+    another: hymba-1.5b TRAIN_LM_STEPS[0] steps, then resumed on the same
+    --ckpt-dir to TRAIN_LM_STEPS[1] (it must start at TRAIN_LM_STEPS[0])
+    where memory holds the checkpoints (`train_resume_plan`); else
+    TRAIN_LM_STEPS[0] steps without checkpoints and the resume at
+    TRAIN_LM_SHORT_STEPS on disk; then 2 steps with --irc and
+    musicgen-medium for TRAIN_LM_MUSICGEN_STEPS steps.  Returns each
+    run's stats and launches."""
+    import shutil
+    import tempfile
+    from repro_torch.ckpt import latest_step
+    from repro_torch.configs.registry import get_config
+    need = checkpoint_bytes(get_config("hymba-1.5b", "full"))
+    shm = Path("/dev/shm")
+    free = shutil.disk_usage(shm).free if shm.is_dir() else 0
+    available = mem_available()
+    first, then, in_memory = train_resume_plan(need, free, available)
+    ck = (Path(tempfile.mkdtemp(prefix="chip_smoke_ckpt_", dir=shm))
+          if in_memory else runs / "ckpt")
+    log("train_lm", f"checkpoints of {need / 1e9:.2f} GB under {ck} "
+        f"(/dev/shm free {free / 2**30:.1f} GiB, host memory available "
+        f"{available / 2**30:.1f} GiB): {first} steps, resumed to {then}")
+    hymba = ["--arch", "hymba-1.5b", *TRAIN_LM_FULL]
+    jobs = [("hymba-resume-1", hymba + ["--steps", str(first),
+                                        "--ckpt-dir", str(ck)]),
+            ("hymba-resume-2", hymba + ["--steps", str(then),
+                                        "--ckpt-dir", str(ck)])]
+    if not in_memory:
+        jobs.insert(0, ("hymba", hymba + [
+            "--steps", str(TRAIN_LM_STEPS[0]), "--ckpt-dir", ""]))
+    jobs += [("hymba-irc", hymba + ["--steps", str(TRAIN_LM_IRC_STEPS),
+                                    "--irc", "--ckpt-dir", ""]),
+             ("musicgen", ["--arch", "musicgen-medium", *TRAIN_LM_FULL,
+                           "--steps", str(TRAIN_LM_MUSICGEN_STEPS),
+                           "--ckpt-dir", ""])]
+    out = {}
+    try:
+        for tag, argv in jobs:
+            st = _train_cli(argv, runs, tag, env)
+            for line in st["lines"]:
+                log("train_lm", f"train {tag}: {line}")
+            log("train_lm", f"train {tag}: process {st['process_s']:.1f}s, "
+                f"run dir {st['files']}, events {sorted(set(st['kinds']))}, "
+                f"kernel launches {st['launches']}")
+            st["line"] = log_train_stats(tag, st, card)
+            out[tag] = st
+        latest = latest_step(ck)
+    finally:
+        shutil.rmtree(ck, ignore_errors=True)
+    a, b = out["hymba-resume-1"], out["hymba-resume-2"]
+    check(a["resumed_at"] == 0 and a["steps"] == first
+          and b["resumed_at"] == first and b["steps"] == then - first
+          and f"(resumed at {first})" in b["last"] and latest == then,
+          f"resume: {a['resumed_at']}/{a['steps']}, {b['resumed_at']}/"
+          f"{b['steps']}, {b['last']}, latest {latest}")
+    for tag, st in out.items():
+        hybrid = tag.startswith("hymba")
+        check(st["launches"]["threefry"] > 0
+              and (st["launches"]["xla_fma"] > 0) == hybrid
+              and not {k for k, v in st["launches"].items()
+                       if v and k not in ("threefry", "xla_fma")},
+              f"train {tag}: launches {st['launches']}")
+        want = {"train_step", "phase"}
+        if tag.startswith("hymba-resume"):
+            want.add("checkpoint")
+        check(want <= set(st["kinds"]), f"train {tag}: events {st['kinds']}")
+    return out
+
+
+def train_kernel_group(name: str) -> str:
+    """A profiler row's group: matmul (cuBLAS / CUTLASS kernels), xla_fma
+    (the scan's fused multiply-add, recorded under its autograd
+    function), softmax, copy (copies and concatenations) or elementwise
+    (the rest)."""
+    low = name.lower()
+    if any(w in low for w in ("gemm", "gemv", "nvjet", "cutlass", "sm90_",
+                              "xmma", "cublas")):
+        return "matmul"
+    if name == "_Fma" or "fma_kernel" in low:
+        return "xla_fma"
+    if "softmax" in low:
+        return "softmax"
+    if "copy" in low or "catarray" in low:
+        return "copy"
+    return "elementwise"
+
+
+def train_lm_remat(ops_, card):
+    """Step 4, a measurement: hymba-1.5b full (`init_train_state` on the
+    card) at TRAIN_LM_REMAT_SHAPE under each remat mode: the peak of one
+    value_and_grad and of one whole `make_train_step` above the memory
+    held before it (state and batch), and the loss, equal across modes;
+    then one micro-slice of the full run (TRAIN_LM_PROFILE_SHAPE, "block")
+    timed and broken down by kernel (torch.profiler)."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    from repro_torch import prng
+    from repro_torch.configs.registry import get_config
+    from repro_torch.data.lm import SyntheticLMData
+    from repro_torch.models.common import scalar
+    from repro_torch.models.transformer import LM
+    from repro_torch.train.steps import (init_train_state, make_train_step,
+                                         value_and_grad)
+    torch.cuda.empty_cache()
+    cfg = get_config("hymba-1.5b", "full")
+    lm = LM(cfg)
+    state = init_train_state(lm, prng.PRNGKey(0, device="cuda"),
+                             device="cuda")
+    lr = scalar(TRAIN_LM_LR, torch.float32, torch.device("cuda"))
+    rows, seq = TRAIN_LM_REMAT_SHAPE
+    batch = SyntheticLMData(cfg.vocab_size, seq, rows).batch_for_step(0)
+    out = {}
+    for mode in TRAIN_LM_REMAT:
+        rec = {}
+        for what in ("value_and_grad", "step"):
+            torch.cuda.synchronize()
+            base = torch.cuda.memory_allocated()
+            torch.cuda.reset_peak_memory_stats()
+            t0 = time.perf_counter()
+            try:
+                if what == "step":
+                    res = make_train_step(lm, remat=mode,
+                                          lr_fn=lambda s: lr)(state, batch)
+                    loss = res[1]["loss"]
+                else:
+                    res = value_and_grad(lm, state.params, batch,
+                                         remat=mode)
+                    loss = res[0]
+                loss = float(loss)
+                torch.cuda.synchronize()
+                rec[what] = {
+                    "peak_gib": torch.cuda.max_memory_allocated() / 2**30,
+                    "above_gib": (torch.cuda.max_memory_allocated() - base)
+                    / 2**30, "s": time.perf_counter() - t0, "loss": loss}
+            except torch.cuda.OutOfMemoryError as e:
+                rec[what] = {"oom": str(e).splitlines()[0][:120]}
+            res = None
+            torch.cuda.empty_cache()
+        out[mode] = rec
+        log("train_lm", f"remat {mode}, hymba-1.5b full at batch {rows} x "
+            f"{seq}: {json.dumps(rec)}; {card}")
+    losses = {m: r["step"]["loss"] for m, r in out.items()
+              if "loss" in r.get("step", {})}
+    check("block" in losses and all(
+        abs(v - losses["block"]) <= TRAIN_LM_RTOL * abs(losses["block"])
+        for v in losses.values()), f"remat losses differ: {losses}")
+    log("train_lm", f"remat losses {losses} (bit-identical "
+        f"{len(set(losses.values())) == 1})")
+    rows, seq = TRAIN_LM_PROFILE_SHAPE
+    batch = SyntheticLMData(cfg.vocab_size, seq, rows).batch_for_step(0)
+    value_and_grad(lm, state.params, batch, remat="block")
+    torch.cuda.synchronize()
+    ops_.reset_launches()
+    t0 = time.perf_counter()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        value_and_grad(lm, state.params, batch, remat="block")
+        torch.cuda.synchronize()
+    wall_ms = (time.perf_counter() - t0) * 1e3
+
+    def dev_us(e):
+        return getattr(e, "self_device_time_total",
+                       getattr(e, "self_cuda_time_total", 0.0))
+    rows_ = sorted((e for e in prof.key_averages()
+                    if not e.key.startswith("aten::") and dev_us(e) > 0),
+                   key=dev_us, reverse=True)
+    busy_ms = sum(dev_us(e) for e in rows_) / 1e3
+    launches = sum(e.count for e in rows_)
+    groups = {}
+    for e in rows_:
+        g = train_kernel_group(e.key)
+        groups[g] = groups.get(g, 0.0) + dev_us(e) / 1e3
+    log("train_lm", f"hymba-1.5b full, one micro-slice ({rows} x {seq}, "
+        f"remat block, value_and_grad) under the profiler: wall "
+        f"{wall_ms:.1f} ms, kernels {busy_ms:.1f} ms in {launches} launches "
+        f"(card idle {1 - busy_ms / wall_ms:.4f}), xla_fma launches "
+        f"{ops_.LAUNCHES['xla_fma']}; ms by group "
+        f"{ {g: round(v, 1) for g, v in sorted(groups.items())} }; {card}")
+    for e in rows_[:12]:
+        log("train_lm", f"  {dev_us(e) / 1e3:9.2f} ms x{e.count:<6d} "
+            f"{e.key[:90]}")
+    del state, batch
+    torch.cuda.empty_cache()
+    return {"remat": out, "profile": {
+        "wall_ms": wall_ms, "busy_ms": busy_ms, "launches": launches,
+        "groups": groups,
+        "top": [(e.key[:90], dev_us(e) / 1e3, e.count) for e in rows_[:12]]}}
+
+
+def train_lm_examples(ops_, runs, card):
+    """Step 5: the examples in this process at their defaults, with
+    `train_lm` at TRAIN_LM_EXAMPLE and a fresh --ckpt-dir: finite losses,
+    the `# train stats` line; `serve_lm`: every request's tokens, all in
+    the vocabulary.  Returns their launches."""
+    import torch
+    from repro_torch.examples import serve_lm, train_lm
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    ops_.reset_launches()
+    res = train_lm.main([*TRAIN_LM_EXAMPLE, "--ckpt-dir",
+                         str(runs / "example-ckpt")])
+    launches = {"train_lm": dict(ops_.LAUNCHES)}
+    hist, timer = res["history"], res["trainer"].step_timer
+    losses = [h["loss"] for h in hist]
+    tokens = 8 * 256
+    st = {"arch": res["cfg"].name, "params": res["params"],
+          "tokens_per_step": tokens, "steps": len(hist),
+          "resumed_at": hist[0]["step"], "losses": losses,
+          "step_times_s": [h["step_time_s"] for h in hist],
+          "compile_s": timer.compile_s, "steps_per_sec": timer.rate(),
+          "tokens_per_sec": timer.rate() * tokens,
+          "peak_gib": torch.cuda.max_memory_allocated() / 2**30}
+    check(len(hist) == 50 and all(math.isfinite(x) for x in losses)
+          and launches["train_lm"]["threefry"] > 0,
+          f"train_lm example: {losses}, {launches}")
+    first, last = sum(losses[:10]) / 10, sum(losses[-10:]) / 10
+    log("train_lm", f"examples.train_lm {' '.join(TRAIN_LM_EXAMPLE)}: loss "
+        f"first10 {first:.4f} last10 {last:.4f}; launches "
+        f"{launches['train_lm']}")
+    log_train_stats("example-train_lm", st, card)
+    ops_.reset_launches()
+    t0 = time.perf_counter()
+    results = serve_lm.main([])
+    wall = time.perf_counter() - t0
+    launches["serve_lm"] = dict(ops_.LAUNCHES)
+    new = sum(len(r.tokens) for r in results)
+    check(len(results) == 6 and all(len(r.tokens) == 16 for r in results)
+          and launches["serve_lm"]["threefry"] > 0,
+          f"serve_lm example: {[len(r.tokens) for r in results]}")
+    log("train_lm", f"examples.serve_lm (defaults): {len(results)} requests, "
+        f"{new} tokens in {wall:.2f}s; launches {launches['serve_lm']}; "
+        f"{card}")
+    return launches
+
+
+def phase_train_lm(ops_):
+    """Phase `train_lm` (`--only train_lm` runs it alone): LM training on
+    the card, TF32 checked off first: `train_lm_smoke`, `train_lm_wide`,
+    the CLI runs of `train_lm_cli`, the measurements of `train_lm_remat`
+    and the examples of `train_lm_examples`.  Returns the launches of
+    threefry and xla_fma on the training paths (the CLI runs' and the
+    examples', each counted from 0 by its run) and each run's stats."""
+    import shutil
+    import tempfile
+    import torch
+    check(not torch.backends.cuda.matmul.allow_tf32
+          and not torch.backends.cudnn.allow_tf32
+          and torch.get_float32_matmul_precision() == "highest",
+          "TF32 is on: the float32 legs would not be true float32")
+    card = gpu_name_and_limit()
+    log("train_lm", f"TF32 off (matmul and cuDNN); {card}")
+    t0 = time.perf_counter()
+    train_lm_smoke(ops_)
+    train_lm_wide()
+    torch.cuda.empty_cache()
+    env = dict(os.environ)
+    env["PYTHONPATH"] = str(SRC) + os.pathsep + env.get("PYTHONPATH", "")
+    runs = Path(tempfile.mkdtemp(prefix="chip_smoke_train_lm_"))
+    try:
+        cli = train_lm_cli(runs, env, card)
+        measured = train_lm_remat(ops_, card)
+        examples = train_lm_examples(ops_, runs, card)
+    finally:
+        shutil.rmtree(runs, ignore_errors=True)
+    by_path = {tag: {k: st["launches"][k] for k in ("threefry", "xla_fma")}
+               for tag, st in cli.items()}
+    by_path.update({f"example {k}": {n: v[n] for n in ("threefry",
+                                                       "xla_fma")}
+                    for k, v in examples.items()})
+    log("train_lm", f"launches on the LM training paths {by_path}; "
+        f"{time.perf_counter() - t0:.1f}s")
+    return {"threefry": sum(v["threefry"] for v in by_path.values()),
+            "xla_fma": sum(v["xla_fma"] for v in by_path.values()),
+            "by_path": by_path,
+            "stats": {tag: st["line"] for tag, st in cli.items()},
+            **measured}
+
+
 PHASES = ("kernels", "times", "main", "train", "serve", "network",
-          "autotune", "cli", "devices", "paper", "lm")
+          "autotune", "cli", "devices", "paper", "lm", "train_lm")
 
 
 def main(argv=None) -> int:
@@ -4210,6 +4747,9 @@ def main(argv=None) -> int:
     lm = {}
     if "lm" in only:
         lm = phase_lm(ops)
+    train_lm = {}
+    if "train_lm" in only:
+        train_lm = phase_train_lm(ops)
     if "threefry" in only:
         phase_threefry_checks(ops)
         phase_threefry_tails()
@@ -4282,7 +4822,7 @@ def main(argv=None) -> int:
             "source": "src/repro_torch/csrc/xla_math.cu",
             "replaces": XLA_REPLACES[name],
             "launches": launches[name] + baseline[name] + qat[name]
-            + on_paper(name),
+            + on_paper(name) + train_lm.get(name, 0),
             "max_abs_err": t["max_abs_err"], "ms": t["ms"],
             "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],
             "bound_by": t["bound_by"], "library_ms": t["library_ms"]})
@@ -4295,7 +4835,7 @@ def main(argv=None) -> int:
         "replaces": "src/repro/core/nonideal.py:64",
         "launches": launches["threefry"] + baseline["threefry"]
         + qat["threefry"] + served["threefry"] + on_paper("threefry")
-        + lm["threefry"],
+        + lm["threefry"] + train_lm["threefry"],
         "max_abs_err": max(v["max_abs_err"] for v in tf_times.values()),
         "ms": t["ms"], "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],
         "bound_by": t["bound_by"], "library_ms": t["library_ms"]})
@@ -4316,7 +4856,12 @@ def main(argv=None) -> int:
         f"single-chip layer {single['threefry']}, QAT (quick_qat, "
         f"{TRAIN_STEPS} ensemble steps) {qat['threefry']}, service "
         f"({SERVE_REQUESTS} requests) {served['threefry']}, LM paths "
-        f"(phase `lm`) {lm['threefry']}")
+        f"(phase `lm`) {lm['threefry']}, LM training (phase `train_lm`) "
+        f"{train_lm['threefry']}")
+    log("8 summary", "the LM training paths (phase `train_lm`) run no "
+        "port of a TPU kernel either: threefry at each init and xla_fma in "
+        "the SSM scan's fused multiply-add, launched by path "
+        f"{train_lm['by_path']}")
     log("8 summary", "the LM serving path (phase `lm`) runs no port of a "
         "TPU kernel: its device work is torch matmul / einsum, as the "
         "reference's is plain jnp; its only kernel is threefry, launched "

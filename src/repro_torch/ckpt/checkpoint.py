@@ -3,8 +3,9 @@
 A checkpoint of step n is a directory `step_<n:09d>/` holding
   * `host_<i>.npz`: one array per leaf, keyed by the `/`-joined key path of
     the leaf in `jax.tree.flatten` order (dict keys sorted, list and tuple
-    items by index); bfloat16, which numpy cannot store, goes in as its
-    uint16 bit pattern;
+    items by index, a training state's `params`, `opt`, `step` in that
+    order); bfloat16, which numpy cannot store, goes in as its uint16 bit
+    pattern;
   * `META.json`: `step`, `n_hosts`, `time`, `keys` (sorted), `shapes` and
     `dtypes` (numpy's dtype names, "bfloat16" for bfloat16).
 Writes go to `step_<n>.tmp/`, every file is fsynced, and the directory is
@@ -35,7 +36,8 @@ from typing import Any, Dict, Optional
 import numpy as np
 import torch
 
-from repro_torch.models.common import tree_leaves_with_path, tree_map
+from repro_torch.models.common import (is_node, tree_leaves_with_path,
+                                       tree_map)
 from repro_torch.runtime import DeviceLike, resolve_device
 
 PyTree = Any
@@ -143,6 +145,9 @@ def restore_pytree(template: PyTree, directory: str | Path,
             if isinstance(node, (list, tuple)):
                 return type(node)(build(v, path + (str(i),))
                                   for i, v in enumerate(node))
+            if is_node(node):
+                return type(node)(**{k: build(getattr(node, k), path + (k,))
+                                     for k in type(node).TREE_FIELDS})
             if node is None:
                 return None
             key = "/".join(path)

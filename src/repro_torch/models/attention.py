@@ -13,8 +13,8 @@ from typing import Dict, Optional, Tuple
 
 import torch
 
-from repro_torch.models.common import (ParamSpec, const, rms_norm, rope,
-                                       scalar, softcap)
+from repro_torch.models.common import (ParamSpec, checkpoint_name, const,
+                                       rms_norm, rope, scalar, softcap)
 from repro_torch.models.lm_config import LMConfig
 from repro_torch.runtime import DeviceLike, resolve_device
 
@@ -39,9 +39,12 @@ def attn_specs(cfg: LMConfig) -> Dict[str, ParamSpec]:
 def _qkv(params, x: torch.Tensor, cfg: LMConfig, positions: torch.Tensor):
     B, S, _ = x.shape
     kv, g, hd = cfg.n_kv_heads, cfg.q_per_kv, cfg.head_dim
-    q = (x @ params["wq"].to(x.dtype)).reshape(B, S, kv, g, hd)
-    k = (x @ params["wk"].to(x.dtype)).reshape(B, S, kv, hd)
-    v = (x @ params["wv"].to(x.dtype)).reshape(B, S, kv, hd)
+    with checkpoint_name("attn_q"):
+        q = (x @ params["wq"].to(x.dtype)).reshape(B, S, kv, g, hd)
+    with checkpoint_name("attn_k"):
+        k = (x @ params["wk"].to(x.dtype)).reshape(B, S, kv, hd)
+    with checkpoint_name("attn_v"):
+        v = (x @ params["wv"].to(x.dtype)).reshape(B, S, kv, hd)
     if cfg.qk_norm:
         q = rms_norm(q, params["q_norm"], cfg.norm_eps)
         k = rms_norm(k, params["k_norm"], cfg.norm_eps)

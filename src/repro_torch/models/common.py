@@ -11,12 +11,20 @@ as JAX's weakly typed Python scalars do: a bfloat16 activation times a
 constant multiplies by the constant rounded to bfloat16, and a division
 by a constant stays a division on the card (PyTorch's CUDA division by a
 host scalar multiplies by its reciprocal).
+
+A class that lists its children in a `TREE_FIELDS` class attribute (the
+training state) is a tree node, walked in that order, as the reference
+registers it with `jax.tree_util`.  `checkpoint_name` tags the projection
+matmuls that the reference names for its remat policy "names", and
+`remat_context` gives each remat mode's selective-checkpoint policy.
 """
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import functools
 import math
+import threading
 from typing import Any, Dict, Iterator, Optional, Tuple
 
 import numpy as np
@@ -42,26 +50,39 @@ class ParamSpec:
                              f"differ in rank")
 
 
+def is_node(tree) -> bool:
+    """Whether `tree` is an instance of a class with `TREE_FIELDS`."""
+    return hasattr(type(tree), "TREE_FIELDS")
+
+
 def tree_leaves_with_path(tree: PyTree, path: Tuple[str, ...] = ()
                           ) -> Iterator[Tuple[Tuple[str, ...], Any]]:
     """(key path, leaf) in `jax.tree.flatten`'s order: dict keys sorted,
-    lists and tuples in order, depth first."""
+    lists and tuples in order, a node's `TREE_FIELDS` in their order, depth
+    first."""
     if isinstance(tree, dict):
         for k in sorted(tree):
             yield from tree_leaves_with_path(tree[k], path + (str(k),))
     elif isinstance(tree, (list, tuple)):
         for i, v in enumerate(tree):
             yield from tree_leaves_with_path(v, path + (str(i),))
+    elif is_node(tree):
+        for k in type(tree).TREE_FIELDS:
+            yield from tree_leaves_with_path(getattr(tree, k), path + (k,))
     else:
         yield path, tree
 
 
 def tree_map(fn, tree: PyTree) -> PyTree:
-    """`jax.tree.map` of one tree of nested dicts, lists and tuples."""
+    """`jax.tree.map` of one tree of nested dicts, lists, tuples and
+    nodes."""
     if isinstance(tree, dict):
         return {k: tree_map(fn, v) for k, v in tree.items()}
     if isinstance(tree, (list, tuple)):
         return type(tree)(tree_map(fn, v) for v in tree)
+    if is_node(tree):
+        return type(tree)(**{k: tree_map(fn, getattr(tree, k))
+                             for k in type(tree).TREE_FIELDS})
     return fn(tree)
 
 
@@ -201,3 +222,58 @@ def cross_entropy_loss(logits: torch.Tensor, labels: torch.Tensor,
     return loss, metrics
 
 
+# ------------------------------------------------------------------ remat
+
+REMAT_MODES = ("none", "block", "dots", "names")
+# the projections the reference tags with `checkpoint_name`
+SAVED_NAMES = ("attn_q", "attn_k", "attn_v", "mlp_gate", "mlp_up")
+_TAG = threading.local()
+
+
+@contextlib.contextmanager
+def checkpoint_name(name: str):
+    """Tag the matmuls run inside the block as `name` (the reference's
+    `jax.ad_checkpoint.checkpoint_name` on their output); remat "names"
+    saves the outputs of those tagged with one of SAVED_NAMES."""
+    prev = getattr(_TAG, "name", None)
+    _TAG.name = name
+    try:
+        yield
+    finally:
+        _TAG.name = prev
+
+
+def _is_matmul(op) -> bool:
+    packet = getattr(op, "_overloadpacket", None)
+    return packet is torch.ops.aten.mm or packet is torch.ops.aten.addmm
+
+
+def _save_dots(ctx, op, *args, **kwargs):
+    """`dots_with_no_batch_dims_saveable`: a projection `x @ w` reaches
+    aten as `mm` (or `addmm`); an einsum with batch dimensions as `bmm`."""
+    from torch.utils.checkpoint import CheckpointPolicy
+    return (CheckpointPolicy.MUST_SAVE if _is_matmul(op)
+            else CheckpointPolicy.PREFER_RECOMPUTE)
+
+
+def _save_names(ctx, op, *args, **kwargs):
+    """`save_only_these_names(*SAVED_NAMES)`: the matmul outputs made under
+    one of those tags."""
+    from torch.utils.checkpoint import CheckpointPolicy
+    return (CheckpointPolicy.MUST_SAVE
+            if _is_matmul(op) and getattr(_TAG, "name", None) in SAVED_NAMES
+            else CheckpointPolicy.PREFER_RECOMPUTE)
+
+
+def remat_context(mode: str):
+    """`context_fn` for `torch.utils.checkpoint.checkpoint` under remat
+    `mode` ("block": None, saving nothing inside the checkpointed
+    function)."""
+    if mode not in REMAT_MODES or mode == "none":
+        raise ValueError(f"remat must be one of {REMAT_MODES[1:]} here, "
+                         f"got {mode!r}")
+    if mode == "block":
+        return None
+    from torch.utils.checkpoint import create_selective_checkpoint_contexts
+    policy = _save_dots if mode == "dots" else _save_names
+    return functools.partial(create_selective_checkpoint_contexts, policy)

@@ -6,7 +6,7 @@ from typing import Dict
 import torch
 import torch.nn.functional as F
 
-from repro_torch.models.common import ParamSpec, silu
+from repro_torch.models.common import ParamSpec, checkpoint_name, silu
 from repro_torch.models.lm_config import LMConfig
 
 
@@ -29,13 +29,18 @@ def mlp_specs(cfg: LMConfig, d_ff: int = 0) -> Dict[str, ParamSpec]:
 def mlp(params: Dict[str, torch.Tensor], x: torch.Tensor,
         cfg: LMConfig) -> torch.Tensor:
     """SwiGLU: silu(x W_gate) * (x W_up) W_down; GELU: gelu(x W_up) W_down,
-    gelu's tanh approximation."""
+    gelu's tanh approximation.  The gate and up projections are tagged for
+    remat "names"."""
     dt = x.dtype
     if cfg.act == "swiglu":
-        gate = x @ params["w_gate"].to(dt)
-        up = x @ params["w_up"].to(dt)
+        with checkpoint_name("mlp_gate"):
+            gate = x @ params["w_gate"].to(dt)
+        with checkpoint_name("mlp_up"):
+            up = x @ params["w_up"].to(dt)
         h = silu(gate) * up
     else:
+        with checkpoint_name("mlp_up"):
+            up = x @ params["w_up"].to(dt)
         # `jax.nn.gelu` defaults to the tanh approximation
-        h = F.gelu(x @ params["w_up"].to(dt), approximate="tanh")
+        h = F.gelu(up, approximate="tanh")
     return h @ params["w_down"].to(dt)

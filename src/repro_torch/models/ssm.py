@@ -2,17 +2,20 @@
 reference's `repro.models.ssm`): in-proj -> depthwise conv -> selective scan
 (data-dependent dt/B/C, diagonal A) -> gated out-proj.
 
-Training/prefill scans the sequence step by step (the reference uses an
-associative scan, which rounds in another order: `ssm_branch` agrees within
-a tolerance, not bit for bit); decode is an O(1) state update, the part
-serving runs.
+Training/prefill runs the reference's associative scan
+(`associative_scan`, the recursion of `jax.lax.associative_scan`: O(S)
+elementwise work in O(log S) levels of a few launches each), its combine's
+multiply-add fused as XLA fuses it, so the states are the jitted
+reference's bit for bit on the CPU; decode is an O(1) state update, the
+part serving runs.
 """
 from __future__ import annotations
 
-from typing import Dict, Tuple
+from typing import Callable, Dict, List, Sequence, Tuple
 
 import torch
 
+from repro_torch import xla_order
 from repro_torch.models.common import ParamSpec, const, silu
 from repro_torch.models.lm_config import LMConfig
 from repro_torch.runtime import DeviceLike, resolve_device
@@ -69,19 +72,81 @@ def _selective_terms(params, xc: torch.Tensor, cfg: LMConfig):
     return a_bar, bx, c, dt
 
 
+def _slice(x: torch.Tensor, axis: int, start: int, stop=None,
+           step: int = 1) -> torch.Tensor:
+    """`lax.slice_in_dim` (a view)."""
+    return x[(slice(None),) * axis + (slice(start, stop, step),)]
+
+
+def _interleave(even: torch.Tensor, odd: torch.Tensor,
+                axis: int) -> torch.Tensor:
+    """even[0], odd[0], even[1], ... along `axis`; `even` is as long as
+    `odd` or one longer."""
+    n = odd.shape[axis]
+    pairs = torch.stack((_slice(even, axis, 0, n), odd), dim=axis + 1)
+    out = pairs.flatten(axis, axis + 1)
+    if even.shape[axis] > n:
+        out = torch.cat((out, _slice(even, axis, n)), dim=axis)
+    return out
+
+
+def associative_scan(fn: Callable[[List, List], List],
+                     elems: Sequence[torch.Tensor],
+                     axis: int) -> List[torch.Tensor]:
+    """Inclusive scan of the tuple `elems` along `axis` under the
+    associative `fn(left, right)`, by `jax.lax.associative_scan`'s
+    recursion: combine neighbouring pairs, scan the half, then combine
+    each odd result with the next element, so every output is made by the
+    same combines in the same order as the reference's."""
+    n = elems[0].shape[axis]
+    if n < 2:
+        return list(elems)
+    reduced = fn([_slice(e, axis, 0, n - 1, 2) for e in elems],
+                 [_slice(e, axis, 1, None, 2) for e in elems])
+    odd = associative_scan(fn, reduced, axis)
+    if n % 2 == 0:
+        even = fn([_slice(e, axis, 0, -1) for e in odd],
+                  [_slice(e, axis, 2, None, 2) for e in elems])
+    else:
+        even = fn(odd, [_slice(e, axis, 2, None, 2) for e in elems])
+    even = [torch.cat((_slice(e, axis, 0, 1), r), dim=axis)
+            for e, r in zip(elems, even)]
+    return [_interleave(e, o, axis) for e, o in zip(even, odd)]
+
+
+class _Fma(torch.autograd.Function):
+    """float32 a * b + c rounded once (`xla_order.fma`: one launch of the
+    `xla_fma` kernel on the card, its plain version on the CPU), as XLA
+    contracts the reference's combine; the product rule backward."""
+
+    @staticmethod
+    def forward(ctx, a, b, c):
+        ctx.save_for_backward(a, b)
+        return xla_order.fma(a, b, c)
+
+    @staticmethod
+    def backward(ctx, g):
+        a, b = ctx.saved_tensors
+        return g * b, g * a, g
+
+
+def _combine(left: List[torch.Tensor],
+             right: List[torch.Tensor]) -> List[torch.Tensor]:
+    """h_t = a_t h_{t-1} + b_t composed: (al ar, bl ar + br), the second
+    fused as XLA fuses it."""
+    al, bl = left
+    ar, br = right
+    return [al * ar, _Fma.apply(bl, ar, br)]
+
+
 def ssm_branch(params, x: torch.Tensor, cfg: LMConfig) -> torch.Tensor:
-    """Training/prefill: x [B,S,D] -> [B,S,D], the scan step by step."""
+    """Training/prefill: x [B,S,D] -> [B,S,D] via the associative scan."""
     di = cfg.d_inner_ssm
     h = x @ params["w_in"].to(x.dtype)                           # [B,S,2di]
     xin, z = h[..., :di], h[..., di:]
     xc = _conv_scan(xin, params["conv"].to(x.dtype))
     a_bar, bx, c, _ = _selective_terms(params, xc, cfg)          # [B,S,di,n]
-    state = torch.zeros_like(bx[:, 0])
-    hs = []
-    for t in range(x.shape[1]):
-        state = state * a_bar[:, t] + bx[:, t]
-        hs.append(state)
-    hs = torch.stack(hs, dim=1)
+    _, hs = associative_scan(_combine, (a_bar, bx), axis=1)
     y = torch.einsum("bsdn,bsn->bsd", hs, c.float()).to(x.dtype)
     y = y + params["d_skip"].to(x.dtype) * xc
     y = y * silu(z)

@@ -7,8 +7,10 @@ holds its layers' params stacked on a leading axis, and the forward and the
 decode loop over that axis.  IRC mode (the paper's technique)
 ternary-quantizes every projection matmul through the STE
 (`core.ternary.ternary_quantize`); embeddings, router and norms stay
-digital.  The decode step updates the cache's tensors in place and returns
-the cache with its index advanced.
+digital.  Training checkpoints each layer under the reference's remat
+modes (`apply(remat=...)`) with `torch.utils.checkpoint`.  The decode
+step updates the cache's tensors in place and returns the cache with its
+index advanced.
 """
 from __future__ import annotations
 
@@ -16,6 +18,7 @@ import dataclasses
 from typing import Any, Dict, List, Tuple
 
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.core.ternary import ternary_quantize
 from repro_torch.models import attention as attn_mod
@@ -23,9 +26,10 @@ from repro_torch.models import mlp as mlp_mod
 from repro_torch.models import moe as moe_mod
 from repro_torch.models import rwkv as rwkv_mod
 from repro_torch.models import ssm as ssm_mod
-from repro_torch.models.common import (ParamSpec, abstract, const,
-                                       cross_entropy_loss, logical_axes_tree,
-                                       materialize, rms_norm,
+from repro_torch.models.common import (REMAT_MODES, ParamSpec, abstract,
+                                       const, cross_entropy_loss,
+                                       logical_axes_tree, materialize,
+                                       remat_context, rms_norm,
                                        sinusoidal_positions, softcap,
                                        tree_map)
 from repro_torch.models.lm_config import LMConfig
@@ -224,9 +228,23 @@ class LM:
         return x + m, aux
 
     # ------------------------------------------------------------ forward
-    def apply(self, params: PyTree, tokens: torch.Tensor
+    def apply(self, params: PyTree, tokens: torch.Tensor, *,
+              remat: str = "block", scan_layers: bool = True
               ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
-        """tokens [B,S] int -> (logits [B,S,V] float32, aux metrics)."""
+        """tokens [B,S] int -> (logits [B,S,V] float32, aux metrics).
+
+        `remat` is the reference's per-layer rematerialization: "none"
+        keeps every activation for the backward; "block" checkpoints each
+        layer and saves nothing inside it; "dots" saves the outputs of
+        matmuls without batch dimensions (the projections); "names" those
+        of the tagged q/k/v/gate/up projections (`SAVED_NAMES`).  A mode
+        changes memory, never values; it applies only while autograd
+        records.  `scan_layers` is accepted for the reference's signature:
+        the layer loop is always unrolled here."""
+        del scan_layers
+        if remat not in REMAT_MODES:
+            raise ValueError(f"remat must be one of {REMAT_MODES}, got "
+                             f"{remat!r}")
         cfg = self.cfg
         params = self._maybe_irc(params)
         B, S = tokens.shape
@@ -236,18 +254,30 @@ class LM:
         if cfg.pos == "sinusoidal":
             x = x + sinusoidal_positions(positions, cfg.d_model).to(x.dtype)
         aux_total = torch.zeros((), dtype=torch.float32, device=x.device)
+        layer_fwd = self._layer_fwd
+        if remat != "none" and torch.is_grad_enabled():
+            context_fn = remat_context(remat)
+            kw = {} if context_fn is None else {"context_fn": context_fn}
+
+            def layer_fwd(*args):
+                return checkpoint(self._layer_fwd, *args,
+                                  use_reentrant=False, **kw)
         for i, seg in enumerate(self.segments):
             stacked = params[f"seg{i}_{seg.kind}"]
             for l in range(seg.count):
-                x, a = self._layer_fwd(
+                x, a = layer_fwd(
                     seg.kind, _layer(stacked, l), x,
                     cfg.layer_is_global(seg.layer_offset + l), positions)
                 aux_total = aux_total + a
         return self._logits(params, x), {"moe_aux_loss": aux_total}
 
-    def loss(self, params: PyTree, batch: Dict[str, torch.Tensor]
+    def loss(self, params: PyTree, batch: Dict[str, torch.Tensor], *,
+             remat: str = "block", scan_layers: bool = True
              ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
-        logits, aux = self.apply(params, batch["tokens"])
+        """Cross-entropy with z-loss plus the MoE aux loss; `remat` and
+        `scan_layers` as in `apply`."""
+        logits, aux = self.apply(params, batch["tokens"], remat=remat,
+                                 scan_layers=scan_layers)
         loss, metrics = cross_entropy_loss(logits, batch["labels"],
                                            batch.get("mask"))
         loss = loss + aux["moe_aux_loss"]

@@ -47,6 +47,8 @@ def test_guard_sees_the_port():
     assert {"train_detector.py", "quickstart.py", "paper_tables.py"} <= names
     assert {"ckpt/checkpoint.py", "models/transformer.py", "serve/engine.py",
             "configs/registry.py"} <= rel
+    assert {"train/steps.py", "train/trainer.py", "launch/train.py",
+            "examples/train_lm.py", "examples/serve_lm.py"} <= rel
 
 
 def test_serve_cli_takes_network_lm(capsys):

@@ -335,8 +335,8 @@ def test_top_k_ties_to_lower_index():
 
 
 def test_ssm_branch_long_sequence():
-    """The hybrid block's prefill scan over 24 steps (the reference's
-    associative scan rounds in another order)."""
+    """The hybrid block's prefill scan over 24 steps (both packages'
+    associative scan; the einsum and projections sum in other orders)."""
     from repro.models import ssm as jssm
     from repro_torch.models import ssm as tssm
     jlm, jp = _ref("hymba-1.5b")
