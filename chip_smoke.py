@@ -170,14 +170,14 @@ Phases, each printing its own lines:
      same params (loss within 1e-5 + 1e-4|ref|, each gradient leaf within
      relative L2 1e-5 / 1e-3) and one train step on the card;
      hymba-1.5b, musicgen-medium and rwkv6-3b at full width cut to 2
-     layers in float32, card against CPU the same way; `python -m
+     layers in float32, card against CPU the same way; xla_fma on the
+     scan's first-level operands at hymba's full width and 2 x 4096 (the
+     stride-2 views) bit for bit against its plain version; `python -m
      repro_torch.launch.train` at full width and depth (batch 8 x 4096,
-     microbatch 4, remat block): hymba-1.5b 8 steps with checkpoints,
-     resumed from them to 10 (it must start at 8) where /dev/shm and the
-     host's memory hold 5 checkpoints of 14.75 GB, else 8 steps without
-     and a resume from 1 to 2 steps on disk, 2 steps with --irc,
-     musicgen-medium 3 steps, each
-     with a `# train stats` line (steady
+     microbatch 4, remat block): hymba-1.5b 8 steps without checkpoints,
+     then 1 step with checkpoints on disk resumed from them to 2 (it must
+     start at 1; two saves of 14.75 GB), 2 steps with --irc,
+     musicgen-medium 3 steps, each with a `# train stats` line (steady
      steps/s and tokens/s, compile_s, peak memory, the losses, the
      model-FLOPs share) and its kernel launches (threefry; xla_fma on
      hymba); hymba-1.5b's peak memory under each remat mode at batch 1 x
@@ -4121,16 +4121,13 @@ TRAIN_LM_WIDE = ("hymba-1.5b", "musicgen-medium", "rwkv6-3b")
 TRAIN_LM_WIDE_SHAPE = (2, 64)                  # (rows, seq), 2 layers, f32
 TRAIN_LM_FULL = ("--variant", "full", "--batch", "8", "--seq", "4096",
                  "--microbatch", "4", "--remat", "block")
-TRAIN_LM_STEPS = (8, 10)          # hymba-1.5b's run, then resumed to
+TRAIN_LM_STEPS = 8                # hymba-1.5b's timed run, no checkpoints
 # a full-width checkpoint is 14.75 GB (bf16 params, float32 m and v); the
-# Trainer keeps 3 (a 4th while it writes) and holds one more as its host
-# snapshot.  Those go to /dev/shm (memory) where the host has room for
-# them and TRAIN_LM_HOST_MARGIN besides; else the resume runs 1 -> 2
-# steps on disk (2 saves, 29.5 GB: the card's hosts cap what a run may
-# write to disk at 45 GiB, deleted files included)
-TRAIN_LM_KEEP = 3
-TRAIN_LM_HOST_MARGIN = 8e9
-TRAIN_LM_SHORT_STEPS = (1, 2)
+# CLI saves every steps // 4 steps and keeps 3, so the 8-step run would
+# write 4 (59 GB): the resume runs 1 -> 2 steps instead, 2 saves (29.5 GB)
+# under the phase's temporary directory, to keep the phase's disk writes
+# under 45 GiB
+TRAIN_LM_RESUME_STEPS = (1, 2)
 TRAIN_LM_IRC_STEPS = 2
 TRAIN_LM_MUSICGEN_STEPS = 3       # fewer than 8: the phase's wall
 TRAIN_LM_REMAT = ("none", "names", "dots", "block")
@@ -4283,6 +4280,37 @@ def train_lm_wide():
         torch.cuda.empty_cache()
 
 
+def train_lm_scan_fma():
+    """Step 2b: xla_fma at the operands of the scan's first level in the
+    full run's micro-slice (TRAIN_LM_PROFILE_SHAPE) at hymba-1.5b's full
+    width: bl * ar + br on the stride-2 views of [rows, seq, d_inner,
+    state] float32 that `ssm._combine` gives it, bit for bit (0 ulp)
+    against `fma_plain` on the same inputs."""
+    import torch
+    from repro_torch import xla_order as xo
+    from repro_torch.configs.registry import get_config
+    cfg = get_config("hymba-1.5b", "full")
+    rows, seq = TRAIN_LM_PROFILE_SHAPE
+    shape = (rows, seq, cfg.d_inner_ssm, cfg.ssm_state)
+    gen = torch.Generator(device="cuda").manual_seed(28)
+    a_bar = torch.rand(shape, generator=gen, device="cuda")
+    bx = torch.randn(shape, generator=gen, device="cuda")
+    bl, ar, br = bx[:, 0:seq - 1:2], a_bar[:, 1::2], bx[:, 1::2]
+    got = xo.fma(bl, ar, br)
+    want = xo.fma_plain(bl, ar, br)
+    torch.cuda.synchronize()
+    differ = int((got != want).sum())
+    check(same_bits(got, want) and got.shape == bl.shape,
+          f"xla_fma at the scan's first level {tuple(bl.shape)} strides "
+          f"{bl.stride()}: {differ} elements differ from fma_plain")
+    log("train_lm", f"xla_fma at the scan's first level, hymba-1.5b full "
+        f"({tuple(bl.shape)}, stride-2 views of {shape} float32, strides "
+        f"{bl.stride()}): bit-identical to fma_plain ({differ} of "
+        f"{got.numel()} differ)")
+    del a_bar, bx, bl, ar, br, got, want
+    torch.cuda.empty_cache()
+
+
 def _train_cli(argv, runs, tag, env):
     """`python -m repro_torch.launch.train ARGV` into the run dir
     runs/tag: its stats, lines, run-dir files and event kinds; checks the
@@ -4312,79 +4340,30 @@ def _train_cli(argv, runs, tag, env):
     return st
 
 
-def checkpoint_bytes(cfg) -> int:
-    """Bytes of one training checkpoint of `LM(cfg)`: every parameter in
-    its dtype, and its float32 m and v."""
-    import torch
-    from repro_torch.models.common import tree_leaves_with_path
-    from repro_torch.models.transformer import LM
-    total = 0
-    for _, spec in tree_leaves_with_path(LM(cfg).specs()):
-        size = torch.empty((), dtype=spec.dtype).element_size()
-        total += math.prod(spec.shape) * (size + 8)
-    return total
-
-
-def mem_available() -> int:
-    """The host's MemAvailable (/proc/meminfo), in bytes; 0 if unknown."""
-    try:
-        for line in Path("/proc/meminfo").read_text().splitlines():
-            if line.startswith("MemAvailable:"):
-                return int(line.split()[1]) * 1024
-    except OSError:
-        pass
-    return 0
-
-
-def train_resume_plan(ckpt_bytes: int, shm_free: int,
-                      available: int) -> tuple:
-    """(steps of the first run, steps resumed to, checkpoints in memory):
-    TRAIN_LM_STEPS with the checkpoints under /dev/shm when it and the
-    host's free memory hold TRAIN_LM_KEEP + 1 of them, the host snapshot
-    and TRAIN_LM_HOST_MARGIN; else TRAIN_LM_SHORT_STEPS on disk."""
-    kept = (TRAIN_LM_KEEP + 1) * ckpt_bytes
-    if shm_free >= kept and available >= (
-            kept + ckpt_bytes + TRAIN_LM_HOST_MARGIN):
-        return TRAIN_LM_STEPS + (True,)
-    return TRAIN_LM_SHORT_STEPS + (False,)
-
-
 def train_lm_cli(runs, env, card):
     """Step 3: `launch.train` at full width and depth, one run after
-    another: hymba-1.5b TRAIN_LM_STEPS[0] steps, then resumed on the same
-    --ckpt-dir to TRAIN_LM_STEPS[1] (it must start at TRAIN_LM_STEPS[0])
-    where memory holds the checkpoints (`train_resume_plan`); else
-    TRAIN_LM_STEPS[0] steps without checkpoints and the resume at
-    TRAIN_LM_SHORT_STEPS on disk; then 2 steps with --irc and
-    musicgen-medium for TRAIN_LM_MUSICGEN_STEPS steps.  Returns each
-    run's stats and launches."""
+    another: hymba-1.5b TRAIN_LM_STEPS steps without checkpoints (the timed
+    run), then TRAIN_LM_RESUME_STEPS[0] steps with checkpoints under runs
+    and resumed on the same --ckpt-dir to TRAIN_LM_RESUME_STEPS[1] (it
+    must start at TRAIN_LM_RESUME_STEPS[0]), 2 steps with --irc and
+    musicgen-medium for TRAIN_LM_MUSICGEN_STEPS steps.  Returns each run's
+    stats and launches."""
     import shutil
-    import tempfile
     from repro_torch.ckpt import latest_step
-    from repro_torch.configs.registry import get_config
-    need = checkpoint_bytes(get_config("hymba-1.5b", "full"))
-    shm = Path("/dev/shm")
-    free = shutil.disk_usage(shm).free if shm.is_dir() else 0
-    available = mem_available()
-    first, then, in_memory = train_resume_plan(need, free, available)
-    ck = (Path(tempfile.mkdtemp(prefix="chip_smoke_ckpt_", dir=shm))
-          if in_memory else runs / "ckpt")
-    log("train_lm", f"checkpoints of {need / 1e9:.2f} GB under {ck} "
-        f"(/dev/shm free {free / 2**30:.1f} GiB, host memory available "
-        f"{available / 2**30:.1f} GiB): {first} steps, resumed to {then}")
+    first, then = TRAIN_LM_RESUME_STEPS
+    ck = runs / "ckpt"
     hymba = ["--arch", "hymba-1.5b", *TRAIN_LM_FULL]
-    jobs = [("hymba-resume-1", hymba + ["--steps", str(first),
+    jobs = [("hymba", hymba + ["--steps", str(TRAIN_LM_STEPS),
+                               "--ckpt-dir", ""]),
+            ("hymba-resume-1", hymba + ["--steps", str(first),
                                         "--ckpt-dir", str(ck)]),
             ("hymba-resume-2", hymba + ["--steps", str(then),
-                                        "--ckpt-dir", str(ck)])]
-    if not in_memory:
-        jobs.insert(0, ("hymba", hymba + [
-            "--steps", str(TRAIN_LM_STEPS[0]), "--ckpt-dir", ""]))
-    jobs += [("hymba-irc", hymba + ["--steps", str(TRAIN_LM_IRC_STEPS),
-                                    "--irc", "--ckpt-dir", ""]),
-             ("musicgen", ["--arch", "musicgen-medium", *TRAIN_LM_FULL,
-                           "--steps", str(TRAIN_LM_MUSICGEN_STEPS),
-                           "--ckpt-dir", ""])]
+                                        "--ckpt-dir", str(ck)]),
+            ("hymba-irc", hymba + ["--steps", str(TRAIN_LM_IRC_STEPS),
+                                   "--irc", "--ckpt-dir", ""]),
+            ("musicgen", ["--arch", "musicgen-medium", *TRAIN_LM_FULL,
+                          "--steps", str(TRAIN_LM_MUSICGEN_STEPS),
+                          "--ckpt-dir", ""])]
     out = {}
     try:
         for tag, argv in jobs:
@@ -4396,7 +4375,13 @@ def train_lm_cli(runs, env, card):
                 f"kernel launches {st['launches']}")
             st["line"] = log_train_stats(tag, st, card)
             out[tag] = st
-        latest = latest_step(ck)
+            if tag == "hymba-resume-2":
+                latest = latest_step(ck)
+                saved = {p.name: sum(f.stat().st_size for f in (
+                    p.rglob("*") if p.is_dir() else [p]) if f.is_file())
+                         for p in sorted(ck.iterdir())}
+                log("train_lm", f"checkpoints under the run's temporary "
+                    f"directory: {saved} bytes, latest step {latest}")
     finally:
         shutil.rmtree(ck, ignore_errors=True)
     a, b = out["hymba-resume-1"], out["hymba-resume-2"]
@@ -4588,10 +4573,11 @@ def train_lm_examples(ops_, runs, card):
 def phase_train_lm(ops_):
     """Phase `train_lm` (`--only train_lm` runs it alone): LM training on
     the card, TF32 checked off first: `train_lm_smoke`, `train_lm_wide`,
-    the CLI runs of `train_lm_cli`, the measurements of `train_lm_remat`
-    and the examples of `train_lm_examples`.  Returns the launches of
-    threefry and xla_fma on the training paths (the CLI runs' and the
-    examples', each counted from 0 by its run) and each run's stats."""
+    `train_lm_scan_fma`, the CLI runs of `train_lm_cli`, the measurements
+    of `train_lm_remat` and the examples of `train_lm_examples`.  Returns
+    the launches of threefry and xla_fma on the training paths (the CLI
+    runs' and the examples', each counted from 0 by its run) and each
+    run's stats."""
     import shutil
     import tempfile
     import torch
@@ -4604,6 +4590,7 @@ def phase_train_lm(ops_):
     t0 = time.perf_counter()
     train_lm_smoke(ops_)
     train_lm_wide()
+    train_lm_scan_fma()
     torch.cuda.empty_cache()
     env = dict(os.environ)
     env["PYTHONPATH"] = str(SRC) + os.pathsep + env.get("PYTHONPATH", "")
