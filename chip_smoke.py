@@ -183,6 +183,20 @@ Phases, each printing its own lines:
      hymba); hymba-1.5b's peak memory under each remat mode at batch 1 x
      1024 and one micro-slice broken down by kernel; the examples
      `train_lm --size 100m --steps 50` and `serve_lm` at its defaults;
+  dryrun (`--only dryrun` runs it alone): the mesh and dry-run tooling on
+     a fake 256-rank "cuda" process group: the cost probes of
+     phi3-medium-14b train_4k (L1/L2 x mb1/mb2) and qwen3-moe-235b-a22b
+     decode_32k at full width, their roofline rows priced for the H100
+     (per-device argument bytes, FLOPs, collectives by kind, compute /
+     memory / collective seconds, trace seconds) and the FLOP inflation
+     of the L1 probe (at most 1.25); every arch's smoke config traced for
+     decode_32k on both meshes; then, in a subprocess, one train step of
+     the hymba-1.5b and qwen3-moe smoke configs with and without
+     `LM.use_mesh` on a real 1x1 NCCL mesh: the loss bit-identical and
+     the xla_fma launches equal; beside all that, from the phase's start,
+     `repro_torch.launch.meshcheck` on a real 2x2 gloo mesh of four CPU
+     processes (the three attention modes, the MoE's expert split, a
+     sequence-sharded decode cache) held to the CPU test's tolerances;
   8. a JSON line of every ported kernel (the measured tail among them),
      the card's name and power limit, and the final `{"ok": true, ...}`
      line.
@@ -1718,8 +1732,44 @@ def phase_xla_times(ops_):
             f"{plain_ms:.3f} ms, torch {lib_ms:.4f} ms, bound {b_ms:.4f} ms "
             f"({b_by}), share of bound {b_ms / ms:.3f}, host enqueue "
             f"{host:.4f} ms per call")
+    host = xla_fma_dispatch_ms(ops_)
+    log("4 times", "xla_fma host ms per small call ([4,64,16] operands, "
+        "2000 calls unsynchronised, median of 5): the wrapper's direct call "
+        f"on plain tensors {host['wrapper']:.5f}, the custom op "
+        f"repro_torch::xla_fma (the route of fake tensors and DTensors) "
+        f"{host['custom_op']:.5f}")
+    out["xla_fma"]["host_ms"] = host
     torch.cuda.empty_cache()
     return out
+
+
+def xla_fma_dispatch_ms(ops_, calls: int = 2000, reps: int = 5) -> dict:
+    """Host milliseconds per call of one small xla_fma through the
+    wrapper (`ops.xla_fma`, which calls the kernel's launcher directly on
+    plain tensors) and, where the tree registers it, through the custom
+    op `repro_torch::xla_fma`, taken in turns; `calls` back-to-back calls
+    with no synchronisation between them, the device's share of each
+    launch far below the host's.  `ops_` may be another tree's module
+    (an A/B of the wrapper)."""
+    import torch
+    gen = torch.Generator(device="cuda").manual_seed(57)
+    a, b, c = (torch.randn(4, 64, 16, generator=gen, device="cuda")
+               for _ in range(3))
+    routes = {"wrapper": lambda: ops_.xla_fma(a, b, c)}
+    if hasattr(torch.ops.repro_torch, "xla_fma"):
+        routes["custom_op"] = lambda: torch.ops.repro_torch.xla_fma(
+            a, b, c, 0.0, 0.0, 0.0)
+    got = {k: [] for k in routes}
+    for _ in range(reps):
+        for k, fn in routes.items():
+            fn()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            for _ in range(calls):
+                fn()
+            got[k].append((time.perf_counter() - t0) * 1e3 / calls)
+            torch.cuda.synchronize()
+    return {k: statistics.median(v) for k, v in got.items()}
 
 
 # the kernel every path that samples dies launches (keys, normals, masks,
@@ -4615,8 +4665,255 @@ def phase_train_lm(ops_):
             **measured}
 
 
+# phase `dryrun`: the reference's two dry-run test cells, traced at full
+# width as cost probes on the fake 256-rank mesh and priced for the card
+DRYRUN_CELLS = (("phi3-medium-14b", "train_4k"),
+                ("qwen3-moe-235b-a22b", "decode_32k"))
+# the smoke configs run one train step on a real 1x1 NCCL mesh
+MESH_STEP_ARCHS = ("hymba-1.5b", "qwen3-moe-235b-a22b")
+
+
+def dryrun_cells(card):
+    """Step 1 of phase `dryrun`: each of DRYRUN_CELLS's cost probes
+    (L1/L2, and x mb1/mb2 for train) at full width on the fake 256-rank
+    "cuda" mesh, the roofline row they give (`perf.run_variant`, priced
+    for the H100), and the FLOP inflation of the L1 probe (sum over the
+    devices against the same step counted on one device)."""
+    from repro_torch.launch import dryrun, perf
+    rows = {}
+    for arch, shape in DRYRUN_CELLS:
+        row = perf.run_variant(arch, shape, "smoke-phase", {}, device="cuda")
+        l1 = dryrun.probe_pair(arch)[0]
+        p1 = row["probes"][f"L{l1}mb1"]
+        check(p1["devices"] == 256 and p1["device_type"] == "cuda",
+              f"dryrun {arch} {shape}: not the 256-rank cuda mesh: {p1}")
+        one = dryrun.unsharded_flops(arch, shape, "full", probe_layers=l1,
+                                     attn_mode=p1["attn_mode"],
+                                     moe_groups=p1["moe_groups"],
+                                     device="cuda")
+        infl = p1["cost_analysis"]["flops"] * p1["devices"] / one
+        check(0.99 <= infl <= 1.25 and row["flops_dev"] > 0,
+              f"dryrun {arch} {shape}: FLOP inflation {infl}")
+        row["inflation"] = infl
+        coll = {k: v / 1e9 for k, v in row["coll_breakdown"].items() if v}
+        log("dryrun", f"{arch} {shape} ({p1['attn_mode']}, microbatch "
+            f"{max(1, p1['global_batch'] // 32) if p1['kind'] == 'train' else 1}"
+            f", {row['method']}): per device args "
+            f"{row['args_dev'] / 1e9:.4f} GB, temp (probe L{l1 + 1} mb1) "
+            f"{row['memory_analysis_probe']['temp_size_in_bytes'] / 1e9:.3f}"
+            f" GB, FLOPs {row['flops_dev']:.4e}, collectives GB {coll}; "
+            f"compute {row['compute_s']:.4f} s, memory "
+            f"{row['memory_s']:.4f} s, collective "
+            f"{row['collective_s']:.4f} s ({row['dominant']}), useful "
+            f"{row['useful_ratio']:.3f}; trace {row['lower_s']:.1f} s; "
+            f"inflation {infl:.4f}; {card}")
+        rows[f"{arch} {shape}"] = {k: row[k] for k in (
+            "flops_dev", "bytes_dev", "coll_dev", "coll_breakdown",
+            "args_dev", "compute_s", "memory_s", "collective_s",
+            "dominant", "useful_ratio", "lower_s", "inflation")}
+    return rows
+
+
+def dryrun_smoke_meshes():
+    """Step 2 of phase `dryrun`: every arch's smoke config traced for one
+    cell (decode_32k) on both fake meshes."""
+    from repro_torch.configs.registry import list_archs
+    from repro_torch.launch import dryrun
+    t0 = time.perf_counter()
+    seen = {}
+    for mesh in ("single", "multi"):
+        for arch in list_archs():
+            rec = dryrun.lower_cell(arch, "decode_32k", mesh, "smoke",
+                                    device="cuda")
+            check(rec["status"] == "ok"
+                  and rec["devices"] == (512 if mesh == "multi" else 256)
+                  and rec["cost_analysis"]["flops"] > 0,
+                  f"dryrun smoke {arch} {mesh}: {rec}")
+            seen[f"{arch} {mesh}"] = rec["lower_s"]
+    log("dryrun", f"every arch's smoke config, decode_32k on both meshes: "
+        f"{len(seen)} records ok in {time.perf_counter() - t0:.1f}s")
+    return seen
+
+
+def mesh_step_worker() -> int:
+    """`--mesh-step-worker` (a subprocess of phase `dryrun`, apart from the
+    fake group): one train step of each MESH_STEP_ARCHS smoke config with
+    and without `use_mesh` on a real 1x1 ("data","model") NCCL mesh of
+    this card, from the same state; prints one JSON line: the two losses'
+    bits, whether the logits are bit-identical, and the xla_fma launches
+    of each step."""
+    import tempfile
+    import torch
+    import torch.distributed as dist
+    sys.path.insert(0, str(SRC))
+    from torch.distributed.device_mesh import init_device_mesh
+    from repro_torch import prng
+    from repro_torch.configs.registry import get_config
+    from repro_torch.data.lm import SyntheticLMData
+    from repro_torch.kernels import ops
+    from repro_torch.models.transformer import LM
+    from repro_torch.sharding import rules
+    from repro_torch.train import steps
+    dev = torch.device("cuda:0")
+    store = tempfile.NamedTemporaryFile(prefix="chip_smoke_store_")
+    dist.init_process_group("nccl", store=dist.FileStore(store.name, 1),
+                            rank=0, world_size=1, device_id=dev)
+    out = {}
+    try:
+        mesh = init_device_mesh("cuda", (1, 1),
+                                mesh_dim_names=("data", "model"))
+        for arch in MESH_STEP_ARCHS:
+            cfg = get_config(arch, "smoke")
+            lm_p, lm_m = LM(cfg), LM(cfg).use_mesh(mesh)
+            state = steps.init_train_state(lm_p, prng.PRNGKey(0, device=dev),
+                                           device=dev)
+            batch = SyntheticLMData(vocab_size=cfg.vocab_size, seq_len=32,
+                                    global_batch=4).batch_for_step(
+                                        0, device=dev)
+            state_m = rules.tree_distribute(steps.train_state_axes(lm_m),
+                                            state, mesh)
+            batch_m = {k: rules.distribute(v, rules.batch_pspec(mesh), mesh)
+                       for k, v in batch.items()}
+            res = {}
+            for tag, lm, st, b in (("plain", lm_p, state, batch),
+                                   ("mesh", lm_m, state_m, batch_m)):
+                ops.reset_launches()
+                _, met = steps.make_train_step(lm)(st, b)
+                loss = met["loss"]
+                loss = loss.to_local() if hasattr(loss, "to_local") else loss
+                torch.cuda.synchronize()
+                res[tag] = {"loss": float(loss),
+                            "bits": int(loss.view(torch.int32).item()),
+                            "xla_fma": ops.LAUNCHES["xla_fma"]}
+                with torch.no_grad():
+                    logits = lm.apply(st.params, b["tokens"])[0]
+                res[tag]["logits"] = (logits.to_local()
+                                      if hasattr(logits, "to_local")
+                                      else logits)
+            same_logits = torch.equal(res["plain"].pop("logits"),
+                                      res["mesh"].pop("logits"))
+            out[arch] = {**res, "logits_bit_identical": same_logits,
+                         "attn_mode": lm_m.attn_mode}
+    finally:
+        dist.destroy_process_group()
+        store.close()
+    print(json.dumps(out))
+    return 0
+
+
+def dryrun_mesh_step(card):
+    """Step 3 of phase `dryrun`: `mesh_step_worker` in a subprocess; the
+    loss under `use_mesh` must equal the plain step's bit for bit, and the
+    xla_fma launches must be equal (hymba's SSM scan launches the kernel
+    through the custom op on the DTensor's local shard)."""
+    t0 = time.perf_counter()
+    r = subprocess.run([sys.executable, str(ROOT / "chip_smoke.py"),
+                        "--mesh-step-worker"], capture_output=True,
+                       text=True, timeout=600)
+    check(r.returncode == 0, f"mesh step worker failed: {r.stderr[-3000:]}")
+    out = json.loads(r.stdout.strip().splitlines()[-1])
+    for arch, res in out.items():
+        p, m = res["plain"], res["mesh"]
+        check(p["bits"] == m["bits"],
+              f"{arch}: the loss on the 1x1 NCCL mesh {m['loss']!r} differs "
+              f"from the plain step's {p['loss']!r}; logits bit-identical: "
+              f"{res['logits_bit_identical']} (if so, the op that differs "
+              f"is the cross-entropy's; if not, the forward's)")
+        check(p["xla_fma"] == m["xla_fma"]
+              and (p["xla_fma"] > 0) == (arch == "hymba-1.5b"),
+              f"{arch}: xla_fma launches plain {p['xla_fma']} mesh "
+              f"{m['xla_fma']}")
+    log("dryrun", "one train step on a real 1x1 NCCL mesh vs without: "
+        + "; ".join(f"{a} ({r_['attn_mode']}) loss {r_['mesh']['loss']!r} "
+                    f"bit-identical, logits bit-identical "
+                    f"{r_['logits_bit_identical']}, xla_fma launches "
+                    f"{r_['mesh']['xla_fma']} = {r_['plain']['xla_fma']}"
+                    for a, r_ in out.items())
+        + f"; {time.perf_counter() - t0:.1f}s; {card}")
+    return out
+
+
+def start_meshcheck():
+    """Step 4 of phase `dryrun`, started first: `repro_torch.launch.
+    meshcheck` (`LM.use_mesh` on a real 2x2 gloo mesh of four processes on
+    the host's CPU, one torch thread each, against the one-process port)
+    in a subprocess that sees no card; it runs beside steps 1-3."""
+    env = dict(os.environ, CUDA_VISIBLE_DEVICES="",
+               PYTHONPATH=os.pathsep.join(
+                   [str(SRC)] + [p for p in (os.environ.get("PYTHONPATH"),)
+                                 if p]))
+    proc = subprocess.Popen(
+        [sys.executable, "-m", "repro_torch.launch.meshcheck"], env=env,
+        stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True,
+        start_new_session=True)
+    return proc, time.perf_counter()
+
+
+def stop_meshcheck(started) -> None:
+    """Ends `start_meshcheck`'s subprocess and its four ranks (one process
+    group), if still running."""
+    import signal
+    proc = started[0]
+    if proc.poll() is None:
+        os.killpg(proc.pid, signal.SIGKILL)
+        proc.wait()
+
+
+def dryrun_meshcheck(started, card):
+    """Waits for `start_meshcheck`'s subprocess; any of its failures (a
+    mode other than q_groups / kv_heads / kv_seq, a loss, gradient, first
+    moment or decode step past the CPU test's tolerances) fails the
+    phase.  Logs the modes it covered and the worst differences."""
+    import torch
+    proc, t0 = started
+    try:
+        out, err = proc.communicate(timeout=600)
+    finally:
+        stop_meshcheck(started)
+    lines = out.strip().splitlines()
+    rec = json.loads(lines[-1]) if lines else None
+    check(proc.returncode == 0 and rec is not None and not rec["failures"],
+          f"meshcheck on the 2x2 gloo mesh failed (rc {proc.returncode}): "
+          f"{rec['failures'] if rec else err[-3000:]}")
+    log("dryrun", "use_mesh on a real 2x2 gloo mesh (4 CPU processes) vs "
+        "one process, the CPU test's tolerances: " + "; ".join(
+            f"{a} ({r['mode']}, moe_groups {r['moe_groups']}) loss rel "
+            f"{r['loss_rel']:.3g}, grads rel L2 {r['grad_rel_l2']:.3g}, "
+            f"moments {r['moment_rel_l2']:.3g}, 10 decode steps on a "
+            f"sequence-sharded cache {r['decode_rel']:.3g}"
+            for a, r in rec["summary"].items())
+        + f"; {time.perf_counter() - t0:.1f}s since its start; torch "
+        f"{torch.__version__}; {card}")
+    return rec["summary"]
+
+
+def phase_dryrun():
+    """Phase `dryrun` (`--only dryrun` runs it alone): the mesh and
+    dry-run tooling on the card (`dryrun_cells`, `dryrun_smoke_meshes`,
+    then `dryrun_mesh_step` in a subprocess), and beside them, from the
+    phase's start, `start_meshcheck`'s real 2x2 gloo mesh on the host's
+    CPU.  The fake process group is ended before the mesh-step subprocess
+    starts."""
+    from repro_torch.launch import mesh as mesh_mod
+    card = gpu_name_and_limit()
+    t0 = time.perf_counter()
+    started = start_meshcheck()
+    try:
+        try:
+            rows = dryrun_cells(card)
+            smoke = dryrun_smoke_meshes()
+        finally:
+            mesh_mod.destroy()
+        step = dryrun_mesh_step(card)
+        gloo = dryrun_meshcheck(started, card)
+    finally:
+        stop_meshcheck(started)
+    log("dryrun", f"phase dryrun {time.perf_counter() - t0:.1f}s")
+    return {"rows": rows, "smoke": smoke, "mesh_step": step, "gloo": gloo}
+
+
 PHASES = ("kernels", "times", "main", "train", "serve", "network",
-          "autotune", "cli", "devices", "paper", "lm", "train_lm")
+          "autotune", "cli", "devices", "paper", "lm", "train_lm", "dryrun")
 
 
 def main(argv=None) -> int:
@@ -4637,7 +4934,11 @@ def main(argv=None) -> int:
                          "same C interface, e.g. the parent commit's) that "
                          "phases 4 and `devices` time in turns with the "
                          "tree's")
+    ap.add_argument("--mesh-step-worker", action="store_true",
+                    help=argparse.SUPPRESS)
     args = ap.parse_args(argv)
+    if args.mesh_step_worker:
+        return mesh_step_worker()
     only = set(args.only.split(","))
     baselines = tuple(Path(p).resolve()
                       for p in args.threefry_baseline.split(",") if p)
@@ -4737,6 +5038,9 @@ def main(argv=None) -> int:
     train_lm = {}
     if "train_lm" in only:
         train_lm = phase_train_lm(ops)
+    dry = {}
+    if "dryrun" in only:
+        dry = phase_dryrun()
     if "threefry" in only:
         phase_threefry_checks(ops)
         phase_threefry_tails()
@@ -4858,6 +5162,12 @@ def main(argv=None) -> int:
         f"{served['irc_mvm_chips']}; the auto-routed chunk of phase "
         f"`autotune` {tuned['auto_k1']}")
     log("8 summary", f"paper drivers' launches (phase `paper`): {paper}")
+    log("8 summary", "the mesh and dry-run tooling (phase `dryrun`) runs "
+        "no port of a TPU kernel: per-device roofline terms "
+        + "; ".join(f"{cell}: compute {r['compute_s']:.4f} s, memory "
+                    f"{r['memory_s']:.4f} s, collective "
+                    f"{r['collective_s']:.4f} s"
+                    for cell, r in dry["rows"].items()))
     log("8 summary", f"QAT path launches ({TRAIN_STEPS} ensemble steps of "
         f"quick_qat): {qat}; per step by configuration: "
         + "; ".join(f"{k}: {v['launches']}"

@@ -187,27 +187,102 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 def xla_fma(a, b, c) -> torch.Tensor:
     """float32 a * b + c rounded once, as XLA contracts it: a, b and c are
     tensors (cast to float32) or Python floats and broadcast; in ONE kernel
-    launch on the card, read through the operands' strides."""
+    launch on the card, read through the operands' strides.
+
+    Plain tensors with no dispatch mode active call `_fma` directly.  Any
+    other tensor (a fake one under `FakeTensorMode`, a DTensor, one under a
+    counting mode) goes through the custom op `repro_torch::xla_fma` (each
+    operand a tensor or None beside its float), so a fake tensor gets its
+    shape from the op's fake implementation and a DTensor its placements
+    from the op's pointwise sharding rule, and neither reaches a kernel.
+    The direct call spares the custom op's dispatch on the paths whose
+    host queues the kernels."""
     tensors = [v for v in (a, b, c) if torch.is_tensor(v)]
     devs = {t.device for t in tensors}
     if len(devs) > 1:
         raise ValueError(f"xla_fma: operands on several devices {devs}")
-    dev = devs.pop() if devs else torch.device("cpu")
+    if not devs:
+        return xo.fma_plain(a, b, c)
+    dev = devs.pop()
+    if dev.type not in ("cpu", "cuda"):
+        raise RuntimeError(f"xla_fma runs on CPU or CUDA, not {dev}")
+    if (torch._C._len_torch_dispatch_stack() == 0
+            and all(type(t) is torch.Tensor for t in tensors)):
+        return _fma(a, b, c)
+    args = [v if torch.is_tensor(v) else None for v in (a, b, c)]
+    floats = [0.0 if torch.is_tensor(v) else float(v) for v in (a, b, c)]
+    return torch.ops.repro_torch.xla_fma(*args, *floats)
+
+
+def _fma(a, b, c) -> torch.Tensor:
+    """`xla_fma` on tensors of one device: the plain version on the CPU,
+    the `xla_fma` kernel on the card."""
+    tensors = [v for v in (a, b, c) if torch.is_tensor(v)]
+    dev = tensors[0].device
     if dev.type == "cpu":
         return xo.fma_plain(a, b, c)
-    if dev.type != "cuda":
-        raise RuntimeError(f"xla_fma runs on CPU or CUDA, not {dev}")
     from repro_torch.kernels import xla_math as kern
     shape = torch.broadcast_shapes(*(t.shape for t in tensors))
     if len(shape) > kern.MAX_DIMS:
         raise ValueError(f"xla_fma takes at most {kern.MAX_DIMS} axes, got "
                          f"{tuple(shape)}")
-    ops = [v.float() if torch.is_tensor(v) else v for v in (a, b, c)]
+    ops_ = [v.float() if torch.is_tensor(v) else v for v in (a, b, c)]
     if 0 in shape:
         return torch.empty(shape, dtype=torch.float32, device=dev)
-    out = kern.launch_fma(*ops, shape, dev)
+    out = kern.launch_fma(*ops_, shape, dev)
     LAUNCHES["xla_fma"] += 1
     return out
+
+
+@torch.library.custom_op("repro_torch::xla_fma", mutates_args=())
+def _xla_fma_op(a: Optional[torch.Tensor], b: Optional[torch.Tensor],
+                c: Optional[torch.Tensor], sa: float, sb: float,
+                sc: float) -> torch.Tensor:
+    """`xla_fma` with each operand a tensor or None beside its float."""
+    return _fma(*(t if t is not None else f
+                  for t, f in ((a, sa), (b, sb), (c, sc))))
+
+
+@_xla_fma_op.register_fake
+def _xla_fma_fake(a, b, c, sa, sb, sc):
+    tensors = [t for t in (a, b, c) if t is not None]
+    shape = torch.broadcast_shapes(*(t.shape for t in tensors))
+    return tensors[0].new_empty(shape, dtype=torch.float32)
+
+
+def _register_fma_sharding() -> None:
+    """The DTensor rule of `repro_torch::xla_fma`: pointwise.  The output
+    is replicated, or sharded on one dim with every operand that spans
+    that dim sharded alike (a broadcast operand replicated)."""
+    try:
+        from torch.distributed.tensor import Replicate, Shard
+        from torch.distributed.tensor.experimental import register_sharding
+    except ImportError:                     # a build without distributed
+        return
+
+    @register_sharding(torch.ops.repro_torch.xla_fma.default)
+    def _fma_strategy(a, b, c, sa, sb, sc):
+        specs = (a, b, c)
+        shapes = [tuple(s.tensor_meta.shape) if s is not None else None
+                  for s in specs]
+        out = torch.broadcast_shapes(*(sh for sh in shapes if sh is not None))
+        rules = [([Replicate()], [Replicate() if s is not None else None
+                                  for s in specs] + [None] * 3)]
+        for d in range(len(out)):
+            ins = []
+            for sh in shapes:
+                if sh is None:
+                    ins.append(None)
+                    continue
+                k = d - (len(out) - len(sh))
+                ins.append(Shard(k) if k >= 0 and sh[k] == out[d] and
+                           out[d] > 1 else Replicate())
+            if out[d] > 1:
+                rules.append(([Shard(d)], ins + [None] * 3))
+        return rules
+
+
+_register_fma_sharding()
 
 
 def _unary_device(name: str, x: torch.Tensor) -> torch.device:

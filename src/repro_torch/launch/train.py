@@ -34,7 +34,6 @@ import tempfile
 
 from repro_torch.configs.registry import list_archs
 
-PRODUCTION_MESH = {"single": 256, "multi": 512}
 
 
 def _build_parser() -> argparse.ArgumentParser:
@@ -69,13 +68,16 @@ def _build_parser() -> argparse.ArgumentParser:
 
 
 def check_mesh(kind: str) -> None:
-    """`--mesh host` is this one device; the production meshes need
-    devices no single host of the port has."""
-    if kind in PRODUCTION_MESH:
+    """`--mesh host` is this one device; the production meshes
+    (`launch.mesh`: 256 and 512 devices) need devices no single host of
+    the port has (the dry run traces them on a fake group instead,
+    `launch.dryrun`)."""
+    if kind in ("single", "multi"):
+        from repro_torch.launch.mesh import production_size
+        n = production_size(multi_pod=(kind == "multi"))
         raise SystemExit(
-            f"--mesh {kind}: the {PRODUCTION_MESH[kind]}-chip production "
-            f"mesh needs {PRODUCTION_MESH[kind]} devices and this host has "
-            f"one; use --mesh host")
+            f"--mesh {kind}: the {n}-chip production mesh needs {n} "
+            f"devices and this host has one; use --mesh host")
 
 
 def main(argv=None) -> None:

@@ -36,21 +36,26 @@ def attn_specs(cfg: LMConfig) -> Dict[str, ParamSpec]:
     return specs
 
 
-def _qkv(params, x: torch.Tensor, cfg: LMConfig, positions: torch.Tensor):
+def _qkv(params, x: torch.Tensor, cfg: LMConfig, positions: torch.Tensor,
+         split=None):
+    """q [B,S,KV,G,hd], k/v [B,S,KV,hd].  `split(t, shape, name)` replaces
+    the reshape of the projections on a mesh (`LM._split_heads`).  rope is
+    elementwise, so it runs on q's two head dims as they are."""
     B, S, _ = x.shape
     kv, g, hd = cfg.n_kv_heads, cfg.q_per_kv, cfg.head_dim
+    if split is None:
+        split = lambda t, shape, name: t.reshape(shape)
     with checkpoint_name("attn_q"):
-        q = (x @ params["wq"].to(x.dtype)).reshape(B, S, kv, g, hd)
+        q = split(x @ params["wq"].to(x.dtype), (B, S, kv, g, hd), "q")
     with checkpoint_name("attn_k"):
-        k = (x @ params["wk"].to(x.dtype)).reshape(B, S, kv, hd)
+        k = split(x @ params["wk"].to(x.dtype), (B, S, kv, hd), "k")
     with checkpoint_name("attn_v"):
-        v = (x @ params["wv"].to(x.dtype)).reshape(B, S, kv, hd)
+        v = split(x @ params["wv"].to(x.dtype), (B, S, kv, hd), "v")
     if cfg.qk_norm:
         q = rms_norm(q, params["q_norm"], cfg.norm_eps)
         k = rms_norm(k, params["k_norm"], cfg.norm_eps)
     if cfg.pos == "rope":
-        qf = rope(q.reshape(B, S, kv * g, hd), positions, cfg.rope_theta)
-        q = qf.reshape(B, S, kv, g, hd)
+        q = rope(q, positions[..., None], cfg.rope_theta)
         k = rope(k, positions, cfg.rope_theta)
     return q, k, v
 
@@ -71,54 +76,108 @@ def _additive(valid: torch.Tensor) -> torch.Tensor:
 
 
 def _sdpa(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-          mask: torch.Tensor, cfg: LMConfig) -> torch.Tensor:
-    """q [B,Sq,KV,G,hd], k/v [B,Sk,KV,hd], mask [Sq,Sk] -> [B,Sq,KV*G*hd]."""
-    scale = cfg.head_dim ** -0.5
-    scores = torch.einsum("bqkgh,bskh->bkgqs", q, k) * const(scale, q)
-    scores = softcap(scores.float(), cfg.attn_logit_softcap)
-    scores = scores + mask
-    probs = torch.softmax(scores, dim=-1).to(q.dtype)
-    out = torch.einsum("bkgqs,bskh->bqkgh", probs, v)
+          mask: torch.Tensor, cfg: LMConfig,
+          g_major: bool = False) -> torch.Tensor:
+    """q [B,Sq,KV,G,hd], k/v [B,Sk,KV,hd], mask [Sq,Sk] -> [B,Sq,KV*G*hd].
+
+    `g_major=True` merges heads as (G,KV,hd) instead of (KV,G,hd), as the
+    reference does under q-group TP (the merged head dim is then
+    contiguous in the sharded G); wo is learned, so the head order is an
+    internal layout choice applied alike in train and decode."""
+    return _merge_heads(attend(q, k, v, mask, cfg), cfg, g_major)
+
+
+def scores(q: torch.Tensor, k: torch.Tensor, mask: torch.Tensor,
+           cfg: LMConfig) -> torch.Tensor:
+    """[B,KV,G,Sq,Sk] float32 scores: q.k scaled in the activation dtype,
+    then softcap and the additive mask in float32."""
+    sc = torch.einsum("bqkgh,bskh->bkgqs", q, k) * const(cfg.head_dim ** -0.5,
+                                                        q)
+    return softcap(sc.float(), cfg.attn_logit_softcap) + mask
+
+
+def attend(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+           mask: torch.Tensor, cfg: LMConfig) -> torch.Tensor:
+    """The core before the head merge: softmax(`scores`) back in q's dtype
+    times v, [B,Sq,KV,G,hd]."""
+    probs = torch.softmax(scores(q, k, mask, cfg), dim=-1).to(q.dtype)
+    return torch.einsum("bkgqs,bskh->bqkgh", probs, v)
+
+
+def _merge_heads(out: torch.Tensor, cfg: LMConfig,
+                 g_major: bool) -> torch.Tensor:
+    """[B,Sq,KV,G,hd] -> [B,Sq,heads*hd], (KV,G) or (G,KV) major."""
     B, Sq = out.shape[0], out.shape[1]
+    if g_major:
+        out = out.transpose(2, 3)               # [B,Sq,G,KV,hd]
     return out.reshape(B, Sq, cfg.n_heads * cfg.head_dim)
 
 
+def _core(q, k, v, mask, cfg: LMConfig, mode, mesh) -> torch.Tensor:
+    """The attention core: `_sdpa` on one device; on a mesh the
+    `repro_torch.sharding.parallel` form of the TP `mode`."""
+    if mesh is None:
+        return _sdpa(q, k, v, mask, cfg, g_major=(mode == "q_groups"))
+    from repro_torch.sharding import parallel
+    return parallel.attention_core(q, k, v, mask, cfg, mode)
+
+
 def attention(params, x: torch.Tensor, cfg: LMConfig, *, is_global: bool,
-              positions: torch.Tensor) -> torch.Tensor:
+              positions: torch.Tensor, constrain=None, mode=None,
+              out_constrain=None, mesh=None, split=None) -> torch.Tensor:
     """Training/prefill attention; a local layer (`is_global` False under a
-    windowed pattern) sees the sliding-window mask."""
-    q, k, v = _qkv(params, x, cfg, positions)
+    windowed pattern) sees the sliding-window mask.  `constrain`
+    (q,k,v)->(q,k,v) pins the TP scheme; `mode` is LM.attn_mode;
+    `out_constrain(x, axes)` pins the merged output sharding; `mesh` runs
+    the core sharded and `split` splits the heads (`LM.use_mesh`)."""
+    q, k, v = _qkv(params, x, cfg, positions, split)
+    if constrain is not None:
+        q, k, v = constrain(q, k, v)
     pos = positions[0] if positions.ndim > 1 else positions
     if cfg.attn_pattern != "global" and not is_global:
         mask = _mask(pos, pos, cfg.window)
     else:
         mask = _mask(pos, pos, None)
-    out = _sdpa(q, k, v, mask, cfg)
+    out = _core(q, k, v, mask, cfg, mode, mesh)
+    if out_constrain is not None:
+        out = out_constrain(out, ("act_batch", None, "act_heads"))
     return out @ params["wo"].to(x.dtype)
 
 
 def attention_decode(params, x: torch.Tensor, cache: Dict[str, torch.Tensor],
-                     cfg: LMConfig, *, is_global: bool, cur_index: int
+                     cfg: LMConfig, *, is_global: bool, cur_index: int,
+                     constrain=None, mode=None, out_constrain=None,
+                     mesh=None, split=None
                      ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
     """Single-token decode with a KV cache.
 
     x [B,1,D]; cache {"k": [B,Smax,KV,hd], "v": ...}; cur_index = the
-    position being written (written in place).  Returns (out [B,1,D], the
-    cache)."""
+    position being written (written in place; on a mesh by the rank that
+    holds it, `parallel.write_position`).  Returns (out [B,1,D], the
+    cache).  The hooks are `attention`'s."""
     B = x.shape[0]
     s_max = cache["k"].shape[1]
     positions = torch.full((B, 1), cur_index, dtype=torch.int32,
                            device=x.device)
-    q, k, v = _qkv(params, x, cfg, positions)
+    q, k, v = _qkv(params, x, cfg, positions, split)
+    if constrain is not None:
+        q, k, v = constrain(q, k, v)
     ck, cv = cache["k"], cache["v"]
-    ck[:, cur_index] = k[:, 0].to(ck.dtype)
-    cv[:, cur_index] = v[:, 0].to(cv.dtype)
+    if mesh is None:
+        ck[:, cur_index] = k[:, 0].to(ck.dtype)
+        cv[:, cur_index] = v[:, 0].to(cv.dtype)
+    else:
+        from repro_torch.sharding import parallel
+        parallel.write_position(ck, k, cur_index)
+        parallel.write_position(cv, v, cur_index)
     k_pos = torch.arange(s_max, device=x.device)
     valid = k_pos <= cur_index
     if cfg.attn_pattern != "global" and not is_global:
         valid = valid & (k_pos > cur_index - cfg.window)
     mask = _additive(valid)[None, :]
-    out = _sdpa(q, ck.to(x.dtype), cv.to(x.dtype), mask, cfg)
+    out = _core(q, ck.to(x.dtype), cv.to(x.dtype), mask, cfg, mode, mesh)
+    if out_constrain is not None:
+        out = out_constrain(out, ("act_batch", None, "act_heads"))
     return out @ params["wo"].to(x.dtype), {"k": ck, "v": cv}
 
 

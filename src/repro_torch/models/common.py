@@ -135,12 +135,20 @@ def logical_axes_tree(specs: PyTree) -> PyTree:
 
 # ------------------------------------------------------------------ numerics
 
-@functools.lru_cache(maxsize=1024)
 def scalar(v: float, dtype: torch.dtype, device: torch.device
            ) -> torch.Tensor:
     """A 0-dim tensor of `v`, made once per (value, dtype, device) and kept
     (read it, never write it): making a card tensor from a host value waits
-    for the card."""
+    for the card.  Under `FakeTensorMode` (the dry run) it is made anew:
+    a fake tensor must not outlive its mode."""
+    if torch._C._get_dispatch_mode(torch._C._TorchDispatchModeKey.FAKE):
+        return torch.tensor(v, dtype=dtype, device=device)
+    return _scalar(v, dtype, device)
+
+
+@functools.lru_cache(maxsize=1024)
+def _scalar(v: float, dtype: torch.dtype, device: torch.device
+            ) -> torch.Tensor:
     return torch.tensor(v, dtype=dtype, device=device)
 
 
@@ -208,8 +216,13 @@ def cross_entropy_loss(logits: torch.Tensor, labels: torch.Tensor,
                        ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
     """Token-level CE in f32 with optional z-loss; labels [B,S] int."""
     logits = logits.float()
-    lse = torch.logsumexp(logits, dim=-1)
-    ll = torch.gather(logits, -1, labels[..., None].long())[..., 0]
+    if hasattr(logits, "device_mesh"):     # a DTensor (`LM.use_mesh`)
+        from repro_torch.sharding import parallel
+        lse = parallel.logsumexp(logits)
+        ll = parallel.label_logits(logits, labels)
+    else:
+        lse = torch.logsumexp(logits, dim=-1)
+        ll = torch.gather(logits, -1, labels[..., None].long())[..., 0]
     nll = lse - ll
     zl = const(z_loss, lse) * torch.square(lse)
     per_tok = nll + zl

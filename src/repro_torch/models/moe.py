@@ -48,35 +48,17 @@ def top_k(probs: torch.Tensor, k: int) -> Tuple[torch.Tensor, torch.Tensor]:
     return vals[..., :k], idx[..., :k]
 
 
-def moe_block(params, x: torch.Tensor, cfg: LMConfig,
-              dispatch_groups: int = 1
-              ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
-    """x [B,S,D] -> (out [B,S,D], {"aux_loss": scalar, "dropped": the
-    number of (token, expert) assignments beyond capacity}).
-
-    Dispatch is group-local: tokens split into `dispatch_groups`, each group
-    scattering into its own capacity buckets [G, E, C, D]."""
-    B, S, D = x.shape
-    T = B * S
+def _route(xt: torch.Tensor, router: torch.Tensor, cfg: LMConfig, C: int):
+    """Router, top-k and capacity slots of xt [G,Tl,D]: (probs [G,Tl,E],
+    gate_vals and expert_idx [G,Tl,K], eid and slot [G,Tl*K] (slot C = the
+    trash row), keep [G,Tl*K])."""
+    G, Tl, _ = xt.shape
     E, K = cfg.n_experts, cfg.top_k
-    G = dispatch_groups if T % dispatch_groups == 0 else 1
-    Tl = T // G
-    C = _capacity(cfg, Tl)
-    xt = x.reshape(G, Tl, D)
-    dev = x.device
-
-    logits = torch.einsum("gtd,de->gte", xt.float(), params["router"])
+    logits = torch.einsum("gtd,de->gte", xt.float(), router)
     probs = torch.softmax(logits, dim=-1)                        # [G,Tl,E]
     gate_vals, expert_idx = top_k(probs, K)                      # [G,Tl,K]
     gate_vals = gate_vals / torch.clamp(
         torch.sum(gate_vals, dim=-1, keepdim=True), min=1e-9)
-
-    # load-balance aux loss (Switch-style, global means)
-    me = torch.mean(probs, dim=(0, 1))
-    ce = torch.mean(torch.nn.functional.one_hot(expert_idx[..., 0], E)
-                    .float(), dim=(0, 1))
-    aux = const(cfg.router_aux_coef * E, me) * torch.sum(me * ce)
-
     # slot assignment per group: position within each expert's local queue
     sel = torch.nn.functional.one_hot(expert_idx, E)             # [G,Tl,K,E]
     flat_sel = sel.reshape(G, Tl * K, E)
@@ -85,28 +67,107 @@ def moe_block(params, x: torch.Tensor, cfg: LMConfig,
     eid = expert_idx.reshape(G, Tl * K)
     keep = slot < C
     slot = torch.where(keep, slot, torch.full_like(slot, C))     # C = trash
+    return probs, gate_vals, expert_idx, eid, slot, keep
 
-    # scatter tokens into [G, E, C+1, D] buckets; only the trash row C
-    # takes more than one token, and it is never read
+
+def _scatter(xt: torch.Tensor, eid: torch.Tensor, slot: torch.Tensor,
+             E: int, C: int, K: int) -> torch.Tensor:
+    """Tokens into [G, E, C, D] buckets.  They go through [G, E, C+1, D]:
+    only the trash row C takes more than one token, and it is never
+    read."""
+    G, Tl, D = xt.shape
+    dev = xt.device
     tok_ids = torch.arange(Tl, device=dev).repeat_interleave(K)
     gidx = torch.arange(G, device=dev)[:, None].expand(G, Tl * K)
-    buckets = torch.zeros((G, E, C + 1, D), dtype=x.dtype, device=dev)
+    buckets = torch.zeros((G, E, C + 1, D), dtype=xt.dtype, device=dev)
     buckets[gidx, eid, slot] = xt[:, tok_ids]
+    return buckets[:, :, :C, :]
 
-    h = buckets[:, :, :C, :]
-    dt = x.dtype
-    gate = torch.einsum("gecd,edf->gecf", h, params["w_gate"].to(dt))
-    up = torch.einsum("gecd,edf->gecf", h, params["w_up"].to(dt))
-    y = torch.einsum("gecf,efd->gecd", silu(gate) * up,
-                     params["w_down"].to(dt))                    # [G,E,C,D]
 
-    # gather back with router weights
+def expert_mlp(h: torch.Tensor, w_gate: torch.Tensor, w_up: torch.Tensor,
+               w_down: torch.Tensor) -> torch.Tensor:
+    """Every expert's SwiGLU on its buckets: h [G,E,C,D] -> [G,E,C,D]."""
+    gate = torch.einsum("gecd,edf->gecf", h, w_gate)
+    up = torch.einsum("gecd,edf->gecf", h, w_up)
+    return torch.einsum("gecf,efd->gecd", silu(gate) * up, w_down)
+
+
+def combine(y: torch.Tensor, eid: torch.Tensor, slot: torch.Tensor,
+            w: torch.Tensor, Tl: int, local: bool = False) -> torch.Tensor:
+    """Expert outputs y [G,E,C,D] gathered back to their tokens, weighted
+    by w [G,Tl*K] and summed per token (`index_add_`) -> [G,Tl,D].
+    `local`: y holds a slice of the experts, `eid` counts from its first,
+    and pairs outside it add nothing."""
+    G, E, C, D = y.shape
+    K = eid.shape[1] // Tl
+    dt, dev = y.dtype, y.device
+    if local:
+        inside = (eid >= 0) & (eid < E)
+        eid = torch.where(inside, eid, 0)
+        slot = torch.where(inside, slot, C)
+    tok_ids = torch.arange(Tl, device=dev).repeat_interleave(K)
+    gidx = torch.arange(G, device=dev)[:, None].expand(G, Tl * K)
     y_pad = torch.cat([y, torch.zeros((G, E, 1, D), dtype=dt, device=dev)],
                       dim=2)
     y_tok = y_pad[gidx, eid, slot]                               # [G,Tl*K,D]
-    w = (gate_vals.reshape(G, Tl * K) * keep).to(dt)
     out = torch.zeros((G, Tl, D), dtype=dt, device=dev)
     for g in range(G):
         out[g].index_add_(0, tok_ids, y_tok[g] * w[g][:, None])
+    return out
+
+
+def dispatch(xt: torch.Tensor, router: torch.Tensor, cfg: LMConfig, C: int):
+    """The dispatch of a mesh's local groups (`sharding.parallel`):
+    (buckets [G,E,C,D], eid, slot, combine weights w [G,Tl*K], the
+    per-group sums of the router probs and of the top-1 one-hot [G,E] for
+    the aux loss, the dropped count per group [G])."""
+    E, K = cfg.n_experts, cfg.top_k
+    G, Tl, _ = xt.shape
+    probs, gate_vals, expert_idx, eid, slot, keep = _route(xt, router, cfg, C)
+    me_sum = torch.sum(probs, dim=1)
+    ce_sum = torch.sum(torch.nn.functional.one_hot(expert_idx[..., 0], E)
+                       .float(), dim=1)
+    h = _scatter(xt, eid, slot, E, C, K)
+    w = (gate_vals.reshape(G, Tl * K) * keep).to(xt.dtype)
+    return h, eid, slot, w, me_sum, ce_sum, torch.sum(~keep, dim=1)
+
+
+def moe_block(params, x: torch.Tensor, cfg: LMConfig,
+              dispatch_groups: int = 1, constrain=None, mesh=None
+              ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
+    """x [B,S,D] -> (out [B,S,D], {"aux_loss": scalar, "dropped": the
+    number of (token, expert) assignments beyond capacity}).
+
+    Dispatch is group-local: tokens split into `dispatch_groups`, each group
+    scattering into its own capacity buckets [G, E, C, D].  On a mesh
+    (`constrain`, `mesh` from `LM.use_mesh`) the groups and the experts are
+    sharded (`sharding.parallel.moe_block`)."""
+    if mesh is not None:
+        from repro_torch.sharding import parallel
+        return parallel.moe_block(params, x, cfg, dispatch_groups,
+                                  constrain, mesh)
+    B, S, D = x.shape
+    T = B * S
+    E, K = cfg.n_experts, cfg.top_k
+    G = dispatch_groups if T % dispatch_groups == 0 else 1
+    Tl = T // G
+    C = _capacity(cfg, Tl)
+    xt = x.reshape(G, Tl, D)
+
+    probs, gate_vals, expert_idx, eid, slot, keep = _route(
+        xt, params["router"], cfg, C)
+    # load-balance aux loss (Switch-style, global means)
+    me = torch.mean(probs, dim=(0, 1))
+    ce = torch.mean(torch.nn.functional.one_hot(expert_idx[..., 0], E)
+                    .float(), dim=(0, 1))
+    aux = const(cfg.router_aux_coef * E, me) * torch.sum(me * ce)
+
+    h = _scatter(xt, eid, slot, E, C, K)
+    dt = x.dtype
+    y = expert_mlp(h, params["w_gate"].to(dt), params["w_up"].to(dt),
+                   params["w_down"].to(dt))                      # [G,E,C,D]
+    # gather back with router weights
+    w = (gate_vals.reshape(G, Tl * K) * keep).to(dt)
+    out = combine(y, eid, slot, w, Tl)
     dropped = torch.sum(~keep)
     return out.reshape(B, S, D), {"aux_loss": aux, "dropped": dropped}

@@ -14,6 +14,7 @@ import torch
 from repro_torch.models.common import ParamSpec, const, silu
 from repro_torch.models.lm_config import LMConfig
 from repro_torch.runtime import DeviceLike, resolve_device
+from repro_torch.sharding.dtensor import split_last
 
 
 def _heads(cfg: LMConfig) -> Tuple[int, int]:
@@ -72,8 +73,8 @@ def _time_mix_terms(tp, x: torch.Tensor, xx: torch.Tensor, cfg: LMConfig):
         xw @ tp["decay_a"].float()) @ tp["decay_b"].float()
     w = torch.exp(-torch.exp(decay_raw - const(3.0, decay_raw)))
     shp = x.shape[:-1] + (H, hd)
-    return (r.reshape(shp), k.reshape(shp), v.reshape(shp),
-            g, w.reshape(shp))
+    return (split_last(r, shp), split_last(k, shp), split_last(v, shp),
+            g, split_last(w, shp))
 
 
 def _wkv_step(state: torch.Tensor, inputs, u: torch.Tensor):
@@ -85,6 +86,16 @@ def _wkv_step(state: torch.Tensor, inputs, u: torch.Tensor):
     return new_state, out
 
 
+def wkv_scan(r, k, v, w, u, state):
+    """The WKV recurrence over time: r/k/v/w [B,S,H,hd], u [H,hd], state
+    [B,H,hd,hd] -> (out [B,S,H,hd], the final state)."""
+    outs = []
+    for t in range(r.shape[1]):
+        state, o = _wkv_step(state, (r[:, t], k[:, t], v[:, t], w[:, t]), u)
+        outs.append(o)
+    return torch.stack(outs, dim=1), state
+
+
 def time_mix(tp, x: torch.Tensor, cfg: LMConfig, last_x: torch.Tensor,
              state: torch.Tensor
              ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
@@ -93,13 +104,14 @@ def time_mix(tp, x: torch.Tensor, cfg: LMConfig, last_x: torch.Tensor,
     H, hd = _heads(cfg)
     xx = _shift(x, last_x)
     r, k, v, g, w = _time_mix_terms(tp, x, xx, cfg)
-    u = tp["bonus_u"].reshape(H, hd)
+    u = split_last(tp["bonus_u"], (H, hd))
     r, k, v, w = (t.float() for t in (r, k, v, w))
-    outs = []
-    for t in range(S):
-        state, o = _wkv_step(state, (r[:, t], k[:, t], v[:, t], w[:, t]), u)
-        outs.append(o)
-    out = torch.stack(outs, dim=1).reshape(B, S, D).to(x.dtype)
+    if hasattr(r, "device_mesh"):          # a DTensor (`LM.use_mesh`)
+        from repro_torch.sharding import parallel
+        out, state = parallel.wkv_scan(wkv_scan, r, k, v, w, u, state)
+    else:
+        out, state = wkv_scan(r, k, v, w, u, state)
+    out = out.reshape(B, S, D).to(x.dtype)
     # group-norm per head approximated by RMS over features
     out32 = out.float()
     out = (out32 * torch.rsqrt(

@@ -19,6 +19,7 @@ from repro_torch import xla_order
 from repro_torch.models.common import ParamSpec, const, silu
 from repro_torch.models.lm_config import LMConfig
 from repro_torch.runtime import DeviceLike, resolve_device
+from repro_torch.sharding.dtensor import local_apply
 
 
 def ssm_specs(cfg: LMConfig) -> Dict[str, ParamSpec]:
@@ -41,7 +42,11 @@ def ssm_specs(cfg: LMConfig) -> Dict[str, ParamSpec]:
 
 def _conv_scan(x: torch.Tensor, conv_w: torch.Tensor) -> torch.Tensor:
     """Causal depthwise conv over seq: x [B,S,di], conv_w [K,di]; tap i
-    multiplies the token i steps back, summed from i = 0 up."""
+    multiplies the token i steps back, summed from i = 0 up.  DTensors
+    (`LM.use_mesh`) run it on each rank's shard (`parallel.conv_scan`)."""
+    if hasattr(x, "device_mesh"):
+        from repro_torch.sharding import parallel
+        return parallel.conv_scan(_conv_scan, x, conv_w)
     K = conv_w.shape[0]
     S = x.shape[1]
     out = None
@@ -57,12 +62,32 @@ def _softplus(x: torch.Tensor) -> torch.Tensor:
     return torch.logaddexp(x, const(0.0, x))
 
 
-def _selective_terms(params, xc: torch.Tensor, cfg: LMConfig):
-    """Common dt/B/C/A terms.  xc [..., di] (post-conv)."""
+def _keep(t: torch.Tensor, axes) -> torch.Tensor:
+    return t
+
+
+# [B,S,di] with the inner dim over "model" (TP on a mesh)
+_INNER = ("act_batch", None, "heads_qkv")
+_WHOLE = ("act_batch", None, None)
+
+
+def _split_in(h: torch.Tensor, di: int, c) -> Tuple[torch.Tensor,
+                                                    torch.Tensor]:
+    """The in-projection [B,S,2di] split into x and the gate z.  On a mesh
+    (`c`, `LM._constrain`) it is gathered whole first and each half then
+    sharded over "model" (a local slice): the values stay those of one
+    device."""
+    h = c(h, _WHOLE)
+    return c(h[..., :di], _INNER), c(h[..., di:], _INNER)
+
+
+def _selective_terms(params, xc: torch.Tensor, cfg: LMConfig, c=_keep):
+    """Common dt/B/C/A terms.  xc [B,S,di] (post-conv).  `c` pins the
+    placements on a mesh: dt sharded like xc, B and C whole."""
     n = cfg.ssm_state
-    dt = _softplus(xc @ params["w_dt"].to(xc.dtype)
+    dt = _softplus(c(xc @ params["w_dt"].to(xc.dtype), _INNER)
                    + params["dt_bias"].to(xc.dtype))             # [...,di]
-    bc = xc @ params["w_bc"].to(xc.dtype)                        # [...,2n]
+    bc = c(xc @ params["w_bc"].to(xc.dtype), _WHOLE)             # [...,2n]
     b, c = bc[..., :n], bc[..., n:]
     a = -torch.exp(params["a_log"])                              # [di,n] f32
     dt32 = dt.float()
@@ -139,13 +164,20 @@ def _combine(left: List[torch.Tensor],
     return [al * ar, _Fma.apply(bl, ar, br)]
 
 
-def ssm_branch(params, x: torch.Tensor, cfg: LMConfig) -> torch.Tensor:
-    """Training/prefill: x [B,S,D] -> [B,S,D] via the associative scan."""
+def ssm_branch(params, x: torch.Tensor, cfg: LMConfig,
+               constrain=None) -> torch.Tensor:
+    """Training/prefill: x [B,S,D] -> [B,S,D] via the associative scan.
+    `constrain` (`LM._constrain` on a mesh) runs the branch tensor-parallel
+    over its inner dim."""
     di = cfg.d_inner_ssm
     h = x @ params["w_in"].to(x.dtype)                           # [B,S,2di]
-    xin, z = h[..., :di], h[..., di:]
+    if constrain is None:
+        xin, z = h[..., :di], h[..., di:]
+    else:
+        xin, z = _split_in(h, di, constrain)
     xc = _conv_scan(xin, params["conv"].to(x.dtype))
-    a_bar, bx, c, _ = _selective_terms(params, xc, cfg)          # [B,S,di,n]
+    a_bar, bx, c, _ = _selective_terms(params, xc, cfg,
+                                       constrain or _keep)       # [B,S,di,n]
     _, hs = associative_scan(_combine, (a_bar, bx), axis=1)
     y = torch.einsum("bsdn,bsn->bsd", hs, c.float()).to(x.dtype)
     y = y + params["d_skip"].to(x.dtype) * xc
@@ -154,18 +186,24 @@ def ssm_branch(params, x: torch.Tensor, cfg: LMConfig) -> torch.Tensor:
 
 
 def ssm_decode(params, x: torch.Tensor, state: Dict[str, torch.Tensor],
-               cfg: LMConfig) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
+               cfg: LMConfig, constrain=None
+               ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
     """Single-token decode.  x [B,1,D]; state: conv window [B,K-1,di] and
-    ssm state h [B,di,n] (f32)."""
+    ssm state h [B,di,n] (f32); `constrain` as in `ssm_branch`."""
     di = cfg.d_inner_ssm
     hproj = x @ params["w_in"].to(x.dtype)
-    xin, z = hproj[..., :di], hproj[..., di:]                    # [B,1,di]
+    if constrain is None:
+        xin, z = hproj[..., :di], hproj[..., di:]                # [B,1,di]
+    else:
+        xin, z = _split_in(hproj, di, constrain)
     window = torch.cat([state["conv"], xin], dim=1)              # [B,K,di]
     # prefill's causal conv puts conv[0] on the current token; the window
     # is ordered oldest->newest, so the taps are flipped to match
-    conv_w = torch.flip(params["conv"], dims=(0,)).to(x.dtype)
+    conv_w = local_apply(lambda c: torch.flip(c, dims=(0,)),
+                         params["conv"]).to(x.dtype)
     xc = silu(torch.einsum("bkd,kd->bd", window, conv_w))[:, None, :]
-    a_bar, bx, c, _ = _selective_terms(params, xc, cfg)          # [B,1,di,n]
+    a_bar, bx, c, _ = _selective_terms(params, xc, cfg,
+                                       constrain or _keep)       # [B,1,di,n]
     h_new = state["h"] * a_bar[:, 0] + bx[:, 0]                  # [B,di,n]
     y = torch.einsum("bdn,bn->bd", h_new,
                      c[:, 0].float())[:, None, :].to(x.dtype)

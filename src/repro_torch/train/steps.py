@@ -33,6 +33,7 @@ from repro_torch.optim.adamw import (AdamWConfig, adamw_init, adamw_update,
                                      tree_leaves, tree_map, tree_unflatten)
 from repro_torch.optim.schedule import warmup_step_decay
 from repro_torch.runtime import DeviceLike, resolve_device
+from repro_torch.sharding.dtensor import sharded_context
 
 PyTree = Any
 
@@ -122,14 +123,20 @@ def make_train_step(lm, *, opt_cfg: AdamWConfig = AdamWConfig(),
                               scan_layers=scan_layers)
 
     def train_step(state: TrainState, batch: Dict[str, torch.Tensor]):
+        # on a mesh (`LM.use_mesh`), plain tensors (the backward's saved
+        # tables, the learning rate) count as replicated
+        with sharded_context(getattr(lm, "sharded", False)):
+            return _step(state, batch)
+
+    def _step(state: TrainState, batch: Dict[str, torch.Tensor]):
         if microbatch > 1:
             rows = next(iter(batch.values())).shape[0]
             if rows % microbatch:
                 raise ValueError(f"batch of {rows} rows does not split into "
                                  f"{microbatch} micro-slices")
             per = rows // microbatch
-            grads = tree_map(lambda p: torch.zeros(
-                p.shape, dtype=torch.float32, device=p.device), state.params)
+            grads = tree_map(lambda p: torch.zeros_like(
+                p, dtype=torch.float32), state.params)
             loss_sum = torch.zeros((), dtype=torch.float32,
                                    device=state.step.device)
             for i in range(microbatch):

@@ -49,6 +49,11 @@ def test_guard_sees_the_port():
             "configs/registry.py"} <= rel
     assert {"train/steps.py", "train/trainer.py", "launch/train.py",
             "examples/train_lm.py", "examples/serve_lm.py"} <= rel
+    assert {"sharding/__init__.py", "sharding/rules.py",
+            "sharding/dtensor.py", "sharding/parallel.py", "launch/mesh.py",
+            "launch/specs.py", "launch/dryrun.py", "launch/roofline.py",
+            "launch/perf.py", "launch/summarize.py", "launch/meshcheck.py"
+            } <= rel
 
 
 def test_serve_cli_takes_network_lm(capsys):
