@@ -175,8 +175,9 @@ Phases, each printing its own lines:
      stride-2 views) bit for bit against its plain version; `python -m
      repro_torch.launch.train` at full width and depth (batch 8 x 4096,
      microbatch 4, remat block): hymba-1.5b 8 steps without checkpoints,
-     then 1 step with checkpoints on disk resumed from them to 2 (it must
-     start at 1; two saves of 14.75 GB), 2 steps with --irc,
+     then, at batch 2 x 1024, 1 step with checkpoints on disk resumed from
+     them to 2 (it must start at 1; two saves of 14.75 GB) and 2 steps
+     with --irc,
      musicgen-medium 3 steps, each with a `# train stats` line (steady
      steps/s and tokens/s, compile_s, peak memory, the losses, the
      model-FLOPs share) and its kernel launches (threefry; xla_fma on
@@ -197,6 +198,18 @@ Phases, each printing its own lines:
      `repro_torch.launch.meshcheck` on a real 2x2 gloo mesh of four CPU
      processes (the three attention modes, the MoE's expert split, a
      sequence-sharded decode cache) held to the CPU test's tolerances;
+  analysis (`--only analysis` runs it alone): the static-analysis suite
+     on the card: `python -m repro_torch.analysis --json` (key discipline,
+     host-sync hygiene, the shape contracts on fake CUDA tensors) with zero
+     findings and exit 0, its seconds per pass; every detector/MC shape
+     contract on fake CUDA tensors and for real at its own sizes, the real
+     leaves of the fake ones' shapes, dtypes and device (K1 and threefry
+     launched on the kernel-route contracts, K1 not on the plain-route
+     ones); `yolo_irc.proposed()` at full width in ensemble mode through K1
+     at 4 chips and 2 images fake against real (K1 14 launches) and its
+     first block's single-chip layer path (K2), every call of the fake ops'
+     wrappers (K1, K2, threefry's fold_in, split and draws) replayed on
+     fake tensors of its shapes against the real kernel's output;
   8. a JSON line of every ported kernel (the measured tail among them),
      the card's name and power limit, and the final `{"ok": true, ...}`
      line.
@@ -4172,6 +4185,11 @@ TRAIN_LM_WIDE_SHAPE = (2, 64)                  # (rows, seq), 2 layers, f32
 TRAIN_LM_FULL = ("--variant", "full", "--batch", "8", "--seq", "4096",
                  "--microbatch", "4", "--remat", "block")
 TRAIN_LM_STEPS = 8                # hymba-1.5b's timed run, no checkpoints
+# the resume and --irc runs check the checkpoint round trip and the IRC
+# path at full width and depth; 2 x 1024 tokens a step (1/16 of the timed
+# run's) keep their steps short, for the time of phase `analysis`
+TRAIN_LM_SHORT = ("--variant", "full", "--batch", "2", "--seq", "1024",
+                  "--microbatch", "1", "--remat", "block")
 # a full-width checkpoint is 14.75 GB (bf16 params, float32 m and v); the
 # CLI saves every steps // 4 steps and keeps 3, so the 8-step run would
 # write 4 (59 GB): the resume runs 1 -> 2 steps instead, 2 saves (29.5 GB)
@@ -4395,21 +4413,23 @@ def train_lm_cli(runs, env, card):
     another: hymba-1.5b TRAIN_LM_STEPS steps without checkpoints (the timed
     run), then TRAIN_LM_RESUME_STEPS[0] steps with checkpoints under runs
     and resumed on the same --ckpt-dir to TRAIN_LM_RESUME_STEPS[1] (it
-    must start at TRAIN_LM_RESUME_STEPS[0]), 2 steps with --irc and
-    musicgen-medium for TRAIN_LM_MUSICGEN_STEPS steps.  Returns each run's
-    stats and launches."""
+    must start at TRAIN_LM_RESUME_STEPS[0]) and 2 steps with --irc, these
+    three at TRAIN_LM_SHORT's tokens, and musicgen-medium for
+    TRAIN_LM_MUSICGEN_STEPS steps.  Returns each run's stats and
+    launches."""
     import shutil
     from repro_torch.ckpt import latest_step
     first, then = TRAIN_LM_RESUME_STEPS
     ck = runs / "ckpt"
     hymba = ["--arch", "hymba-1.5b", *TRAIN_LM_FULL]
+    short = ["--arch", "hymba-1.5b", *TRAIN_LM_SHORT]
     jobs = [("hymba", hymba + ["--steps", str(TRAIN_LM_STEPS),
                                "--ckpt-dir", ""]),
-            ("hymba-resume-1", hymba + ["--steps", str(first),
+            ("hymba-resume-1", short + ["--steps", str(first),
                                         "--ckpt-dir", str(ck)]),
-            ("hymba-resume-2", hymba + ["--steps", str(then),
+            ("hymba-resume-2", short + ["--steps", str(then),
                                         "--ckpt-dir", str(ck)]),
-            ("hymba-irc", hymba + ["--steps", str(TRAIN_LM_IRC_STEPS),
+            ("hymba-irc", short + ["--steps", str(TRAIN_LM_IRC_STEPS),
                                    "--irc", "--ckpt-dir", ""]),
             ("musicgen", ["--arch", "musicgen-medium", *TRAIN_LM_FULL,
                           "--steps", str(TRAIN_LM_MUSICGEN_STEPS),
@@ -4912,8 +4932,251 @@ def phase_dryrun():
     return {"rows": rows, "smoke": smoke, "mesh_step": step, "gloo": gloo}
 
 
+# phase `analysis`: the static-analysis suite on the card, and the fake
+# kernel ops against the real kernels
+ANALYSIS_CHIPS = 4              # the full-width ensemble's chips, one chunk
+ANALYSIS_IMAGES = 2
+K1_PER_CHUNK = 14               # group convs of yolo_irc.proposed()
+
+
+def analysis_cli(env, card):
+    """Step (a) of phase `analysis`: `python -m repro_torch.analysis --json`
+    in a subprocess at its defaults (all three passes over src/repro_torch,
+    the contracts on fake CUDA tensors); exit 0 and zero findings.  Returns
+    its per-pass seconds."""
+    import tempfile
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_analysis_") as d:
+        out = Path(d) / "findings.json"
+        t0 = time.perf_counter()
+        proc = subprocess.run(
+            [sys.executable, "-m", "repro_torch.analysis", "--json",
+             str(out)], cwd=ROOT, env=env, capture_output=True, text=True,
+            timeout=600)
+        wall = time.perf_counter() - t0
+        check(proc.returncode == 0 and out.is_file(),
+              f"repro_torch.analysis exited {proc.returncode}: "
+              f"{proc.stdout[-2000:]} {proc.stderr[-2000:]}")
+        doc = json.loads(out.read_text())
+    timing = doc["timing_s"]
+    check(doc["findings"] == [] and {"keys", "trace", "contracts"}
+          <= set(timing), f"repro_torch.analysis: {doc}")
+    log("analysis", f"python -m repro_torch.analysis: 0 findings, exit 0; "
+        f"per pass {json.dumps(timing)} s, process {wall:.1f}s; {card}")
+    return dict(timing, process=wall)
+
+
+def _leaf_signature(tree):
+    """(shape, dtype, device type) of every tensor leaf of `tree`."""
+    import torch
+    from torch.utils._pytree import tree_leaves
+    return [(tuple(t.shape), str(t.dtype), t.device.type)
+            for t in tree_leaves(tree) if torch.is_tensor(t)]
+
+
+def _fake_vs_real(ops_, contract):
+    """One contract on fake CUDA tensors and then for real on seeded ones
+    (launches counted from 0 for the real run): each declared spec met,
+    the real leaves finite and of the fake leaves' shapes, dtypes and
+    device.  Returns (real output, real launches)."""
+    import torch
+    from torch.utils._pytree import tree_leaves
+    fake, fake_err = contract.trace("cuda")
+    ops_.reset_launches()
+    real, real_err = contract.trace("cuda", fake=False)
+    torch.cuda.synchronize()
+    launches = dict(ops_.LAUNCHES)
+    check(fake_err is None and real_err is None,
+          f"{contract.name}: {fake_err} / {real_err}")
+    check(_leaf_signature(fake) == _leaf_signature(real),
+          f"{contract.name}: fake {_leaf_signature(fake)} != real "
+          f"{_leaf_signature(real)}")
+    check(all(torch.isfinite(t.float()).all() for t in tree_leaves(real)
+              if torch.is_tensor(t)), f"{contract.name}: non-finite output")
+    if contract.route == "kernel":
+        check(launches["irc_mvm_chips"] > 0 and launches["threefry"] > 0,
+              f"{contract.name}: kernel route launched {launches}")
+    elif contract.route == "plain":
+        check(launches["irc_mvm_chips"] == 0,
+              f"{contract.name}: plain route launched K1: {launches}")
+    return real, launches
+
+
+def analysis_contracts(ops_):
+    """Step (b): every detector/MC contract (arch yolo-irc) on fake CUDA
+    tensors and for real at its own sizes (`_fake_vs_real`).  Returns the
+    real runs' K1 and threefry launches by contract."""
+    from repro_torch.analysis.registry import shape_contracts
+    out = {}
+    for c in shape_contracts():
+        if c.arch != "yolo-irc":
+            continue
+        real, launches = _fake_vs_real(ops_, c)
+        out[c.name] = {k: launches[k] for k in ("irc_mvm_chips", "threefry")}
+        log("analysis", f"{c.name} ({c.route or 'routed by the table'}): "
+            f"fake == real {_leaf_signature(real)[:1]}, launches "
+            f"{out[c.name]}")
+    return out
+
+
+_RECORDED = ("irc_mvm_chips", "irc_mvm", "threefry_fold_in",
+             "threefry_split", "threefry_draw")
+
+
+def _meta(v):
+    import torch
+    if torch.is_tensor(v):
+        return ("tensor", tuple(v.shape), v.dtype, v.device)
+    return v
+
+
+def _recording(ops_, calls):
+    """Context: each wrapper of `_RECORDED` records its first call on plain
+    tensors of each argument signature (tensors by shape, dtype and
+    device) with its real output's signature; calls on fake tensors are
+    not recorded."""
+    import contextlib
+    import torch
+
+    @contextlib.contextmanager
+    def ctx():
+        orig = {n: getattr(ops_, n) for n in _RECORDED}
+
+        def wrap(name, fn):
+            def recorded(*args, **kwargs):
+                out = fn(*args, **kwargs)
+                tensors = [v for v in (*args, *kwargs.values())
+                           if torch.is_tensor(v)]
+                if not ops_._direct(*tensors):
+                    return out
+                meta = (tuple(map(_meta, args)),
+                        tuple(sorted((k, _meta(v))
+                                     for k, v in kwargs.items())))
+                calls.setdefault((name, repr(meta)),
+                                 (meta, _leaf_signature(out)))
+                return out
+            return recorded
+        for n, fn in orig.items():
+            setattr(ops_, n, wrap(n, fn))
+        try:
+            yield
+        finally:
+            for n, fn in orig.items():
+                setattr(ops_, n, fn)
+    return ctx()
+
+
+def analysis_fake_ops(ops_, calls):
+    """Step (d): each recorded call of a fake op's wrapper replayed on fake
+    CUDA tensors of the recorded shapes: the fake output's signature must
+    be the real kernel's."""
+    import torch
+    from torch._subclasses.fake_tensor import FakeTensorMode
+    def rebuild(v):
+        if isinstance(v, tuple) and v and v[0] == "tensor":
+            return torch.empty(v[1], dtype=v[2], device=v[3])
+        return v
+    by_op = {}
+    for (name, _), ((args, kwargs), real_sig) in calls.items():
+        with FakeTensorMode():
+            fake = getattr(ops_, name)(*map(rebuild, args),
+                                       **{k: rebuild(v) for k, v in kwargs})
+        check(_leaf_signature(fake) == real_sig,
+              f"fake {name} {args}: {_leaf_signature(fake)} != {real_sig}")
+        by_op[name] = by_op.get(name, 0) + 1
+    check(set(by_op) == set(_RECORDED), f"fake ops replayed: {by_op}")
+    return by_op
+
+
+def analysis_full_width(ops_):
+    """Steps (c) and (d): `yolo_irc.proposed()` at full width in ensemble
+    mode through K1 (use_kernel=True) at ANALYSIS_CHIPS chips and
+    ANALYSIS_IMAGES images, fake against real (K1_PER_CHUNK launches), and
+    the single-chip layer path of its first block (K2), with every call of
+    the five fake ops' wrappers recorded and replayed on fake tensors."""
+    import torch
+    from repro_torch import prng
+    from repro_torch.analysis.registry import ShapeContract, _expect
+    from repro_torch.configs import yolo_irc
+    from repro_torch.core.nonideal import NonidealConfig
+    from repro_torch.kernels.ops import irc_mvm_from_mapped
+    from repro_torch.mc.detector_mc import build_detector_ensemble
+    from repro_torch.models.detector import IRCDetector
+    det = IRCDetector(yolo_irc.proposed())
+    gh, gw, ho = det.head_geometry()
+    C, B = ANALYSIS_CHIPS, ANALYSIS_IMAGES
+    held = {}
+
+    def body(inp):
+        params = det.init(inp.key(), device=inp.device)
+        ens = build_detector_ensemble(inp.key(1), det, params, C,
+                                      cfg=NonidealConfig.all())
+        out = det.apply(params, inp.floats((B, *det.cfg.img_hw, 3)),
+                        mode="ensemble", ensemble=ens,
+                        cfg_ni=NonidealConfig.all(), use_kernel=True)
+        if not inp.fake:
+            held["params"] = params
+        return out, _expect(out, inp, (C, B, gh, gw, ho), torch.float32,
+                            f"proposed ensemble x{C},kernel")
+    contract = ShapeContract(f"proposed ensemble x{C},kernel",
+                             "src/repro_torch/models/detector.py", body,
+                             "yolo-irc", "kernel")
+    calls = {}
+    t0 = time.perf_counter()
+    with _recording(ops_, calls):
+        real, launches = _fake_vs_real(ops_, contract)
+        check(launches["irc_mvm_chips"] == K1_PER_CHUNK,
+              f"full-width ensemble: K1 launched {launches}")
+        name, _, _, cin, ch = next(iter(det.blocks()))
+        mapped = det.group_mappings(held.pop("params")[name], max(cin, ch),
+                                    ch)[0]
+        xs = (torch.rand((2 * S0_ROWS_PER_IMAGE, mapped.fan_in),
+                         device="cuda",
+                         generator=torch.Generator(device="cuda")
+                         .manual_seed(5)) < 0.5).float()
+        single = irc_mvm_from_mapped(prng.PRNGKey(3, "cuda"), xs, mapped,
+                                     NonidealConfig.all(), det.spec)
+        torch.cuda.synchronize()
+    log("analysis", f"yolo_irc.proposed() {det.cfg.img_hw}, {C} chips x {B} "
+        f"images, use_kernel=True: fake == real {_leaf_signature(real)}, "
+        f"launches {launches}; K2 layer path {tuple(single.shape)}; "
+        f"{time.perf_counter() - t0:.1f}s")
+    by_op = analysis_fake_ops(ops_, calls)
+    log("analysis", f"fake ops against the kernels' real outputs at the "
+        f"main path's shapes: {by_op} argument signatures")
+    return {"launches": launches, "fake_ops": by_op}
+
+
+def phase_analysis(ops_):
+    """Phase `analysis` (`--only analysis` runs it alone): the port's
+    static-analysis suite on the card (`analysis_cli`), every detector/MC
+    shape contract fake against real (`analysis_contracts`), the
+    full-width proposed detector through K1 fake against real and the
+    fake ops against the real kernels (`analysis_full_width`).  Nothing is
+    caught: any failure fails the run.  Returns each step's seconds."""
+    import torch
+    card = gpu_name_and_limit()
+    env = dict(os.environ)
+    env["PYTHONPATH"] = str(SRC) + os.pathsep + env.get("PYTHONPATH", "")
+    t0 = time.perf_counter()
+    timing = analysis_cli(env, card)
+    t1 = time.perf_counter()
+    contracts = analysis_contracts(ops_)
+    t2 = time.perf_counter()
+    full = analysis_full_width(ops_)
+    torch.cuda.empty_cache()
+    t3 = time.perf_counter()
+    secs = {"cli": t1 - t0, "contracts": t2 - t1, "full_width": t3 - t2,
+            "phase": t3 - t0}
+    log("analysis", f"phase analysis {secs['phase']:.1f}s (cli "
+        f"{secs['cli']:.1f}, contracts {secs['contracts']:.1f}, full width "
+        f"{secs['full_width']:.1f}); {card}")
+    return {"passes_s": timing, "seconds": secs, "contracts": contracts,
+            **full}
+
+
 PHASES = ("kernels", "times", "main", "train", "serve", "network",
-          "autotune", "cli", "devices", "paper", "lm", "train_lm", "dryrun")
+          "autotune", "cli", "devices", "paper", "lm", "train_lm", "dryrun",
+          "analysis")
 
 
 def main(argv=None) -> int:
@@ -5041,6 +5304,9 @@ def main(argv=None) -> int:
     dry = {}
     if "dryrun" in only:
         dry = phase_dryrun()
+    analysis = {}
+    if "analysis" in only:
+        analysis = phase_analysis(ops)
     if "threefry" in only:
         phase_threefry_checks(ops)
         phase_threefry_tails()
@@ -5172,6 +5438,13 @@ def main(argv=None) -> int:
         f"quick_qat): {qat}; per step by configuration: "
         + "; ".join(f"{k}: {v['launches']}"
                     for k, v in train["steps"].items()))
+    log("8 summary", "the static-analysis suite (phase `analysis`) runs no "
+        "port of a TPU kernel: 0 findings from keys, trace and "
+        f"contracts ({analysis['passes_s']['contracts']:.1f}s on fake CUDA "
+        f"tensors), K1 "
+        f"{analysis['launches']['irc_mvm_chips']} and threefry "
+        f"{analysis['launches']['threefry']} launches in the full-width "
+        f"fake-vs-real chunk, phase {analysis['seconds']['phase']:.1f}s")
     flips = sum(f for _, f in checks.values())
     log("8 summary", f"binary flips of K1/K2 in phase 3: {flips}; total "
         f"{time.perf_counter() - t_start:.1f}s")

@@ -18,8 +18,9 @@ Nothing needs padding: the kernels mask their ragged edges themselves.
 """
 from __future__ import annotations
 
+import dataclasses
 import math
-from typing import Dict, Optional, Sequence, Tuple
+from typing import Dict, List, Optional, Sequence, Tuple
 
 import torch
 
@@ -70,6 +71,18 @@ def _check(x, ep, en, gp, gn, eps_sa, rnd_bits):
     return devs.pop()
 
 
+def _direct(*tensors) -> bool:
+    """True for plain tensors with no dispatch mode active: the wrapper then
+    calls the kernel (or, on the CPU, its plain version) directly.  Any
+    other tensor (a fake one under `FakeTensorMode`, a DTensor, one under a
+    counting mode) goes through the wrapper's custom op, so a fake tensor
+    gets its shape from the op's fake implementation and never reaches a
+    kernel or a plain version that reads values.  The direct call spares
+    the custom op's dispatch on the paths whose host queues the kernels."""
+    return (torch._C._len_torch_dispatch_stack() == 0
+            and all(type(t) is torch.Tensor for t in tensors))
+
+
 def irc_mvm_chips(x: torch.Tensor, ep: torch.Tensor, en: torch.Tensor,
                   gp: torch.Tensor, gn: torch.Tensor, eps_sa: torch.Tensor,
                   rnd_bits: torch.Tensor, params: IrcEpilogueParams,
@@ -79,14 +92,26 @@ def irc_mvm_chips(x: torch.Tensor, ep: torch.Tensor, en: torch.Tensor,
     [C,R,N], periphery noise eps_sa/rnd_bits [C,B,N] -> [C,B,N] float32,
     in ONE kernel launch on the card, at row tile `tile` (one of
     `irc_mvm.TILES`; None: the default).  Any other tile raises ValueError,
-    on the CPU too, where the plain version serves every tile."""
+    on the CPU too, where the plain version serves every tile.  Other than
+    plain tensors go through the custom op `repro_torch::irc_mvm_chips`
+    (`_direct`)."""
     tile = check_tile(tile)
-    dev = _check(x, ep, en, gp, gn, eps_sa, rnd_bits)
+    args = (x, ep, en, gp, gn, eps_sa, rnd_bits)
+    if not _direct(*args):
+        return torch.ops.repro_torch.irc_mvm_chips(
+            *args, *dataclasses.astuple(params), *tile)
+    dev = _check(*args)
     if dev.type == "cpu":
-        return irc_mvm_chips_ref(x, ep, en, gp, gn, eps_sa, rnd_bits, params)
-    out = _launch(dev, x, ep, en, gp, gn, eps_sa, rnd_bits, params, tile)
+        return irc_mvm_chips_ref(*args, params)
+    out = _launch(dev, *args, params, tile)
     LAUNCHES["irc_mvm_chips"] += 1
     return out
+
+
+def _check_single(x, ep):
+    if x.ndim != 2 or ep.ndim != 2:
+        raise ValueError(f"irc_mvm takes x [B,R] and planes [R,N], got "
+                         f"{tuple(x.shape)} and {tuple(ep.shape)}")
 
 
 def irc_mvm(x: torch.Tensor, ep: torch.Tensor, en: torch.Tensor,
@@ -94,10 +119,12 @@ def irc_mvm(x: torch.Tensor, ep: torch.Tensor, en: torch.Tensor,
             rnd_bits: torch.Tensor, params: IrcEpilogueParams
             ) -> torch.Tensor:
     """Single-chip fused IRC MVM: x [B,R], planes [R,N], eps_sa/rnd_bits
-    [B,N] -> [B,N]; the C = 1 case of the same kernel."""
-    if x.ndim != 2 or ep.ndim != 2:
-        raise ValueError(f"irc_mvm takes x [B,R] and planes [R,N], got "
-                         f"{tuple(x.shape)} and {tuple(ep.shape)}")
+    [B,N] -> [B,N]; the C = 1 case of the same kernel.  Other than plain
+    tensors go through the custom op `repro_torch::irc_mvm` (`_direct`)."""
+    if not _direct(x, ep, en, gp, gn, eps_sa, rnd_bits):
+        return torch.ops.repro_torch.irc_mvm(
+            x, ep, en, gp, gn, eps_sa, rnd_bits, *dataclasses.astuple(params))
+    _check_single(x, ep)
     args = (x, ep[None], en[None], gp, gn, eps_sa[None], rnd_bits[None])
     dev = _check(*args)
     if dev.type == "cpu":
@@ -105,6 +132,54 @@ def irc_mvm(x: torch.Tensor, ep: torch.Tensor, en: torch.Tensor,
     out = _launch(dev, *args, params)[0]
     LAUNCHES["irc_mvm"] += 1
     return out
+
+
+# The custom ops of K1 and K2: the epilogue's constants (the fields of
+# `IrcEpilogueParams`, in their order) and K1's tile as scalar arguments.
+@torch.library.custom_op("repro_torch::irc_mvm_chips", mutates_args=())
+def _irc_mvm_chips_op(x: torch.Tensor, ep: torch.Tensor, en: torch.Tensor,
+                      gp: torch.Tensor, gn: torch.Tensor,
+                      eps_sa: torch.Tensor, rnd_bits: torch.Tensor,
+                      ir_alpha: float, ir_block: int, sense_low: float,
+                      sense_high: float, sa_c0: float, sa_c1: float,
+                      sa_c2: float, sa_extra: float,
+                      apply_nonlinearity: bool, apply_ir: bool,
+                      apply_sa: bool, apply_range: bool, output: str,
+                      bm: int, tm: int) -> torch.Tensor:
+    """`irc_mvm_chips` on plain tensors."""
+    params = IrcEpilogueParams(
+        ir_alpha, ir_block, sense_low, sense_high, sa_c0, sa_c1, sa_c2,
+        sa_extra, apply_nonlinearity, apply_ir, apply_sa, apply_range, output)
+    return irc_mvm_chips(x, ep, en, gp, gn, eps_sa, rnd_bits, params,
+                         (bm, tm))
+
+
+@_irc_mvm_chips_op.register_fake
+def _irc_mvm_chips_fake(x, ep, en, gp, gn, eps_sa, rnd_bits, *scalars):
+    _check(x, ep, en, gp, gn, eps_sa, rnd_bits)
+    return eps_sa.new_empty(eps_sa.shape, dtype=torch.float32)
+
+
+@torch.library.custom_op("repro_torch::irc_mvm", mutates_args=())
+def _irc_mvm_op(x: torch.Tensor, ep: torch.Tensor, en: torch.Tensor,
+                gp: torch.Tensor, gn: torch.Tensor, eps_sa: torch.Tensor,
+                rnd_bits: torch.Tensor, ir_alpha: float, ir_block: int,
+                sense_low: float, sense_high: float, sa_c0: float,
+                sa_c1: float, sa_c2: float, sa_extra: float,
+                apply_nonlinearity: bool, apply_ir: bool, apply_sa: bool,
+                apply_range: bool, output: str) -> torch.Tensor:
+    """`irc_mvm` on plain tensors."""
+    params = IrcEpilogueParams(
+        ir_alpha, ir_block, sense_low, sense_high, sa_c0, sa_c1, sa_c2,
+        sa_extra, apply_nonlinearity, apply_ir, apply_sa, apply_range, output)
+    return irc_mvm(x, ep, en, gp, gn, eps_sa, rnd_bits, params)
+
+
+@_irc_mvm_op.register_fake
+def _irc_mvm_fake(x, ep, en, gp, gn, eps_sa, rnd_bits, *scalars):
+    _check_single(x, ep)
+    _check(x, ep[None], en[None], gp, gn, eps_sa[None], rnd_bits[None])
+    return eps_sa.new_empty(eps_sa.shape, dtype=torch.float32)
 
 
 def _launch(dev, x, ep, en, gp, gn, eps_sa, rnd_bits, params, tile=None):
@@ -189,14 +264,10 @@ def xla_fma(a, b, c) -> torch.Tensor:
     tensors (cast to float32) or Python floats and broadcast; in ONE kernel
     launch on the card, read through the operands' strides.
 
-    Plain tensors with no dispatch mode active call `_fma` directly.  Any
-    other tensor (a fake one under `FakeTensorMode`, a DTensor, one under a
-    counting mode) goes through the custom op `repro_torch::xla_fma` (each
-    operand a tensor or None beside its float), so a fake tensor gets its
-    shape from the op's fake implementation and a DTensor its placements
-    from the op's pointwise sharding rule, and neither reaches a kernel.
-    The direct call spares the custom op's dispatch on the paths whose
-    host queues the kernels."""
+    Plain tensors call `_fma` directly; others (`_direct`) go through the
+    custom op `repro_torch::xla_fma` (each operand a tensor or None beside
+    its float), whose pointwise sharding rule gives a DTensor its
+    placements."""
     tensors = [v for v in (a, b, c) if torch.is_tensor(v)]
     devs = {t.device for t in tensors}
     if len(devs) > 1:
@@ -206,8 +277,7 @@ def xla_fma(a, b, c) -> torch.Tensor:
     dev = devs.pop()
     if dev.type not in ("cpu", "cuda"):
         raise RuntimeError(f"xla_fma runs on CPU or CUDA, not {dev}")
-    if (torch._C._len_torch_dispatch_stack() == 0
-            and all(type(t) is torch.Tensor for t in tensors)):
+    if _direct(*tensors):
         return _fma(a, b, c)
     args = [v if torch.is_tensor(v) else None for v in (a, b, c)]
     floats = [0.0 if torch.is_tensor(v) else float(v) for v in (a, b, c)]
@@ -341,8 +411,15 @@ def _key_rows(key: torch.Tensor, lead) -> torch.Tensor:
 
 def threefry_fold_in(key: torch.Tensor, data) -> torch.Tensor:
     """`prng.fold_in`: key [..., 2] and data (an int or an integer tensor)
-    broadcast; ONE launch of the threefry kernel on the card."""
+    broadcast; ONE launch of the threefry kernel on the card.  Other than
+    plain tensors go through the custom op `repro_torch::threefry_fold_in`
+    (`_direct`)."""
     dev = _key_device("fold_in", key)
+    if not _direct(key, *([data] if torch.is_tensor(data) else [])):
+        if torch.is_tensor(data):
+            return torch.ops.repro_torch.threefry_fold_in(key, data, 0)
+        return torch.ops.repro_torch.threefry_fold_in(
+            key, None, int(data) & prng.MASK32)
     if dev.type == "cpu":
         return prng.fold_in_plain(key, data)
     from repro_torch.kernels import threefry as kern
@@ -363,8 +440,12 @@ def threefry_fold_in(key: torch.Tensor, data) -> torch.Tensor:
 
 def threefry_split(key: torch.Tensor, num: int = 2) -> torch.Tensor:
     """`prng.split` under the scheme in force: [..., 2] -> [..., num, 2];
-    ONE launch of the threefry kernel on the card."""
+    ONE launch of the threefry kernel on the card.  Other than plain
+    tensors go through the custom op `repro_torch::threefry_split`
+    (`_direct`)."""
     dev = _key_device("split", key)
+    if not _direct(key):
+        return torch.ops.repro_torch.threefry_split(key, int(num))
     if dev.type == "cpu":
         return prng.split_plain(key, num)
     from repro_torch.kernels import threefry as kern
@@ -388,12 +469,19 @@ def threefry_draw(key: torch.Tensor, shape: Sequence[int], tail: str, *,
     """`prng.random_bits` (tail "bits"), `uniform`, `normal`, `lognormal`
     (scale = sigma), `bernoulli` or `measured` (table = (xp, fp)) under the
     scheme in force: key batch axes lead `shape`; ONE launch of the
-    threefry kernel on the card."""
+    threefry kernel on the card.  Other than plain tensors go through the
+    custom op `repro_torch::threefry_draw` (`_direct`)."""
     dev = _key_device(tail, key)
     shape = tuple(int(s) for s in shape)
     lo, span = prng.tail_consts(tail, minval, maxval)
     if tail == "measured":
         table = prng.check_table(table)
+    if not _direct(key):
+        xp, fp = table if tail == "measured" else (None, None)
+        return torch.ops.repro_torch.threefry_draw(
+            key, list(shape), tail, float(minval), float(maxval),
+            float(scale), float(p), xp and list(xp), fp and list(fp))
+    if tail == "measured":
         scale = prng.HALF_SQRT2
     if dev.type == "cpu":
         return prng.tail_plain(prng.random_bits_plain(key, shape), tail,
@@ -411,6 +499,54 @@ def threefry_draw(key: torch.Tensor, shape: Sequence[int], tail: str, *,
     LAUNCHES["threefry"] += 1
     TAIL_LAUNCHES[tail] += 1
     return out.reshape(tuple(lead) + shape)
+
+
+# The custom ops of the threefry wrappers: fold_in's data a tensor or None
+# beside its masked int, the draw's table as two lists of floats.
+@torch.library.custom_op("repro_torch::threefry_fold_in", mutates_args=())
+def _threefry_fold_in_op(key: torch.Tensor, data: Optional[torch.Tensor],
+                         scalar: int) -> torch.Tensor:
+    """`threefry_fold_in` on plain tensors."""
+    return threefry_fold_in(key, data if data is not None else scalar)
+
+
+@_threefry_fold_in_op.register_fake
+def _threefry_fold_in_fake(key, data, scalar):
+    lead = key.shape[:-1]
+    if data is not None:
+        lead = torch.broadcast_shapes(lead, data.shape)
+    return key.new_empty(tuple(lead) + (2,))
+
+
+@torch.library.custom_op("repro_torch::threefry_split", mutates_args=())
+def _threefry_split_op(key: torch.Tensor, num: int) -> torch.Tensor:
+    """`threefry_split` on plain tensors."""
+    return threefry_split(key, num)
+
+
+@_threefry_split_op.register_fake
+def _threefry_split_fake(key, num):
+    prng.check_words(num if prng.is_partitionable() else 2 * num)
+    return key.new_empty(tuple(key.shape[:-1]) + (num, 2))
+
+
+@torch.library.custom_op("repro_torch::threefry_draw", mutates_args=())
+def _threefry_draw_op(key: torch.Tensor, shape: List[int], tail: str,
+                      minval: float, maxval: float, scale: float, p: float,
+                      xp: Optional[List[float]],
+                      fp: Optional[List[float]]) -> torch.Tensor:
+    """`threefry_draw` on plain tensors."""
+    return threefry_draw(key, shape, tail, minval=minval, maxval=maxval,
+                         scale=scale, p=p,
+                         table=None if xp is None else (xp, fp))
+
+
+@_threefry_draw_op.register_fake
+def _threefry_draw_fake(key, shape, tail, minval, maxval, scale, p, xp, fp):
+    from repro_torch.kernels import threefry as kern
+    prng.check_words(math.prod(shape))
+    return key.new_empty(tuple(key.shape[:-1]) + tuple(shape),
+                         dtype=kern.TAILS[tail][1])
 
 
 def irc_mvm_from_mapped(key: torch.Tensor, x_bits: torch.Tensor, mapped,

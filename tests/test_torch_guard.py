@@ -54,6 +54,9 @@ def test_guard_sees_the_port():
             "launch/specs.py", "launch/dryrun.py", "launch/roofline.py",
             "launch/perf.py", "launch/summarize.py", "launch/meshcheck.py"
             } <= rel
+    assert {f"analysis/{n}.py" for n in (
+        "__init__", "__main__", "_astutil", "findings", "keys", "trace",
+        "registry", "contracts", "runner")} <= rel
 
 
 def test_serve_cli_takes_network_lm(capsys):
