@@ -35,7 +35,8 @@ from repro_torch.mc.engine import McConfig, McResult, TABLE2_ABLATION
 from repro_torch.mc.ensemble import (ChipEnsemble, deviation_planes,
                                      sample_ensemble_with_keys)
 from repro_torch.mc.stats import StreamingMoments
-from repro_torch.obs import ConvergenceMonitor, PhaseTimer, RunLog, as_runlog
+from repro_torch.obs import (ConvergenceMonitor, PhaseTimer, RunLog, as_runlog,
+                             spans)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -172,14 +173,18 @@ class _ToHost:
     """Predictions on their way to the host: a pinned buffer filled by a
     non-blocking copy, and an event recorded after it on the stream that
     computed them (a thread's current stream, so the serving engine's
-    scheduler thread waits on its own work)."""
+    scheduler thread waits on its own work).  Given `start`, a timing event
+    recorded before the work's first launch (`spans.device_mark`), the
+    copy's event times too, and `device_ms` reads the device's time from
+    one to the other once `wait` returned."""
 
-    def __init__(self, preds: torch.Tensor):
+    def __init__(self, preds: torch.Tensor, start=None):
+        self.start = start
         if preds.is_cuda:
             self.buf = torch.empty(preds.shape, dtype=preds.dtype,
                                    pin_memory=True)
             self.buf.copy_(preds, non_blocking=True)
-            self.event = torch.cuda.Event()
+            self.event = torch.cuda.Event(enable_timing=start is not None)
             self.event.record(torch.cuda.current_stream(preds.device))
         else:
             self.buf, self.event = preds, None
@@ -189,6 +194,11 @@ class _ToHost:
         if self.event is not None:
             self.event.synchronize()
         return self.buf.numpy()
+
+    def device_ms(self) -> Optional[float]:
+        """Device milliseconds from `start` to the copy's landing (after
+        `wait`); None without a start or off the card."""
+        return spans.elapsed_ms(self.start, self.event)
 
 
 def run_mc_detector(key: torch.Tensor, det, params, images: torch.Tensor,
@@ -218,97 +228,122 @@ def run_mc_detector(key: torch.Tensor, det, params, images: torch.Tensor,
     `use_kernel` routes each group conv (`IRCDetector.apply`): None (the
     default) as the autotuner's table says for this card, True through the
     fused IRC MVM, False through the plain batched route; `kernel_impl`
-    ("kernel" | "ref") is the kernel route's implementation."""
+    ("kernel" | "ref") is the kernel route's implementation.
+
+    While a profiler trace runs the sweep is an `mc_detector_call` span
+    (`chips`, `chunk_size`) holding per chunk an `mc_detector_chunks` span
+    (`chunk`, `chip_lo`, `chips`) with its `mc_detector_enqueue`,
+    `mc_detector_copy_wait` and `mc_detector_host` spans; host scoring
+    opens `score_map` inside (`evaluate_map_per_chip`, with the boxes
+    counters).  On the card a chunk span carries `device_ms`: timing
+    events from just before the chunk's first launch to its copy's
+    landing, read after the wait the sweep already makes.  Pipelined, the
+    start event runs once the previous chunk's work is done, so the span
+    covers the device from there to this chunk's copy, bubbles in it
+    included."""
     from repro_torch.train.det_loss import evaluate_map_per_chip
 
-    obs = as_runlog(obs)
-    moments = {"map50": StreamingMoments(mc.quantiles)}
-    monitor = ConvergenceMonitor(moments, stderr_target=stderr_target,
-                                 runlog=obs, phase="mc_detector")
-    timer = PhaseTimer("mc_detector_chunks", unit="chips")
-    enq_timer = PhaseTimer("mc_detector_enqueue", unit="chips")
-    dev_timer = PhaseTimer("mc_detector_device", unit="chips")
-    host_timer = PhaseTimer("mc_detector_host", unit="chips")
-    obs.log_event("mc_start", phase="mc_detector", n_chips=mc.n_chips,
-                  chunk_size=mc.chunk_size, stderr_target=stderr_target,
-                  pipeline=pipeline,
-                  device_model=(mc.device.name if mc.device is not None
-                                else "analytic"))
-    chunks = [_chip_range(lo, min(lo + mc.chunk_size, mc.n_chips), key)
-              for lo in range(0, mc.n_chips, mc.chunk_size)]
+    with spans.span("mc_detector_call", chips=mc.n_chips,
+                    chunk_size=mc.chunk_size):
+        obs = as_runlog(obs)
+        moments = {"map50": StreamingMoments(mc.quantiles)}
+        monitor = ConvergenceMonitor(moments, stderr_target=stderr_target,
+                                     runlog=obs, phase="mc_detector")
+        timer = PhaseTimer("mc_detector_chunks", unit="chips")
+        enq_timer = PhaseTimer("mc_detector_enqueue", unit="chips")
+        dev_timer = PhaseTimer("mc_detector_copy_wait", unit="chips")
+        host_timer = PhaseTimer("mc_detector_host", unit="chips")
+        obs.log_event("mc_start", phase="mc_detector", n_chips=mc.n_chips,
+                      chunk_size=mc.chunk_size, stderr_target=stderr_target,
+                      pipeline=pipeline,
+                      device_model=(mc.device.name if mc.device is not None
+                                    else "analytic"))
+        chunks = [_chip_range(lo, min(lo + mc.chunk_size, mc.n_chips), key)
+                  for lo in range(0, mc.n_chips, mc.chunk_size)]
 
-    def score(preds: np.ndarray) -> np.ndarray:
-        return evaluate_map_per_chip(preds, gt_boxes, gt_classes,
-                                     det.cfg.n_anchors, det.cfg.n_classes)
+        def score(preds: np.ndarray) -> np.ndarray:
+            return evaluate_map_per_chip(preds, gt_boxes, gt_classes,
+                                         det.cfg.n_anchors, det.cfg.n_classes)
 
-    hoisted = None
+        hoisted = None
 
-    def dispatch(ids) -> _ToHost:
-        """Enqueue one chunk's sample + forward + copy to the host (the
-        first call also hoists the group mappings)."""
-        nonlocal hoisted
-        with enq_timer.lap(items=int(ids.shape[0])):
-            if hoisted is None:
-                hoisted = detector_planes(det, params)
-            planes, meta = hoisted
-            return _ToHost(_sample_and_forward(
-                params, images, key, ids, planes, det_cfg=det.cfg,
-                spec=det.spec, cfg_ni=mc.cfg, sa_extra=sa_extra, meta=meta,
-                use_kernel=use_kernel, kernel_impl=kernel_impl,
-                device=mc.device))
+        def dispatch(chunk_i: int) -> _ToHost:
+            """Enqueue one chunk's sample + forward + copy to the host (the
+            first call also hoists the group mappings)."""
+            nonlocal hoisted
+            ids = chunks[chunk_i]
+            with enq_timer.lap(items=int(ids.shape[0]), chunk=chunk_i,
+                               chip_lo=chunk_i * mc.chunk_size):
+                start = spans.device_mark(images.device)
+                if hoisted is None:
+                    hoisted = detector_planes(det, params)
+                planes, meta = hoisted
+                return _ToHost(_sample_and_forward(
+                    params, images, key, ids, planes, det_cfg=det.cfg,
+                    spec=det.spec, cfg_ni=mc.cfg, sa_extra=sa_extra, meta=meta,
+                    use_kernel=use_kernel, kernel_impl=kernel_impl,
+                    device=mc.device), start)
 
-    n_done = 0
-    for chunk_i, ids in enumerate(chunks):
-        n_chunk = int(ids.shape[0])
-        with timer.lap(items=n_chunk):
-            if pipeline:
-                if chunk_i == 0:
-                    inflight = dispatch(ids)
-                with dev_timer.lap(items=n_chunk):
-                    preds = inflight.wait()
-                if chunk_i + 1 < len(chunks):
-                    inflight = dispatch(chunks[chunk_i + 1])
-            else:
-                with enq_timer.lap(items=n_chunk):
-                    ens = build_detector_ensemble(key, det, params,
-                                                  chip_ids=ids, cfg=mc.cfg,
-                                                  device=mc.device)
-                    out = det.apply(params, images, mode="ensemble",
-                                    ensemble=ens, cfg_ni=mc.cfg,
-                                    sa_extra=sa_extra,
-                                    use_kernel=use_kernel,
-                                    kernel_impl=kernel_impl,
-                                    device=mc.device)
-                with dev_timer.lap(items=n_chunk):
-                    preds = out.cpu().numpy()
-            with host_timer.lap(items=n_chunk):
-                vals = score(preds)
-        n_done += n_chunk
-        moments["map50"].update(vals)
-        obs.log_event("chunk", phase="mc_detector", chunk=chunk_i,
-                      chip_lo=n_done - n_chunk, chips=n_done,
-                      wall_s=timer.last_s,
-                      device_s=dev_timer.last_s, host_s=host_timer.last_s,
-                      values={"map50": np.asarray(vals, np.float32).ravel()})
-        if monitor.after_chunk(chunk_i, n_done):
-            obs.log_event("early_stop", chips=n_done, requested=mc.n_chips,
-                          stderr_target=stderr_target)
-            break
+        n_done = 0
+        for chunk_i, ids in enumerate(chunks):
+            n_chunk = int(ids.shape[0])
+            at = {"chunk": chunk_i, "chip_lo": chunk_i * mc.chunk_size}
+            with timer.lap(items=n_chunk, chips=n_chunk, **at) as lap:
+                if pipeline:
+                    if chunk_i == 0:
+                        inflight = dispatch(0)
+                    with dev_timer.lap(items=n_chunk, **at):
+                        preds = inflight.wait()
+                    device_ms = inflight.device_ms()
+                    if chunk_i + 1 < len(chunks):
+                        inflight = dispatch(chunk_i + 1)
+                else:
+                    with enq_timer.lap(items=n_chunk, **at):
+                        start = spans.device_mark(images.device)
+                        ens = build_detector_ensemble(key, det, params,
+                                                      chip_ids=ids, cfg=mc.cfg,
+                                                      device=mc.device)
+                        out = det.apply(params, images, mode="ensemble",
+                                        ensemble=ens, cfg_ni=mc.cfg,
+                                        sa_extra=sa_extra,
+                                        use_kernel=use_kernel,
+                                        kernel_impl=kernel_impl,
+                                        device=mc.device)
+                        end = spans.device_mark(images.device)
+                    with dev_timer.lap(items=n_chunk, **at):
+                        preds = out.cpu().numpy()
+                    device_ms = spans.elapsed_ms(start, end)
+                if device_ms is not None:
+                    lap.span.set(device_ms=device_ms)
+                with host_timer.lap(items=n_chunk, **at):
+                    vals = score(preds)
+            n_done += n_chunk
+            moments["map50"].update(vals)
+            obs.log_event("chunk", phase="mc_detector", chunk=chunk_i,
+                          chip_lo=n_done - n_chunk, chips=n_done,
+                          wall_s=timer.last_s,
+                          device_s=dev_timer.last_s, host_s=host_timer.last_s,
+                          values={"map50":
+                                  np.asarray(vals, np.float32).ravel()})
+            if monitor.after_chunk(chunk_i, n_done):
+                obs.log_event("early_stop", chips=n_done, requested=mc.n_chips,
+                              stderr_target=stderr_target)
+                break
 
-    res = McResult(
-        n_chips=n_done,
-        metrics={name: m.summary() for name, m in moments.items()},
-        per_chip={name: m.per_chip for name, m in moments.items()},
-        wall_s=timer.total_s, chips_per_sec=timer.rate(),
-        compile_s=timer.compile_s, enqueue_s=enq_timer.total_s,
-        device_s=dev_timer.total_s, host_s=host_timer.total_s)
-    obs.log_event("mc_result", phase="mc_detector", chips=n_done,
-                  requested=mc.n_chips, wall_s=res.wall_s,
-                  compile_s=res.compile_s, chips_per_sec=res.chips_per_sec,
-                  device_s=res.device_s, host_s=res.host_s,
-                  pipeline=pipeline, enqueue_s=res.enqueue_s,
-                  metrics=res.metrics)
-    return res
+        res = McResult(
+            n_chips=n_done,
+            metrics={name: m.summary() for name, m in moments.items()},
+            per_chip={name: m.per_chip for name, m in moments.items()},
+            wall_s=timer.total_s, chips_per_sec=timer.rate(),
+            compile_s=timer.compile_s, enqueue_s=enq_timer.total_s,
+            device_s=dev_timer.total_s, host_s=host_timer.total_s)
+        obs.log_event("mc_result", phase="mc_detector", chips=n_done,
+                      requested=mc.n_chips, wall_s=res.wall_s,
+                      compile_s=res.compile_s, chips_per_sec=res.chips_per_sec,
+                      device_s=res.device_s, host_s=res.host_s,
+                      pipeline=pipeline, enqueue_s=res.enqueue_s,
+                      metrics=res.metrics)
+        return res
 
 
 def run_ablation_detector(key: torch.Tensor, det, params, images,

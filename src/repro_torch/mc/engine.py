@@ -32,7 +32,8 @@ from repro_torch.kernels.ref import IrcEpilogueParams, irc_mvm_chips_ref
 from repro_torch.mc.ensemble import (ChipEnsemble, calibrate_ensemble_bias,
                                      sample_ensemble)
 from repro_torch.mc.stats import DEFAULT_QUANTILES, StreamingMoments
-from repro_torch.obs import ConvergenceMonitor, PhaseTimer, RunLog, as_runlog
+from repro_torch.obs import (ConvergenceMonitor, PhaseTimer, RunLog, as_runlog,
+                             spans)
 
 
 def periphery_noise(sa_keys: torch.Tensor, B: int, N: int
@@ -154,10 +155,12 @@ class McResult:
     (on the card it holds the kernel build and first-launch costs);
     `chips_per_sec` is the steady rate over the later chunks.
     `enqueue_s` is the host time spent sampling chips and enqueueing their
-    forward (on the CPU the work itself runs there), `device_s` the time the
-    host then sat blocked on device results, and `host_s` the host-side
-    scoring time.  `bias_units` holds each chip's calibrated bias rows when
-    the sweep calibrated its dies."""
+    forward (on the CPU the work itself runs there), `device_s` the host's
+    wait on the copy of the chunks' results (the reference's name: it is
+    not the device's time, which a chunk span's `device_ms` gives while a
+    profiler trace runs, `repro_torch.obs.spans`), and `host_s` the
+    host-side scoring time.  `bias_units` holds each chip's calibrated bias
+    rows when the sweep calibrated its dies."""
     n_chips: int
     metrics: Dict[str, Dict[str, float]]
     per_chip: Dict[str, np.ndarray]
@@ -218,7 +221,12 @@ def run_mc(key: torch.Tensor, mapped: MappedLayer, x_bits: torch.Tensor, *,
     `obs` (a `repro_torch.obs.RunLog`) receives the reference's event
     stream: `mc_start`, a `chunk` per chunk with its raw per-chip values
     (replayable to the reported moments bit for bit), a `convergence`
-    after it, and `mc_result`.  `stderr_target` stops the sweep at the
+    after it, and `mc_result`.  While a profiler trace runs the sweep is
+    an `mc_call` span (`chips`, `chunk_size`) holding per chunk an
+    `mc_chunks` span (`chunk`, `chip_lo`, `chips`, and on the card
+    `device_ms`: timing events from before the chunk's first launch to
+    after its last, read once the host's copy returned) and its
+    `mc_enqueue`, `mc_copy_wait` and `mc_host` spans.  `stderr_target` stops the sweep at the
     first chunk boundary where the standard error of the mean of every
     metric (or of `stderr_metric` alone) is at or under the target; chip c
     is keyed fold_in(key, c) whatever the chunking, so the stopped sweep's
@@ -229,84 +237,92 @@ def run_mc(key: torch.Tensor, mapped: MappedLayer, x_bits: torch.Tensor, *,
                          f"{mc.backend!r}")
     if mc.backend == "kernel" and mc.accumulation != "single_shot":
         raise ValueError("kernel backend fuses the single-shot path only")
-    fns: Dict[str, MetricFn] = {}
-    if ref_bits is not None:
-        fns["bit_agreement"] = bit_agreement_metric(ref_bits)
-    fns["ones_fraction"] = ones_fraction_metric()
-    fns.update(metric_fns or {})
-    host_fns: Dict[str, HostMetricFn] = dict(host_metric_fns or {})
-    moments = {name: StreamingMoments(mc.quantiles)
-               for name in (*fns, *host_fns)}
-    monitor = ConvergenceMonitor(moments, stderr_target=stderr_target,
-                                 stderr_metric=stderr_metric, runlog=obs)
-    timer = PhaseTimer("mc_chunks", unit="chips")
-    enq_timer = PhaseTimer("mc_enqueue", unit="chips")
-    dev_timer = PhaseTimer("mc_device", unit="chips")
-    host_timer = PhaseTimer("mc_host", unit="chips")
-    # the reference's fields; "fused" names its cached one-program chunk,
-    # which the port has no counterpart of
-    obs.log_event("mc_start", n_chips=mc.n_chips, chunk_size=mc.chunk_size,
-                  backend=mc.backend, calibrate=mc.calibrate, fused=False,
-                  stderr_target=stderr_target,
-                  device_model=(mc.device.name if mc.device is not None
-                                else "analytic"))
-    bias_chunks: List[np.ndarray] = []
-    n_done = 0
-    for chunk_i, lo in enumerate(range(0, mc.n_chips, mc.chunk_size)):
-        ids = torch.arange(lo, min(lo + mc.chunk_size, mc.n_chips),
-                           dtype=torch.int64, device=key.device)
-        n_chunk = int(ids.shape[0])
-        with timer.lap(items=n_chunk):
-            with enq_timer.lap(items=n_chunk):
-                ens = sample_ensemble(key, mapped, chip_ids=ids, cfg=mc.cfg,
-                                      spec=spec, device=mc.device)
-                if mc.calibrate:
-                    ens = calibrate_ensemble_bias(ens, x_bits, spec,
-                                                  device=mc.device)
-                    bias_chunks.append(ens.bias_units.cpu().numpy())
-                if mc.backend == "kernel":
-                    out = ensemble_apply_kernel(
-                        ens, x_bits, cfg=mc.cfg, spec=spec,
-                        sa_extra_units=mc.sa_extra_units, device=mc.device)
-                else:
-                    out = ensemble_apply(
-                        ens, x_bits, cfg=mc.cfg, spec=spec,
-                        accumulation=mc.accumulation,
-                        partial_rows=mc.partial_rows,
-                        sa_extra_units=mc.sa_extra_units, device=mc.device)
-                del ens
-                on_device = {name: fn(out) for name, fn in fns.items()}
-            with dev_timer.lap(items=n_chunk):
-                vals = {name: v.cpu().numpy() for name, v in on_device.items()}
-                out_np = out.cpu().numpy() if host_fns else None
-            del out, on_device
-            with host_timer.lap(items=n_chunk):
-                for name, fn in host_fns.items():
-                    vals[name] = np.asarray(fn(out_np))
-                for name, v in vals.items():
-                    moments[name].update(v)
-        n_done += n_chunk
-        obs.log_event("chunk", phase="mc", chunk=chunk_i, chip_lo=lo,
-                      chips=n_done, wall_s=timer.last_s,
-                      values={name: np.asarray(v, np.float32).ravel()
-                              for name, v in vals.items()})
-        if monitor.after_chunk(chunk_i, n_done):
-            obs.log_event("early_stop", chips=n_done, requested=mc.n_chips,
-                          stderr_target=stderr_target)
-            break
-    res = McResult(
-        n_chips=n_done,
-        metrics={name: m.summary() for name, m in moments.items()},
-        per_chip={name: m.per_chip for name, m in moments.items()},
-        wall_s=timer.total_s, chips_per_sec=timer.rate(),
-        compile_s=timer.compile_s, enqueue_s=enq_timer.total_s,
-        device_s=dev_timer.total_s, host_s=host_timer.total_s,
-        bias_units=np.concatenate(bias_chunks) if bias_chunks else None)
-    obs.log_event("mc_result", chips=n_done, requested=mc.n_chips,
-                  wall_s=res.wall_s, compile_s=res.compile_s,
-                  chips_per_sec=res.chips_per_sec, enqueue_s=res.enqueue_s,
-                  metrics=res.metrics)
-    return res
+    with spans.span("mc_call", chips=mc.n_chips, chunk_size=mc.chunk_size):
+        fns: Dict[str, MetricFn] = {}
+        if ref_bits is not None:
+            fns["bit_agreement"] = bit_agreement_metric(ref_bits)
+        fns["ones_fraction"] = ones_fraction_metric()
+        fns.update(metric_fns or {})
+        host_fns: Dict[str, HostMetricFn] = dict(host_metric_fns or {})
+        moments = {name: StreamingMoments(mc.quantiles)
+                   for name in (*fns, *host_fns)}
+        monitor = ConvergenceMonitor(moments, stderr_target=stderr_target,
+                                     stderr_metric=stderr_metric, runlog=obs)
+        timer = PhaseTimer("mc_chunks", unit="chips")
+        enq_timer = PhaseTimer("mc_enqueue", unit="chips")
+        dev_timer = PhaseTimer("mc_copy_wait", unit="chips")
+        host_timer = PhaseTimer("mc_host", unit="chips")
+        # the reference's fields; "fused" names its cached one-program chunk,
+        # which the port has no counterpart of
+        obs.log_event("mc_start", n_chips=mc.n_chips, chunk_size=mc.chunk_size,
+                      backend=mc.backend, calibrate=mc.calibrate, fused=False,
+                      stderr_target=stderr_target,
+                      device_model=(mc.device.name if mc.device is not None
+                                    else "analytic"))
+        bias_chunks: List[np.ndarray] = []
+        n_done = 0
+        for chunk_i, lo in enumerate(range(0, mc.n_chips, mc.chunk_size)):
+            ids = torch.arange(lo, min(lo + mc.chunk_size, mc.n_chips),
+                               dtype=torch.int64, device=key.device)
+            n_chunk = int(ids.shape[0])
+            at = {"chunk": chunk_i, "chip_lo": lo}
+            with timer.lap(items=n_chunk, chips=n_chunk, **at) as lap:
+                with enq_timer.lap(items=n_chunk, **at):
+                    start = spans.device_mark(key.device)
+                    ens = sample_ensemble(key, mapped, chip_ids=ids,
+                                          cfg=mc.cfg, spec=spec,
+                                          device=mc.device)
+                    if mc.calibrate:
+                        ens = calibrate_ensemble_bias(ens, x_bits, spec,
+                                                      device=mc.device)
+                        bias_chunks.append(ens.bias_units.cpu().numpy())
+                    if mc.backend == "kernel":
+                        out = ensemble_apply_kernel(
+                            ens, x_bits, cfg=mc.cfg, spec=spec,
+                            sa_extra_units=mc.sa_extra_units, device=mc.device)
+                    else:
+                        out = ensemble_apply(
+                            ens, x_bits, cfg=mc.cfg, spec=spec,
+                            accumulation=mc.accumulation,
+                            partial_rows=mc.partial_rows,
+                            sa_extra_units=mc.sa_extra_units, device=mc.device)
+                    del ens
+                    on_device = {name: fn(out) for name, fn in fns.items()}
+                    end = spans.device_mark(key.device)
+                with dev_timer.lap(items=n_chunk, **at):
+                    vals = {name: v.cpu().numpy()
+                            for name, v in on_device.items()}
+                    out_np = out.cpu().numpy() if host_fns else None
+                del out, on_device
+                if start is not None:
+                    lap.span.set(device_ms=spans.elapsed_ms(start, end))
+                with host_timer.lap(items=n_chunk, **at):
+                    for name, fn in host_fns.items():
+                        vals[name] = np.asarray(fn(out_np))
+                    for name, v in vals.items():
+                        moments[name].update(v)
+            n_done += n_chunk
+            obs.log_event("chunk", phase="mc", chunk=chunk_i, chip_lo=lo,
+                          chips=n_done, wall_s=timer.last_s,
+                          values={name: np.asarray(v, np.float32).ravel()
+                                  for name, v in vals.items()})
+            if monitor.after_chunk(chunk_i, n_done):
+                obs.log_event("early_stop", chips=n_done, requested=mc.n_chips,
+                              stderr_target=stderr_target)
+                break
+        res = McResult(
+            n_chips=n_done,
+            metrics={name: m.summary() for name, m in moments.items()},
+            per_chip={name: m.per_chip for name, m in moments.items()},
+            wall_s=timer.total_s, chips_per_sec=timer.rate(),
+            compile_s=timer.compile_s, enqueue_s=enq_timer.total_s,
+            device_s=dev_timer.total_s, host_s=host_timer.total_s,
+            bias_units=np.concatenate(bias_chunks) if bias_chunks else None)
+        obs.log_event("mc_result", chips=n_done, requested=mc.n_chips,
+                      wall_s=res.wall_s, compile_s=res.compile_s,
+                      chips_per_sec=res.chips_per_sec, enqueue_s=res.enqueue_s,
+                      metrics=res.metrics)
+        return res
 
 
 # Table II columns: effects switch on cumulatively, plus the all-on row.

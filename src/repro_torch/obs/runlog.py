@@ -12,7 +12,9 @@ CLI, the serving engine).  A run is a directory:
     *.npy             arrays persisted via `save_array` (per-chip metric
                       vectors from `McResult.per_chip`)
     trace/            optional `torch.profiler` trace (`--trace`), Chrome
-                      trace JSON
+                      trace JSON, with the spans of threads the profiler
+                      does not record (the service's scheduler) placed on
+                      its clock (`repro_torch.obs.spans.trace_events`)
 
 `metrics.jsonl` is the run's evidence, not only its log: chunk events carry
 the raw float32 per-chip metric values, so replaying the stream through
@@ -35,6 +37,8 @@ from pathlib import Path
 from typing import Any, Dict, Optional
 
 import torch
+
+from repro_torch.obs import spans
 
 
 def git_sha() -> Optional[str]:
@@ -183,6 +187,7 @@ class RunLog:
         logs a `trace_error` event, when the profiler cannot start."""
         try:
             from torch.profiler import ProfilerActivity, profile
+            spans.drain_spans()             # left by an earlier trace
             acts = [ProfilerActivity.CPU]
             if torch.cuda.is_available():
                 acts.append(ProfilerActivity.CUDA)
@@ -195,8 +200,10 @@ class RunLog:
         return self._tracing
 
     def stop_trace(self) -> None:
-        """Stop the trace and export it as `trace/trace.json`; a failed
-        export logs a `trace_error` event."""
+        """Stop the trace and export it as `trace/trace.json`, with the
+        program's spans that the profiler did not record added on the
+        trace's clock; a failed export, or such spans with no span to
+        place them by, logs a `trace_error` event."""
         if not self._tracing:
             return
         try:
@@ -204,11 +211,30 @@ class RunLog:
                 torch.cuda.synchronize()
             self._prof.stop()
             (self.path / "trace").mkdir(exist_ok=True)
-            self._prof.export_chrome_trace(
-                str(self.path / "trace" / "trace.json"))
+            out = self.path / "trace" / "trace.json"
+            self._prof.export_chrome_trace(str(out))
+            self._add_spans(out)
         except Exception as e:
             self.log_event("trace_error", error=f"{type(e).__name__}: {e}")
         self._prof, self._tracing = None, False
+
+    def _add_spans(self, path: Path) -> None:
+        """Drain the span buffer into the exported trace at `path`."""
+        found, dropped = spans.drain_spans()
+        if dropped:
+            self.log_event("trace_error", error=f"{dropped} spans dropped "
+                           f"past the buffer's {spans.MAX_SPANS}")
+        if all(s["recorded"] for s in found):
+            return
+        trace = json.loads(path.read_text())
+        extra, offset = spans.trace_events(trace["traceEvents"], found)
+        if offset is None:
+            self.log_event("trace_error", error="no span recorded both by "
+                           "the profiler and the program: the unrecorded "
+                           "spans are left out of the trace")
+            return
+        trace["traceEvents"].extend(extra)
+        path.write_text(json.dumps(trace))
 
     def finalize(self, status: str = "ok", **summary) -> None:
         """Stop any trace; record the status, the wall time and a summary

@@ -1,6 +1,7 @@
 """Phase timers that split the first lap (kernel build, first launches,
 caches warming) from steady-state throughput, and the serving engine's
-per-request latency percentiles."""
+per-request latency percentiles.  While a profiler trace runs, each lap is
+also a span named by its phase (`repro_torch.obs.spans`)."""
 from __future__ import annotations
 
 import contextlib
@@ -9,13 +10,17 @@ from typing import Dict, Optional
 
 import torch
 
+from repro_torch.obs import spans
+
 
 class _Lap:
     """Handle yielded by `PhaseTimer.lap()`: set `.items` inside the block
-    when the work amount is only known after it ran."""
+    when the work amount is only known after it ran; `.span` is the lap's
+    span (`spans.OFF` while no trace runs)."""
 
-    def __init__(self, items: float):
+    def __init__(self, items: float, span):
         self.items = items
+        self.span = span
 
 
 class PhaseTimer:
@@ -32,13 +37,19 @@ class PhaseTimer:
         self.last_s = 0.0
 
     @contextlib.contextmanager
-    def lap(self, items: float = 0.0):
-        """Time one lap of the phase."""
+    def lap(self, items: float = 0.0, **ids):
+        """Time one lap of the phase; while a profiler trace runs the lap is
+        also a span named by the phase, with `ids`."""
         t0 = time.perf_counter()
-        handle = _Lap(items)
+        sp = spans.span(self.phase, **ids)
+        handle = _Lap(items, sp)
+        if sp is not spans.OFF:
+            sp.__enter__()
         try:
             yield handle
         finally:
+            if sp is not spans.OFF:
+                sp.__exit__(None, None, None)
             dt = time.perf_counter() - t0
             self.last_s = dt
             if self.laps == 0:
@@ -87,18 +98,12 @@ class LatencyTracker:
     """Per-item latency accumulator with exact percentile summaries: the
     serving engine records one submit-to-response latency per request."""
 
-    def __init__(self, unit: str = "s"):
-        self.unit = unit
+    def __init__(self):
         self._values: list = []
 
     def add(self, seconds: float) -> None:
         """Record one item's latency."""
         self._values.append(float(seconds))
-
-    @property
-    def count(self) -> int:
-        """Number of recorded latencies."""
-        return len(self._values)
 
     def summary(self) -> Dict[str, float]:
         """count/mean/p50/p95/p99 over everything recorded so far."""

@@ -38,7 +38,8 @@ from repro_torch.core import nonideal as ni
 from repro_torch.mc.detector_mc import (_ToHost, committee_wave_forward,
                                         detector_planes)
 from repro_torch.mc.stats import DEFAULT_QUANTILES, StreamingMoments
-from repro_torch.obs import LatencyTracker, PhaseTimer, RunLog, as_runlog
+from repro_torch.obs import (LatencyTracker, PhaseTimer, RunLog, as_runlog,
+                             spans)
 from repro_torch.train.det_loss import decode_detections
 
 # The reference pads short waves with lanes of this reserved request id;
@@ -91,6 +92,16 @@ class _Pending:
     response: Optional[DetectionResponse] = None
 
 
+@dataclasses.dataclass
+class _Wave:
+    """A wave as it formed: its requests, its number (1, 2, ... in the
+    order waves form, which is the order they are answered) and the
+    queue's depth then, its own requests included."""
+    lanes: List[_Pending]
+    number: int
+    depth: int
+
+
 class DetectorServeEngine:
     """Continuously batched committee inference over a fixed serving fleet.
 
@@ -109,6 +120,20 @@ class DetectorServeEngine:
     version on the CPU), "ref" its plain version.  `device` is the device model (None: analytic).
     `params` should carry calibrated stem-BN running stats
     (`det.calibrate_bn`).
+
+    While a profiler trace runs (`repro_torch.obs.spans`), the engine
+    records per request a `submit` span on the caller's thread, a
+    `serve_queue` span from submit until its wave is dispatched and a
+    `serve_respond` span inside its wave's decode (each with `request`);
+    per wave a `serve_wave` span (`wave`, `lanes`, `depth`: the queue
+    when the wave formed; on the card `device_ms`, timing events from
+    just before the wave's first launch to its copy's landing) and its
+    `serve_enqueue`, `serve_copy_wait` and `serve_host` (the decode;
+    `next_in_flight`: whether the next wave ran on the card meanwhile)
+    spans; and a `serve_idle` span while the scheduler waits on an empty
+    queue with nothing in flight.  The scheduler thread, started before
+    the profiler, is not recorded by it: `spans.trace_events` places its
+    spans on the trace's clock by the `submit` spans.
     """
 
     def __init__(self, det, params, *, committee: int = 4,
@@ -154,7 +179,7 @@ class DetectorServeEngine:
         self.obs = as_runlog(obs)
         self.wave_timer = PhaseTimer("serve_wave", unit="requests")
         self.enq_timer = PhaseTimer("serve_enqueue", unit="requests")
-        self.dev_timer = PhaseTimer("serve_device", unit="requests")
+        self.dev_timer = PhaseTimer("serve_copy_wait", unit="requests")
         self.host_timer = PhaseTimer("serve_host", unit="requests")
         self.queue_latency = LatencyTracker()
 
@@ -167,7 +192,7 @@ class DetectorServeEngine:
         waiting (the caller sheds load or retries), and `ValueError` on ids
         outside [0, PAD_REQUEST_ID) or already in flight.  Thread-safe."""
         img = np.asarray(image, np.float32)
-        with self._work:
+        with spans.span("submit") as sp, self._work:
             if len(self._queue) >= self.max_queue:
                 raise ServeQueueFull(
                     f"queue at capacity ({self.max_queue} pending)")
@@ -184,6 +209,7 @@ class DetectorServeEngine:
             self._queue.append(p)
             self._pending[rid] = p
             self._work.notify()
+            sp.set(request=rid)
         return rid
 
     def result(self, request_id: int,
@@ -234,81 +260,105 @@ class DetectorServeEngine:
         while not self._stop_flag:
             self._drain(block=True)
 
-    def _collect_wave(self, block: bool) -> List[_Pending]:
+    def _collect_wave(self, block: bool) -> Optional[_Wave]:
+        """The next wave, None where the queue is empty; with `block`,
+        waits for a request first (a `serve_idle` span)."""
         with self._work:
-            while block and not self._queue and not self._stop_flag:
-                self._work.wait()
-            n = min(self.slots, len(self._queue))
-            return [self._queue.popleft() for _ in range(n)]
+            if block and not self._queue and not self._stop_flag:
+                with spans.span("serve_idle"):
+                    while not self._queue and not self._stop_flag:
+                        self._work.wait()
+            if not self._queue:
+                return None
+            depth = len(self._queue)
+            self._waves += 1
+            return _Wave([self._queue.popleft()
+                          for _ in range(min(self.slots, depth))],
+                         self._waves, depth)
 
     def _drain(self, *, block: bool) -> int:
         """Serve waves until the queue is empty, double-buffered as the MC
         sweep is: wave k+1 is enqueued before wave k's host decode, so the
         device computes the next committee while the host builds
-        responses.  The device lap is the wait on wave k's copy to the
-        host."""
+        responses.  The copy-wait lap is the host's wait on wave k's copy
+        to the host."""
         wave = self._collect_wave(block)
         inflight = None
         served = 0
-        while wave:
+        while wave is not None:
+            n = len(wave.lanes)
             enq_before = self.enq_timer.total_s
-            with self.wave_timer.lap(items=len(wave)):
+            with self.wave_timer.lap(items=n, wave=wave.number, lanes=n,
+                                     depth=wave.depth) as lap:
                 if inflight is None:
                     inflight = self._dispatch(wave)
-                with self.dev_timer.lap(items=len(wave)):
+                with self.dev_timer.lap(items=n, wave=wave.number):
                     preds = inflight.wait()
+                device_ms = inflight.device_ms()
+                if device_ms is not None:
+                    lap.span.set(device_ms=device_ms)
                 nxt = self._collect_wave(block=False)
-                inflight = self._dispatch(nxt) if nxt else None
-                with self.host_timer.lap(items=len(wave)):
+                inflight = self._dispatch(nxt) if nxt is not None else None
+                with self.host_timer.lap(items=n, wave=wave.number,
+                                         next_in_flight=inflight is not None):
                     responses = self._complete(wave, preds)
-            self._log_wave(responses, self.enq_timer.total_s - enq_before)
-            served += len(wave)
+            self._log_wave(wave.number, responses,
+                           self.enq_timer.total_s - enq_before)
+            served += n
             wave = nxt
         return served
 
     # ------------------------------------------------------------ wave body
 
-    def _dispatch(self, wave: List[_Pending]) -> _ToHost:
+    def _dispatch(self, wave: _Wave) -> _ToHost:
         """Enqueue one wave's committees and their copy to the host."""
-        with self.enq_timer.lap(items=len(wave)):
+        if spans.spans_on():
+            for p in wave.lanes:
+                spans.close_span("serve_queue", round(p.t_submit * 1e9),
+                                 request=p.request_id, wave=wave.number)
+        with self.enq_timer.lap(items=len(wave.lanes), wave=wave.number,
+                                lanes=len(wave.lanes)):
+            start = spans.device_mark(self._dev)
             images = torch.from_numpy(
-                np.stack([p.image for p in wave])).to(self._dev)
+                np.stack([p.image for p in wave.lanes])).to(self._dev)
             keys = torch.stack([prng.fold_in(self._root_key, p.request_id)
-                                for p in wave])
+                                for p in wave.lanes])
             return _ToHost(committee_wave_forward(
                 self.params, images, keys, self._chip_ids, self._planes,
                 det_cfg=self.det.cfg, spec=self.det.spec, cfg_ni=self.cfg_ni,
                 sa_extra=self.sa_extra, meta=self._meta,
                 use_kernel=self.use_kernel, kernel_impl=self.kernel_impl,
-                device=self.device))
+                device=self.device), start)
 
-    def _complete(self, wave: List[_Pending],
+    def _complete(self, wave: _Wave,
                   preds: np.ndarray) -> List[DetectionResponse]:
         """Decode each lane's committee into its response."""
         cfg = self.det.cfg
-        self._waves += 1
         responses = []
-        for i, p in enumerate(wave):
-            committee = preds[i]                      # [chips, gh, gw, ho]
-            boxes, scores, classes = decode_detections(
-                committee.mean(axis=0), cfg.n_anchors, cfg.n_classes,
-                self.conf_thresh, self.nms_thresh)
-            per_chip = np.array([self._top_score(chip) for chip in committee],
-                                np.float32)
-            moments = StreamingMoments(self.quantiles)
-            moments.update(per_chip)
-            queue_s = time.perf_counter() - p.t_submit
-            p.response = DetectionResponse(
-                request_id=p.request_id,
-                detections=[Detection(box=tuple(float(v) for v in b),
-                                      score=float(s), cls=int(c))
-                            for b, s, c in zip(boxes, scores, classes)],
-                confidence=moments.summary(), wave=self._waves,
-                queue_s=queue_s,
-                committee=committee.copy() if self.keep_committee else None)
-            self.queue_latency.add(queue_s)
-            responses.append(p.response)
-            p.done.set()
+        for i, p in enumerate(wave.lanes):
+            with spans.span("serve_respond", request=p.request_id,
+                            wave=wave.number):
+                committee = preds[i]                  # [chips, gh, gw, ho]
+                boxes, scores, classes = decode_detections(
+                    committee.mean(axis=0), cfg.n_anchors, cfg.n_classes,
+                    self.conf_thresh, self.nms_thresh)
+                per_chip = np.array([self._top_score(chip)
+                                     for chip in committee], np.float32)
+                moments = StreamingMoments(self.quantiles)
+                moments.update(per_chip)
+                queue_s = time.perf_counter() - p.t_submit
+                p.response = DetectionResponse(
+                    request_id=p.request_id,
+                    detections=[Detection(box=tuple(float(v) for v in b),
+                                          score=float(s), cls=int(c))
+                                for b, s, c in zip(boxes, scores, classes)],
+                    confidence=moments.summary(), wave=wave.number,
+                    queue_s=queue_s,
+                    committee=(committee.copy() if self.keep_committee
+                               else None))
+                self.queue_latency.add(queue_s)
+                responses.append(p.response)
+                p.done.set()
         return responses
 
     def _top_score(self, chip_pred: np.ndarray) -> float:
@@ -320,10 +370,16 @@ class DetectorServeEngine:
                                          self.nms_thresh)
         return float(scores[0]) if scores.size else 0.0
 
-    def _log_wave(self, responses: List[DetectionResponse],
+    def _log_wave(self, number: int, responses: List[DetectionResponse],
                   enqueue_s: float) -> None:
+        """One `serve_wave` event: the wave's wall lap (`wall_s`); the
+        host's wait on its copy (`device_s`, the reference's name: not the
+        device's time, which the wave's span gives as `device_ms` while a
+        profiler trace runs); its decode (`host_s`); the enqueue laps in
+        it (`enqueue_s`, the next wave's included); each request's
+        submit-to-response time (`queue_s`)."""
         self.obs.log_event(
-            "serve_wave", wave=self._waves, requests=len(responses),
+            "serve_wave", wave=number, requests=len(responses),
             committee=self.committee, wall_s=self.wave_timer.last_s,
             device_s=self.dev_timer.last_s, host_s=self.host_timer.last_s,
             enqueue_s=enqueue_s, queue_s=[r.queue_s for r in responses],

@@ -9,6 +9,7 @@ import numpy as np
 import torch
 
 from repro_torch.data.detection import ANCHORS
+from repro_torch.obs import spans
 
 
 def decode_head(pred: torch.Tensor, n_anchors: int, n_classes: int
@@ -124,6 +125,15 @@ def _nms(boxes, scores, thresh=0.45):
     return np.asarray(keep, np.int64)
 
 
+def _count_boxes(passed: int, kept: int) -> None:
+    """One decoded image's boxes above the confidence threshold and after
+    NMS, counted on the enclosing span while a profiler trace runs."""
+    if spans.spans_on():
+        spans.count("images")
+        spans.count("boxes_passed", passed)
+        spans.count("boxes_kept", kept)
+
+
 def decode_detections(pred: np.ndarray, n_anchors: int, n_classes: int,
                       conf_thresh: float = 0.1, nms_thresh: float = 0.45):
     """One image's head output -> per-class-NMS'd detections.
@@ -139,8 +149,10 @@ def decode_detections(pred: np.ndarray, n_anchors: int, n_classes: int,
         idx = np.nonzero(classes == c)[0]
         keep_parts.append(idx[_nms(boxes[idx], scores[idx], nms_thresh)])
     if not keep_parts:
+        _count_boxes(0, 0)
         return boxes, scores, classes                 # already empty
     keep = np.concatenate(keep_parts)
+    _count_boxes(scores.size, keep.size)
     keep = keep[np.argsort(-scores[keep])]
     return boxes[keep], scores[keep], classes[keep]
 
@@ -156,14 +168,17 @@ def evaluate_map(preds: np.ndarray, gt_boxes: List[np.ndarray],
             n_gt[int(c)] += 1
     for i, pred in enumerate(preds):
         boxes, scores, classes = _decode_boxes(pred, n_anchors, n_classes)
+        kept = 0
         for c in range(n_classes):
             m = classes == c
             if not m.any():
                 continue
             b, s = boxes[m], scores[m]
             keep = _nms(b, s)
+            kept += keep.size
             for k in keep:
                 det[c].append((float(s[k]), i, b[k]))
+        _count_boxes(scores.size, kept)
     aps = []
     for c in range(n_classes):
         if n_gt[c] == 0:
@@ -206,9 +221,13 @@ def evaluate_map_per_chip(preds, gt_boxes: List[np.ndarray],
     The host-side metric callback of the chip-ensemble MC engine: NMS and AP
     are not array programs, so each chunk's predictions come back to the host
     and every chip's mAP folds into the streaming Welford/quantile
-    accumulators (Table II's actual metric over a chip population).
+    accumulators (Table II's actual metric over a chip population).  While
+    a profiler trace runs it is a `score_map` span (`chips`) that counts
+    the `images` decoded, their `boxes_passed` (above the confidence
+    threshold) and `boxes_kept` (after NMS).
     """
     preds = np.asarray(preds)
-    return np.array([evaluate_map(p, gt_boxes, gt_classes, n_anchors,
-                                  n_classes, iou_thresh) for p in preds],
-                    np.float32)
+    with spans.span("score_map", chips=len(preds)):
+        return np.array([evaluate_map(p, gt_boxes, gt_classes, n_anchors,
+                                      n_classes, iou_thresh) for p in preds],
+                        np.float32)
