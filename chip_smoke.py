@@ -1845,9 +1845,14 @@ def bmm_yardstick(x, ep, en, gp):
     return run
 
 
+# K1 at the macro layer's chunk: 4,096 dies, 256 shared word lines
+K1_LAYER_CHUNK = (4096, 256)
+
+
 def phase_times(ops_):
     """Phase 4: kernel, plain and yardstick times at the main path's
-    largest shape (s0b1) and, for K2, one chip at the s0 shape."""
+    largest shape (s0b1), at the macro layer's chunk (`K1_LAYER_CHUNK`) and,
+    for K2, one chip at the s0 shape."""
     import torch
     from repro_torch.core.macro import DEFAULT_MACRO
     from repro_torch.kernels.ref import IrcEpilogueParams, irc_mvm_chips_ref
@@ -1855,8 +1860,10 @@ def phase_times(ops_):
     params = IrcEpilogueParams.from_macro(DEFAULT_MACRO)
     params_diff = IrcEpilogueParams.from_macro(DEFAULT_MACRO, output="diff")
     out = {}
-    for name, C, pcx in (("irc_mvm_chips", 4, True), ("irc_mvm", 1, False)):
-        B = 2 * S0_ROWS_PER_IMAGE
+    for name, C, pcx in (("irc_mvm_chips", 4, True), ("irc_mvm", 1, False),
+                         ("irc_mvm_chips layer", K1_LAYER_CHUNK[0], False)):
+        B = (K1_LAYER_CHUNK[1] if C == K1_LAYER_CHUNK[0]
+             else 2 * S0_ROWS_PER_IMAGE)
         x, ep, en, gp, gn, eps, rnd = make_case(C, B, pcx, False, gen)
         if name == "irc_mvm":
             kern = lambda: ops_.irc_mvm(x, ep[0], en[0], gp, gn, eps[0],
@@ -1939,6 +1946,7 @@ def phase_main_path(ops_):
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     launches = dict(ops_.LAUNCHES)
+    by_tile = dict(ops_.K1_LAUNCHES)
     peak = torch.cuda.max_memory_allocated() / 2**30
     for name, res in results.items():
         m = res.metrics["map50"]
@@ -1960,6 +1968,8 @@ def phase_main_path(ops_):
         f"0)")
     check(launches["irc_mvm_chips"] == want
           and launches["flash_attention"] == 0, f"launches {launches}")
+    log("5 main path", f"K1 launches by design and tile {by_tile}")
+    check(sum(by_tile.values()) == want, f"K1 by tile {by_tile}")
     check_xla_launched("detector", launches)
     early_stop_check(det, params, images, ev, key, mc,
                      results["all"].per_chip["map50"])
@@ -2098,6 +2108,7 @@ def phase_baseline_detector(ops_):
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     launches = dict(ops_.LAUNCHES)
+    by_tile = dict(ops_.K1_LAUNCHES)
     peak = torch.cuda.max_memory_allocated() / 2**30
     for name, res in results.items():
         m = res.metrics["map50"]
@@ -2854,7 +2865,11 @@ def autotune_sweep(ops_):
     committed_bytes = autotune.TUNING_JSON.read_bytes()
     tmp = Path(tempfile.mkdtemp(prefix="chip_smoke_tuning_")) / "tuning.json"
     t0 = time.perf_counter()
+    layer = autotune.layer_problems(N_COLS, R_ROWS, K1_LAYER_CHUNK[1],
+                                    K1_LAYER_CHUNK[0])
     measured = autotune.sweep(chunk + wave, write=True, path=tmp)
+    measured.update(autotune.sweep(layer, write=True, path=tmp,
+                                   per_chip_x=False))
     check(set(json.loads(tmp.read_text())) == set(measured)
           and autotune.TUNING_JSON.read_bytes() == committed_bytes,
           "the sweep must write its temporary table only")
@@ -2875,8 +2890,9 @@ def autotune_sweep(ops_):
             f"{verdict}")
     params = IrcEpilogueParams.from_macro(DEFAULT_MACRO)
     bare = {}
-    for C, M, N, K in chunk:
-        ens, x, _ = autotune._problem(C, M, N, K)
+    for C, M, N, K in chunk + layer:
+        pcx = (C, M, N, K) not in layer
+        ens, x, _ = autotune._problem(C, M, N, K, per_chip_x=pcx)
         gen = torch.Generator(device="cuda").manual_seed(M)
         eps = torch.randn((C, M, N), generator=gen, device="cuda")
         rnd = (torch.rand((C, M, N), generator=gen, device="cuda")
@@ -2887,12 +2903,13 @@ def autotune_sweep(ops_):
                 lambda: ops_.irc_mvm_chips(x, ens.ep, ens.en, ens.gp, ens.gn,
                                            eps, rnd, params, tile=tile))
         lib_ms = cuda_ms(bmm_yardstick(x, ens.ep, ens.en, ens.gp))
-        b_ms, b_by = bound_ms(C, M, K, N, True, False)
+        b_ms, b_by = bound_ms(C, M, K, N, pcx, False)
         key = autotune.problem_key(C, M, N, K)
         bare[key] = dict(ms=ms, bound_ms=b_ms, bound_by=b_by,
                          library_ms=lib_ms,
                          plain_route_ms=measured[key]["plain_us"] / 1e3)
-        log("autotune", f"{key}, per-chip x: K1 alone ms by tile "
+        log("autotune", f"{key}, {'per-chip' if pcx else 'shared'} x: K1 "
+            f"alone ms by tile "
             + ", ".join(f"{t} {v:.3f}" for t, v in ms.items())
             + f"; bound {b_ms:.3f} ({b_by}); bmm yardstick {lib_ms:.3f}; "
             f"plain route {bare[key]['plain_route_ms']:.3f}")
@@ -5342,6 +5359,7 @@ def main(argv=None) -> int:
     # K1's row tiles (phase `autotune`): each alone at the chunk problems,
     # the plain route there, and the tile the sweep chose per problem
     kernels[0]["tiles"] = [list(t) for t in irc_mvm.TILES]
+    kernels[0]["layer_chunk"] = times["irc_mvm_chips layer"]
     kernels[0]["tile_ms"] = {k: v["ms"] for k, v in tuned["bare"].items()}
     kernels[0]["plain_route_ms"] = {k: v["plain_route_ms"]
                                     for k, v in tuned["bare"].items()}

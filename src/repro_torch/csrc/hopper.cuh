@@ -4,7 +4,7 @@
 // warpgroup matrix products (wgmma) on bf16 operands with f32
 // accumulators, and the exact split of f32 values into bf16 parts that
 // runs f32 products on them.  Header only; shared by the port's kernels
-// that run on the tensor cores.
+// that run on the tensor cores, and by K1 (irc_mvm.cu: TMA and mbarriers).
 //
 // Tensor maps are encoded on the host by `cuTensorMapEncodeTiled`, which
 // `encode_tiled_3d` looks up through the CUDA runtime, so a library that
@@ -98,13 +98,14 @@ inline CUtensorMapSwizzle swizzle_for(int row_bytes) {
 
 // Encodes a tensor map over a contiguous array [d2][d1][d0] (d0
 // innermost) of `type` (bf16 unless given; `elem_bytes` its size) whose
-// boxes are [1][box1][box0], swizzled to match box0's bytes; elements
-// outside the array read as zero.  Returns a CUDA error.
+// boxes are [1][box1][box0], swizzled to match box0's bytes (or, with
+// `swizzle` false, row-major as in the array); elements outside the array
+// read as zero.  Returns a CUDA error.
 inline cudaError_t encode_tiled_3d(
     CUtensorMap* map, const void* base, uint64_t d0, uint64_t d1, uint64_t d2,
     uint32_t box0, uint32_t box1,
     CUtensorMapDataType type = CU_TENSOR_MAP_DATA_TYPE_BFLOAT16,
-    uint32_t elem_bytes = 2) {
+    uint32_t elem_bytes = 2, bool swizzle = true) {
   using Encode = CUresult (*)(CUtensorMap*, CUtensorMapDataType, cuuint32_t,
                               void*, const cuuint64_t*, const cuuint64_t*,
                               const cuuint32_t*, const cuuint32_t*,
@@ -135,7 +136,8 @@ inline cudaError_t encode_tiled_3d(
   const CUresult res = encode(
       map, type, 3, const_cast<void*>(base), dims, strides, box,
       elem_strides, CU_TENSOR_MAP_INTERLEAVE_NONE,
-      swizzle_for(box0 * elem_bytes), CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
+      swizzle ? swizzle_for(box0 * elem_bytes) : CU_TENSOR_MAP_SWIZZLE_NONE,
+      CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
       CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
   return res == CUDA_SUCCESS ? cudaSuccess : cudaErrorInvalidValue;
 }

@@ -33,6 +33,11 @@ JAX package's `repro/kernels/tuning.json`):
       --chips 4 --batch 2 --write        # a sweep chunk: 4 chips x 2 images
   PYTHONPATH=src python -m repro_torch.kernels.autotune --config proposed \\
       --chips 4 --batch 1 --write        # the service's waves: 1 image
+  PYTHONPATH=src python -m repro_torch.kernels.autotune --network layer \\
+      --chips 4096 --batch 256 --write   # the macro layer's chunk
+
+A layer problem (`layer_problems`) has one batch of word lines shared by
+every chip; a detector problem has word lines per chip.
 """
 from __future__ import annotations
 
@@ -141,14 +146,17 @@ def _median_us(fn, reps: int = 3) -> float:
     return statistics.median(times)
 
 
-def _problem(C: int, M: int, N: int, K: int, seed: int = 0):
+def _problem(C: int, M: int, N: int, K: int, seed: int = 0,
+             per_chip_x: bool = True):
     """A synthetic ensemble problem of the given geometry on the card,
     drawn as the reference's `_problem` draws it: K-row ternary-ish
     placement planes (no bias rows: K is the row count the kernel sees),
     word-line bits at density 0.5, and a C-chip sampled ensemble with
     every effect on.  The word lines are per chip, [C, M, K], the layout
     of every group conv of the detector past its first (13 of the proposed
-    design's 14), where the reference times a shared [M, K] batch."""
+    design's 14), where the reference times a shared [M, K] batch; with
+    `per_chip_x=False` one [M, K] batch shared by every chip (the macro
+    layer's)."""
     from repro_torch import prng
     from repro_torch.core import nonideal as ni
     from repro_torch.core.mapping import MappedLayer
@@ -159,7 +167,8 @@ def _problem(C: int, M: int, N: int, K: int, seed: int = 0):
     gn = (prng.uniform(k1, (K, N)) > 0.7).float() * (1 - gp)
     mapped = MappedLayer(g_pos=gp, g_neg=gn, bias_rows=0, scheme="ternary",
                          fan_in=K)
-    x = (prng.uniform(k2, (C, M, K)) > 0.5).float()
+    x = (prng.uniform(k2, ((C,) if per_chip_x else ()) + (M, K))
+         > 0.5).float()
     cfg = ni.NonidealConfig.all()
     ens = sample_ensemble(prng.PRNGKey(seed + 1, device="cuda"), mapped, C,
                           cfg=cfg)
@@ -169,7 +178,8 @@ def _problem(C: int, M: int, N: int, K: int, seed: int = 0):
 def autotune_problem(C: int, M: int, N: int, K: int, *,
                      candidates: Sequence[Tuple[int, int]]
                      = DEFAULT_CANDIDATES,
-                     seed: int = 0) -> Tuple[dict, List[dict]]:
+                     seed: int = 0, per_chip_x: bool = True
+                     ) -> Tuple[dict, List[dict]]:
     """Time every candidate tile of K1 and the plain route on one problem
     on the card; returns (winner record, per-candidate roofline rows).
 
@@ -183,17 +193,17 @@ def autotune_problem(C: int, M: int, N: int, K: int, *,
                            "kernel to time)")
     from repro_torch.mc.engine import ensemble_apply, ensemble_apply_kernel
 
-    ens, x, cfg = _problem(C, M, N, K, seed)
+    ens, x, cfg = _problem(C, M, N, K, seed, per_chip_x)
     flops = 4 * 2.0 * C * M * N * K
     plain_us = _median_us(lambda: ensemble_apply(ens, x, cfg=cfg,
-                                                 per_chip_x=True))
+                                                 per_chip_x=per_chip_x))
     rows = [{"impl": "plain", "bm": 0, "tm": 0, "us": plain_us,
              "gflops": flops / plain_us * 1e-3}]
     best = None
     for tile in candidates:
         bm, tm = check_tile(tile)
         us = _median_us(lambda: ensemble_apply_kernel(
-            ens, x, cfg=cfg, per_chip_x=True, tile=(bm, tm)))
+            ens, x, cfg=cfg, per_chip_x=per_chip_x, tile=(bm, tm)))
         rows.append({"impl": "kernel", "bm": bm, "tm": tm, "us": us,
                      "gflops": flops / us * 1e-3})
         if best is None or us < best["kernel_us"]:
@@ -210,15 +220,17 @@ def autotune_problem(C: int, M: int, N: int, K: int, *,
 
 def sweep(problems: Sequence[Tuple[int, int, int, int]], *,
           candidates: Sequence[Tuple[int, int]] = DEFAULT_CANDIDATES,
-          write: bool = False, path: Optional[Path] = None
-          ) -> Dict[str, dict]:
-    """Autotune each (C, M, N, K) problem on the card; with `write`, merge
-    the records into the table at `path` (None: the committed
-    `TUNING_JSON`), keeping every other entry (other cards' too)."""
+          write: bool = False, path: Optional[Path] = None,
+          per_chip_x: bool = True) -> Dict[str, dict]:
+    """Autotune each (C, M, N, K) problem on the card (word lines per chip,
+    or with `per_chip_x=False` shared); with `write`, merge the records
+    into the table at `path` (None: the committed `TUNING_JSON`), keeping
+    every other entry (other cards' too)."""
     target = Path(path) if path is not None else TUNING_JSON
     out: Dict[str, dict] = {}
     for C, M, N, K in problems:
-        record, _ = autotune_problem(C, M, N, K, candidates=candidates)
+        kw = {} if per_chip_x else {"per_chip_x": False}
+        record, _ = autotune_problem(C, M, N, K, candidates=candidates, **kw)
         out[problem_key(C, M, N, K, record["backend"])] = record
     if write:
         table = {}
@@ -248,14 +260,25 @@ def detector_problems(det_cfg, batch: int, chips: int
     return sorted(probs)
 
 
+def layer_problems(n_out: int, rows: int, batch: int, chips: int
+                   ) -> List[Tuple[int, int, int, int]]:
+    """The macro layer's one kernel problem: `chips` dies of a `rows` x
+    `n_out` crossbar on one batch of `batch` shared word lines."""
+    return [(chips, batch, n_out, rows)]
+
+
 def main(argv=None) -> None:
-    """Sweep a detector config's problems on the card and print the
-    winners; `--write` merges them into the table."""
+    """Sweep a detector config's problems (or the macro layer's) on the
+    card and print the winners; `--write` merges them into the table."""
     ap = argparse.ArgumentParser(
         description="(bm, tm) row-tile sweep for K1 (irc_mvm_chips)")
     ap.add_argument("--chips", type=int, default=8)
     ap.add_argument("--batch", type=int, default=2)
-    ap.add_argument("--network", default="detector", choices=["detector"])
+    ap.add_argument("--network", default="detector",
+                    choices=["detector", "layer"],
+                    help="the detector's group convs (word lines per "
+                         "chip) or the proposed macro layer, 540 inputs "
+                         "+ 32 bias rows by 60 (shared word lines)")
     ap.add_argument("--config", default="smoke",
                     choices=["smoke", "proposed"],
                     help="yolo_irc.smoke('ternary') (the reference's "
@@ -265,12 +288,18 @@ def main(argv=None) -> None:
     args = ap.parse_args(argv)
 
     from repro_torch.configs import yolo_irc
-    cfg = (yolo_irc.proposed() if args.config == "proposed"
-           else yolo_irc.smoke("ternary"))
-    problems = detector_problems(cfg, args.batch, args.chips)
-    print(f"# backend={backend_of()} config={args.config} "
-          f"problems={problems}")
-    results = sweep(problems, write=args.write)
+    if args.network == "layer":
+        cfg = yolo_irc.proposed()
+        problems = layer_problems(cfg.group, cfg.bias_rows + 9 * cfg.group,
+                                  args.batch, args.chips)
+    else:
+        cfg = (yolo_irc.proposed() if args.config == "proposed"
+               else yolo_irc.smoke("ternary"))
+        problems = detector_problems(cfg, args.batch, args.chips)
+    print(f"# backend={backend_of()} network={args.network} "
+          f"config={args.config} problems={problems}")
+    results = sweep(problems, write=args.write,
+                    per_chip_x=args.network != "layer")
     for key, rec in results.items():
         tiles = " ".join(f"{t}={us:.0f}us"
                          for t, us in rec["candidates_us"].items())

@@ -12,7 +12,8 @@ falls back to the plain version.
 The kernel's row tile `(bm, tm)` (bm word-line rows a thread block, tm of
 them a thread) is one of `TILES`, the instantiations the source holds;
 `repro_torch.kernels.autotune` picks one per problem from a table measured
-on the card.  Every tile gives the same bits.
+on the card.  Every tile gives the same bits.  `DESIGN` names the kernel's
+design in the launch counts (`ops.K1_LAUNCHES`).
 """
 from __future__ import annotations
 
@@ -28,12 +29,16 @@ SOURCE = build.CSRC / "irc_mvm.cu"
 
 _FLAG_NL, _FLAG_IR, _FLAG_SA, _FLAG_RANGE, _FLAG_DIFF = 1, 2, 4, 8, 16
 
+#: the kernel's design: word lines read as bit masks, block currents kept
+#: on chip, warps specialised by role (csrc/irc_mvm.cu's source note)
+DESIGN = "bitmask"
 #: the row tiles (bm, tm) the kernel is instantiated for (`launch_tile` in
-#: csrc/irc_mvm.cu): bm / tm x 16 threads a block, at most 512
-TILES: Tuple[Tuple[int, int], ...] = ((16, 1), (32, 1), (32, 2), (64, 2),
-                                      (64, 4))
-#: the tile of a launch that names none
-DEFAULT_TILE: Tuple[int, int] = (32, 2)
+#: csrc/irc_mvm.cu): bm = 32 tm word-line rows a thread block, lane l of a
+#: compute warp owning rows l + 32 i (i < tm); (32, 1) spans 32 columns,
+#: (64, 2) 16
+TILES: Tuple[Tuple[int, int], ...] = ((32, 1), (64, 2))
+#: the tile of a problem the tuning table has no entry for
+DEFAULT_TILE: Tuple[int, int] = (32, 1)
 
 
 def check_tile(tile: Optional[Tuple[int, int]]) -> Tuple[int, int]:

@@ -12,7 +12,8 @@ plain version.
 Each kernel wrapper counts its launches in a plain integer (`LAUNCHES`), so a
 run can show that its main path went through the kernel; calls served by the
 plain version do not count.  The threefry kernel's draws are also counted by
-tail (`TAIL_LAUNCHES`: "measured" is the measured device backend's mask).
+tail (`TAIL_LAUNCHES`: "measured" is the measured device backend's mask), and
+the IRC MVM's launches (K1 and K2) by design and row tile (`K1_LAUNCHES`).
 
 Nothing needs padding: the kernels mask their ragged edges themselves.
 """
@@ -26,6 +27,7 @@ import torch
 
 from repro_torch import prng
 from repro_torch import xla_order as xo
+from repro_torch.kernels import irc_mvm as _irc
 from repro_torch.kernels.irc_mvm import check_tile
 from repro_torch.kernels.ref import (IrcEpilogueParams,
                                      flash_attention_ref, irc_mvm_chips_ref,
@@ -39,11 +41,15 @@ LAUNCHES: Dict[str, int] = {"irc_mvm_chips": 0, "irc_mvm": 0,
 #: threefry draw launches by tail since the last `reset_launches()`, each
 #: also one of LAUNCHES["threefry"]
 TAIL_LAUNCHES: Dict[str, int] = {t: 0 for t in prng.TAILS}
+#: launches of the IRC MVM kernel (K1 and its C = 1 case K2) by design and
+#: row tile, "<design>/<bm>x<tm>", since the last `reset_launches()`
+K1_LAUNCHES: Dict[str, int] = {f"{_irc.DESIGN}/{bm}x{tm}": 0
+                               for bm, tm in _irc.TILES}
 
 
 def reset_launches() -> None:
     """Set every launch counter to 0."""
-    for counts in (LAUNCHES, TAIL_LAUNCHES):
+    for counts in (LAUNCHES, TAIL_LAUNCHES, K1_LAUNCHES):
         for k in counts:
             counts[k] = 0
 
@@ -91,15 +97,16 @@ def irc_mvm_chips(x: torch.Tensor, ep: torch.Tensor, en: torch.Tensor,
     effective planes ep/en [C,R,N], placement planes gp/gn [R,N] shared or
     [C,R,N], periphery noise eps_sa/rnd_bits [C,B,N] -> [C,B,N] float32,
     in ONE kernel launch on the card, at row tile `tile` (one of
-    `irc_mvm.TILES`; None: the default).  Any other tile raises ValueError,
-    on the CPU too, where the plain version serves every tile.  Other than
-    plain tensors go through the custom op `repro_torch::irc_mvm_chips`
-    (`_direct`)."""
-    tile = check_tile(tile)
+    `irc_mvm.TILES`; None: the tuning table's tile for the problem on this
+    card, `autotune.best_blocks`).  Any other tile raises ValueError, on the
+    CPU too, where the plain version serves every tile.  Other than plain
+    tensors go through the custom op `repro_torch::irc_mvm_chips`
+    (`_direct`), which takes (0, 0) for None."""
+    tile = None if tile is None else check_tile(tile)
     args = (x, ep, en, gp, gn, eps_sa, rnd_bits)
     if not _direct(*args):
         return torch.ops.repro_torch.irc_mvm_chips(
-            *args, *dataclasses.astuple(params), *tile)
+            *args, *dataclasses.astuple(params), *(tile or (0, 0)))
     dev = _check(*args)
     if dev.type == "cpu":
         return irc_mvm_chips_ref(*args, params)
@@ -151,7 +158,7 @@ def _irc_mvm_chips_op(x: torch.Tensor, ep: torch.Tensor, en: torch.Tensor,
         ir_alpha, ir_block, sense_low, sense_high, sa_c0, sa_c1, sa_c2,
         sa_extra, apply_nonlinearity, apply_ir, apply_sa, apply_range, output)
     return irc_mvm_chips(x, ep, en, gp, gn, eps_sa, rnd_bits, params,
-                         (bm, tm))
+                         None if (bm, tm) == (0, 0) else (bm, tm))
 
 
 @_irc_mvm_chips_op.register_fake
@@ -182,19 +189,31 @@ def _irc_mvm_fake(x, ep, en, gp, gn, eps_sa, rnd_bits, *scalars):
     return eps_sa.new_empty(eps_sa.shape, dtype=torch.float32)
 
 
+def k1_tile(dev, C: int, B: int, N: int, R: int,
+            tile: Optional[Tuple[int, int]] = None) -> Tuple[int, int]:
+    """The row tile of one launch: `tile` checked, or for None the tuning
+    table's tile for the problem (C chips, B word-line rows, N columns, R
+    plane rows) on `dev`'s backend (`autotune.best_blocks`)."""
+    if tile is not None:
+        return check_tile(tile)
+    from repro_torch.kernels import autotune
+    return autotune.best_blocks(C, B, N, R, backend=autotune.backend_of(dev))
+
+
 def _launch(dev, x, ep, en, gp, gn, eps_sa, rnd_bits, params, tile=None):
-    """One kernel launch on checked operands at row tile `tile`; raises if
-    the kernel cannot be built or the launch is refused (there is no
-    fallback)."""
+    """One kernel launch on checked operands at row tile `tile` (None: the
+    table's, `k1_tile`); raises if the kernel cannot be built or the launch
+    is refused (there is no fallback)."""
     if dev.type != "cuda":
         raise RuntimeError(f"the IRC MVM runs on CPU or CUDA, not {dev}")
-    from repro_torch.kernels import irc_mvm as kern
-    kern.load()
+    _irc.load()
     ops = [t.contiguous().float() for t in
            (x, ep, en, gp, gn, eps_sa, rnd_bits)]
-    C, _, N = ep.shape
-    out = torch.empty((C, x.shape[-2], N), dtype=torch.float32, device=dev)
-    kern.launch_chips(*ops, out, params, tile)
+    C, R, N = ep.shape
+    bm, tm = k1_tile(dev, C, x.shape[-2], N, R, tile)
+    out = ops[5].new_empty((C, x.shape[-2], N))
+    _irc.launch_chips(*ops, out, params, (bm, tm))
+    K1_LAUNCHES[f"{_irc.DESIGN}/{bm}x{tm}"] += 1
     return out
 
 

@@ -112,17 +112,18 @@ def test_problem_keys_are_card_scoped(table, monkeypatch):
     assert autotune.best_blocks(4, 10, 60, 572, backend=H100_KEY) == (64, 4)
     for other in ("cuda/nvidia-h200", "cpu"):
         assert autotune.kernel_wins(4, 10, 60, 572, backend=other)
-        assert autotune.best_blocks(4, 10, 60, 572, backend=other) == (32, 2)
+        assert autotune.best_blocks(4, 10, 60, 572,
+                                    backend=other) == autotune.DEFAULT_BLOCKS
 
 
 def test_absent_entry_runs_k1_at_the_default_tile(table):
     table({})
     assert autotune.lookup(4, 10, 60, 572, "cpu") is None
     assert autotune.kernel_wins(4, 10, 60, 572, backend="cpu")
-    assert autotune.best_blocks(4, 10, 60, 572, backend="cpu") == (32, 2)
-    assert autotune.DEFAULT_BLOCKS == irc_mvm.DEFAULT_TILE == (32, 2)
+    assert autotune.best_blocks(4, 10, 60, 572, backend="cpu") == (32, 1)
+    assert autotune.DEFAULT_BLOCKS == irc_mvm.DEFAULT_TILE == (32, 1)
     assert autotune.DEFAULT_CANDIDATES == irc_mvm.TILES
-    assert (32, 2) in irc_mvm.TILES and len(irc_mvm.TILES) >= 3
+    assert (32, 1) in irc_mvm.TILES and len(irc_mvm.TILES) >= 2
 
 
 def test_committed_winner_and_loser_round_trip(table):
@@ -189,6 +190,28 @@ def test_committed_table_parses_with_candidate_tiles():
                                              for b, t in irc_mvm.TILES}
         assert rec["kernel_us"] == min(rec["candidates_us"].values())
         assert rec["use_kernel"] == (rec["kernel_us"] < rec["plain_us"])
+
+
+def test_committed_entries_name_tiles_and_none_takes_the_table_tile(
+        table, monkeypatch):
+    """Every committed entry names a tile K1 has; a launch that names no
+    tile runs at the table's tile for its problem on its card (the
+    default where the table has none), an explicit tile as given."""
+    committed = Path(autotune.__file__).resolve().parent / "tuning.json"
+    for key, rec in json.loads(committed.read_text()).items():
+        assert (rec["bm"], rec["tm"]) in irc_mvm.TILES, key
+    dev = torch.device("cuda", 0)
+    monkeypatch.setattr(autotune, "backend_of", lambda d=None: H100_KEY)
+    other = next(t for t in irc_mvm.TILES if t != irc_mvm.DEFAULT_TILE)
+    table({f"{H100_KEY}/c4096_m256_n60_k572": _record(*other, True)})
+    assert ops.k1_tile(dev, 4096, 256, 60, 572) == other
+    assert ops.k1_tile(dev, 4, 256, 60, 572) == irc_mvm.DEFAULT_TILE
+    assert ops.k1_tile(dev, 4096, 256, 60, 572,
+                       irc_mvm.DEFAULT_TILE) == irc_mvm.DEFAULT_TILE
+    with pytest.raises(ValueError, match="no tile"):
+        ops.k1_tile(dev, 4096, 256, 60, 572, (48, 3))
+    assert autotune.layer_problems(60, 572, 256, 4096) == [
+        (4096, 256, 60, 572)]
 
 
 def test_unknown_tile_raises_everywhere():
@@ -296,12 +319,12 @@ def test_apply_follows_the_table(smoke_pair, table):
     def spy(*a, tile=None, **kw):
         seen.append(tile)
         return orig(*a, tile=tile, **kw)
-    table({autotune.problem_key(*p, "cpu"): _record(64, 4, True, None)
+    table({autotune.problem_key(*p, "cpu"): _record(64, 2, True, None)
            for p in probs})
     with pytest.MonkeyPatch.context() as mp:
         mp.setattr(ops, "irc_mvm_chips", spy)
         got = _port_apply(smoke_pair, None)
-    assert seen == [(64, 4)] * 3        # s0b0 1 group, s1b0 2 groups
+    assert seen == [(64, 2)] * 3        # s0b0 1 group, s1b0 2 groups
     np.testing.assert_array_equal(got, _port_apply(smoke_pair, True))
 
 

@@ -280,6 +280,40 @@ def test_build_raises_without_nvcc(monkeypatch, tmp_path):
     assert not (tmp_path / "build").exists()
 
 
+def test_k1_launches_count_by_design_and_tile(monkeypatch):
+    """A launch on the card counts once in LAUNCHES and once in
+    K1_LAUNCHES under the kernel's design and the tile it ran at: the
+    tile asked for, or for none the tuning table's (here the default);
+    the plain version on the CPU counts in neither."""
+    arrs = list(map(torch.from_numpy, _case(12, True, False)))
+    p = tref.IrcEpilogueParams()
+    ops.reset_launches()
+    ops.irc_mvm_chips(*arrs, p)
+    assert sum(ops.K1_LAUNCHES.values()) == 0
+    tiles = []
+    monkeypatch.setattr(ops, "_check", lambda *a: torch.device("cuda"))
+    monkeypatch.setattr(kern, "load", lambda: None)
+    monkeypatch.setattr(kern, "launch_chips",
+                        lambda *a: tiles.append(a[-1]))
+    monkeypatch.setattr(ops, "k1_tile",
+                        lambda dev, C, B, N, R, tile=None: tile
+                        or kern.DEFAULT_TILE)
+    for tile in (None, *kern.TILES, kern.TILES[0]):
+        ops.irc_mvm_chips(*arrs, p, tile=tile)
+    ops.irc_mvm(arrs[0][0], arrs[1][0], arrs[2][0], *arrs[3:5], arrs[5][0],
+                arrs[6][0], p)
+    assert tiles == [kern.DEFAULT_TILE, *kern.TILES, kern.TILES[0],
+                     kern.DEFAULT_TILE]
+    want = {f"{kern.DESIGN}/{bm}x{tm}": 0 for bm, tm in kern.TILES}
+    for t in tiles:
+        want[f"{kern.DESIGN}/{t[0]}x{t[1]}"] += 1
+    assert ops.K1_LAUNCHES == want
+    assert ops.LAUNCHES["irc_mvm_chips"] == len(kern.TILES) + 2
+    assert ops.LAUNCHES["irc_mvm"] == 1
+    ops.reset_launches()
+    assert set(ops.K1_LAUNCHES.values()) == {0}
+
+
 def test_epilogue_flags_and_near_tie_helper():
     assert kern.epilogue_flags(tref.IrcEpilogueParams()) == 15
     assert kern.epilogue_flags(tref.IrcEpilogueParams(output="diff",
@@ -302,11 +336,12 @@ def cuda_device():
 
 
 @pytest.mark.gpu
+@pytest.mark.parametrize("tile", kern.TILES)
 @pytest.mark.parametrize("per_chip_g", [False, True])
 def test_cuda_kernel_matches_plain_version_off_bits(cuda_device,
-                                                    per_chip_g):
-    """Word lines in [0, 1): the kernel's FFMA counts and the plain
-    version's chain give the same bits."""
+                                                    per_chip_g, tile):
+    """Word lines in [0, 1): the kernel's FFMA chains (currents and counts)
+    and the plain version's give the same bits, at every row tile."""
     x, ep, en, gp, gn, eps, rnd = [
         torch.from_numpy(a).to(cuda_device)
         for a in _case(13, True, per_chip_g)]
@@ -314,34 +349,91 @@ def test_cuda_kernel_matches_plain_version_off_bits(cuda_device,
                    generator=torch.Generator(cuda_device).manual_seed(13))
     for output in ("diff", "binary"):
         p = _params(tref, output, "all")
-        got = ops.irc_mvm_chips(x, ep, en, gp, gn, eps, rnd, p)
+        got = ops.irc_mvm_chips(x, ep, en, gp, gn, eps, rnd, p, tile=tile)
         want = tref.irc_mvm_chips_ref(x, ep, en, gp, gn, eps, rnd, p)
         torch.testing.assert_close(got, want, atol=0, rtol=0)
 
 
-@pytest.mark.gpu
-@pytest.mark.parametrize("shape", [(C, B, R, N)]
-                         + [tuple(case[:4]) for case in RAGGED])
-@pytest.mark.parametrize("per_chip_x,per_chip_g", LAYOUTS)
-def test_cuda_kernel_matches_plain_version(cuda_device, per_chip_x,
-                                           per_chip_g, shape):
-    """On the card the kernel adds and rounds in the plain version's order:
-    counts and diff bit-identical, binary outputs equal."""
-    arrs = [torch.from_numpy(a).to(cuda_device)
-            for a in _case(8, per_chip_x, per_chip_g, shape)]
+def _check_cuda_case(arrs, tile):
+    """Counts exact, diff and binary outputs bit-identical to the plain
+    version at row tile `tile`, one launch a call, counted at that tile."""
     x, ep, en, gp, gn, eps, rnd = arrs
     counts = _params(tref, "diff", "none")
     zeros = torch.zeros_like(ep)
     for a, z, g, sign in ((gp.expand(ep.shape).contiguous(), zeros, gp, 1.0),
                           (zeros, gn.expand(en.shape).contiguous(), gn,
                            -1.0)):
-        got = ops.irc_mvm_chips(x, a, z, gp, gn, eps, rnd, counts)
+        got = ops.irc_mvm_chips(x, a, z, gp, gn, eps, rnd, counts, tile=tile)
         assert torch.equal(got, sign * (x @ g).expand(got.shape))
     for output in ("diff", "binary"):
         p = _params(tref, output, "all")
         ops.reset_launches()
-        got = ops.irc_mvm_chips(*arrs, p)
+        got = ops.irc_mvm_chips(*arrs, p, tile=tile)
         torch.cuda.synchronize()
         assert ops.LAUNCHES["irc_mvm_chips"] == 1
+        assert ops.K1_LAUNCHES[f"{kern.DESIGN}/{tile[0]}x{tile[1]}"] == 1
         want = tref.irc_mvm_chips_ref(*arrs, p)
         torch.testing.assert_close(got, want, atol=0, rtol=0)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("tile", kern.TILES)
+@pytest.mark.parametrize("shape", [(C, B, R, N)]
+                         + [tuple(case[:4]) for case in RAGGED])
+@pytest.mark.parametrize("per_chip_x,per_chip_g", LAYOUTS)
+def test_cuda_kernel_matches_plain_version(cuda_device, per_chip_x,
+                                           per_chip_g, shape, tile):
+    """On the card the kernel adds and rounds in the plain version's order:
+    counts and diff bit-identical, binary outputs equal, at every row
+    tile."""
+    arrs = [torch.from_numpy(a).to(cuda_device)
+            for a in _case(8, per_chip_x, per_chip_g, shape)]
+    _check_cuda_case(arrs, tile)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("tile", kern.TILES)
+def test_cuda_kernel_matches_plain_version_layer_layout(cuda_device, tile):
+    """The macro layer's layout: many dies (64) on one batch of 256 shared
+    word lines, per-die effective planes, shared placement planes."""
+    arrs = [torch.from_numpy(a).to(cuda_device)
+            for a in _case(9, False, False, (64, 256, R, N))]
+    _check_cuda_case(arrs, tile)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("tile", kern.TILES)
+@pytest.mark.parametrize("per_chip_x", [False, True])
+def test_cuda_kernel_signed_and_nonfinite_planes(cuda_device, per_chip_x,
+                                                 tile):
+    """Effective planes with negative values (the QAT path's deviation
+    planes) take the bit path and match the plain version bit for bit;
+    an inf or a NaN in a plane row where some word lines are 0 (0 * inf is
+    NaN in the chain) sends its IR block to the FFMA chain, and the outputs
+    match too, NaNs where the plain version's are."""
+    x, ep, en, gp, gn, eps, rnd = [
+        torch.from_numpy(a).to(cuda_device)
+        for a in _case(11, per_chip_x, False)]
+    g = torch.Generator(cuda_device).manual_seed(11)
+    sign = torch.where(torch.rand(ep.shape, device=cuda_device, generator=g)
+                       < 0.5, -1.0, 1.0)
+    signed = (ep * sign, en * sign.flip(-1))
+    for output in ("diff", "binary"):
+        for effects in ("all", "none"):
+            p = _params(tref, output, effects)
+            got = ops.irc_mvm_chips(x, *signed, gp, gn, eps, rnd, p,
+                                    tile=tile)
+            want = tref.irc_mvm_chips_ref(x, *signed, gp, gn, eps, rnd, p)
+            torch.testing.assert_close(got, want, atol=0, rtol=0)
+    ep_bad, en_bad = ep.clone(), en.clone()
+    ep_bad[0, 100, 7] = float("inf")
+    en_bad[-1, 300, 50] = float("nan")
+    ep_bad[-1, 571, 59] = float("-inf")
+    assert bool((x[..., 100] == 0).any()) and bool((x[..., 300] == 0).any())
+    for output in ("diff", "binary"):
+        p = _params(tref, output, "none")
+        got = ops.irc_mvm_chips(x, ep_bad, en_bad, gp, gn, eps, rnd, p,
+                                tile=tile)
+        want = tref.irc_mvm_chips_ref(x, ep_bad, en_bad, gp, gn, eps, rnd, p)
+        assert bool(want.isnan().any()) == (output == "diff")
+        torch.testing.assert_close(got, want, atol=0, rtol=0, equal_nan=True)
