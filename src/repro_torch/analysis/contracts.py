@@ -23,7 +23,7 @@ import traceback
 from typing import List
 
 from repro_torch.analysis.findings import Finding
-from repro_torch.analysis.registry import shape_contracts
+from repro_torch.analysis.registry import port_contracts, shape_contracts
 from repro_torch.runtime import DeviceLike, resolve_device
 
 REGISTRY_FILE = "src/repro_torch/configs/registry.py"
@@ -55,7 +55,7 @@ def run_contract_pass(device: DeviceLike = "cuda") -> List[Finding]:
                         f"arch",
                 hint="remove the stale entry or register the arch"))
 
-    contracts = shape_contracts()
+    contracts = shape_contracts() + port_contracts()
     covered = {c.arch for c in contracts if c.arch}
     for arch in known_archs:
         if ARCH_STATUS.get(arch) == "live" and arch not in covered:

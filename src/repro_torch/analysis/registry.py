@@ -13,12 +13,15 @@ that every die draw and every fused multiply-add go through.
 contracts (by name) that have no counterpart in the port, each with the
 reason.
 
-`shape_contracts()` — the shape-contract registry.  Each `ShapeContract`
-builds its inputs with `torch.empty` under `FakeTensorMode` on a given
-device, runs the real entry point on them (no FLOPs, no transfer: the
-kernels answer through their custom ops' fake implementations) and
-returns None on success or a mismatch description.  The same contract can
-run on real, seeded inputs (`ShapeContract.trace(device, fake=False)`), so
+`shape_contracts()` — the shape-contract registry, twin for twin the
+reference's; `port_contracts()` those of the port's own architectures
+(`configs.registry.PORT_ARCHS`), which the reference does not have.
+Each `ShapeContract` builds its inputs with `torch.empty` under
+`FakeTensorMode` on a given device, runs the real entry point on them
+(no FLOPs, no transfer: the kernels answer through their custom ops'
+fake implementations) and returns None on success or a mismatch
+description.  The same contract can run on real, seeded inputs
+(`ShapeContract.trace(device, fake=False)`), so
 the card can hold its fake result against a real one.
 
 `configs.registry.ARCH_STATUS` decides which model-zoo archs the pass may
@@ -67,6 +70,12 @@ HOT_PATH_ROOTS: Dict[str, Set[str]] = {
                                           "committee_wave_forward"},
     "src/repro_torch/mc/engine.py": {"ensemble_apply",
                                      "ensemble_apply_kernel"},
+    # the port's own MLA block (no twin in the JAX package): the batched
+    # prefill, the absorbed decode, and the routed experts, whose group
+    # ends stay on the device
+    "src/repro_torch/models/transformer.py": {"LM.prefill"},
+    "src/repro_torch/models/mla.py": {"prefill", "decode"},
+    "src/repro_torch/models/moe.py": {"routed_block"},
 }
 
 # Roots whose port twin has another qualname (same file under src/repro_torch)
@@ -367,6 +376,40 @@ def _lm_smoke(inp: Inputs, arch: str):
     out = lm.apply(params, inp.ints((B, S), cfg.vocab_size), remat="none")[0]
     return out, _expect(out, inp, (B, S, cfg.vocab_size), torch.float32,
                         f"LM.apply[{arch}-smoke]")
+
+
+def _lm_serve_step(inp: Inputs, arch: str, step: str):
+    """LM.prefill of a [2, 16] batch into a fresh cache, then ("decode")
+    one decode step: the last logits [2, 1, V] float32, and the cache's
+    index at the positions written."""
+    from repro_torch.configs.registry import get_config
+    from repro_torch.models.transformer import LM
+    cfg = get_config(arch, "smoke")
+    lm = LM(cfg)
+    params = lm.init(inp.key(), device=inp.device)
+    B, S = 2, 16
+    cache = lm.init_cache(B, 32, device=inp.device)
+    out, cache = lm.prefill(params, inp.ints((B, S), cfg.vocab_size), cache)
+    if step == "decode":
+        out, cache = lm.decode_step(params, inp.ints((B, 1), cfg.vocab_size),
+                                    cache)
+    what = f"LM.{step}[{arch}-smoke]"
+    want = S + (step == "decode")
+    return out, (_expect(out, inp, (B, 1, cfg.vocab_size), torch.float32,
+                         what)
+                 or (None if cache["index"] == want else
+                     f"{what}: cache index {cache['index']}, not {want}"))
+
+
+def port_contracts() -> List[ShapeContract]:
+    """The serving steps of each of the port's own architectures at its
+    smoke widths: the batched prefill and a decode step after it."""
+    from repro_torch.configs.registry import PORT_ARCHS
+    return [ShapeContract(f"LM.{step}[{arch}-smoke]",
+                          "src/repro_torch/models/transformer.py",
+                          lambda i, a=arch, s=step: _lm_serve_step(i, a, s),
+                          arch)
+            for arch in sorted(PORT_ARCHS) for step in ("prefill", "decode")]
 
 
 def shape_contracts() -> List[ShapeContract]:

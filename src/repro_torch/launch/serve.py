@@ -41,7 +41,7 @@ import argparse
 import json
 import time
 
-from repro_torch.configs.registry import list_archs
+from repro_torch.configs.registry import all_archs
 from repro_torch.launch.mc import DET_BACKENDS
 
 
@@ -50,7 +50,7 @@ def _build_parser() -> argparse.ArgumentParser:
         description="batched LM and detector serving (PyTorch/CUDA port)")
     ap.add_argument("--network", default="lm", choices=["lm", "detector"])
     # LM engine
-    ap.add_argument("--arch", default="phi3-medium-14b", choices=list_archs())
+    ap.add_argument("--arch", default="phi3-medium-14b", choices=all_archs())
     ap.add_argument("--variant", default="smoke", choices=["smoke", "full"])
     ap.add_argument("--ckpt-dir", default=None,
                     help="restore params from a checkpoint")

@@ -154,3 +154,55 @@ class LMConfig:
         dense_layers = self.n_dense_prefix * (n_attn + 3 * d * ff * self.top_k)
         emb = v * d * (1 if self.tie_embeddings else 2)
         return moe_layers * per_moe + dense_layers + emb
+
+
+@dataclasses.dataclass(frozen=True)
+class MLAConfig(LMConfig):
+    """The DeepSeek-V3 block without q-LoRA or YaRN (Moonlight): multi-head
+    latent attention, a dense SwiGLU prefix of `dense_d_ff`, then layers of
+    `n_experts` routed experts of `d_ff` with `n_shared_experts` shared
+    ones, routed by sigmoid scores with a selection-only correction bias.
+    `head_dim` is the query/key head size (`qk_nope_head_dim` +
+    `qk_rope_head_dim`); the cache holds `kv_lora_rank` +
+    `qk_rope_head_dim` values a token and layer.  The inherited fields
+    keep their meaning; `block` is "mla"."""
+    kv_lora_rank: int = 512
+    qk_nope_head_dim: int = 128
+    qk_rope_head_dim: int = 64
+    v_head_dim: int = 128
+    dense_d_ff: int = 0
+    n_shared_experts: int = 0
+    routed_scaling_factor: float = 1.0
+
+    @property
+    def latent_dim(self) -> int:
+        """Cached values a token and layer: the latent and the rope key."""
+        return self.kv_lora_rank + self.qk_rope_head_dim
+
+    def _attn_params(self) -> int:
+        d, H = self.d_model, self.n_heads
+        return (d * H * self.head_dim + d * self.latent_dim
+                + self.kv_lora_rank
+                + self.kv_lora_rank * H * (self.qk_nope_head_dim
+                                           + self.v_head_dim)
+                + H * self.v_head_dim * d)
+
+    def param_count(self) -> int:
+        """Embedding, unembedding, every layer (norms, the correction
+        bias included) and the final norm."""
+        d, ff, E = self.d_model, self.d_ff, self.n_experts
+        per = self._attn_params() + 2 * d
+        moe = (E * 3 * d * ff + 3 * d * ff * self.n_shared_experts
+               + d * E + E)
+        n_moe = self.n_layers - self.n_dense_prefix
+        return (self.n_layers * per + self.n_dense_prefix * 3 * d
+                * self.dense_d_ff + n_moe * moe + 2 * self.vocab_size * d
+                + d)
+
+    def active_param_count(self) -> int:
+        """Parameters a token uses: `top_k` routed experts of each MoE
+        layer, everything else whole."""
+        d, ff, E = self.d_model, self.d_ff, self.n_experts
+        idle = (E - self.top_k) * 3 * d * ff
+        return self.param_count() - (self.n_layers
+                                     - self.n_dense_prefix) * idle

@@ -171,3 +171,104 @@ def moe_block(params, x: torch.Tensor, cfg: LMConfig,
     out = combine(y, eid, slot, w, Tl)
     dropped = torch.sum(~keep)
     return out.reshape(B, S, D), {"aux_loss": aux, "dropped": dropped}
+
+
+# ---------------------------------------------------------------- MLA block
+# The DeepSeek-V3 / Moonlight MoE (`MLAConfig`): sigmoid scores, a
+# correction bias that only selects, and no capacity: every (token, expert)
+# pair is computed.
+
+def routed_specs(cfg) -> Dict[str, ParamSpec]:
+    """Router, its selection bias (zeros, as a fresh model starts), the
+    routed experts, and the shared experts as one SwiGLU of
+    `n_shared_experts` x d_ff."""
+    d, ff, e = cfg.d_model, cfg.d_ff, cfg.n_experts
+    pd = cfg.pdtype
+    sff = cfg.n_shared_experts * ff
+    return {
+        "router": ParamSpec((d, e), ("embed", "experts"), dtype=pd),
+        "score_bias": ParamSpec((e,), ("experts",), init="zeros",
+                                dtype=torch.float32),
+        "w_gate": ParamSpec((e, d, ff), ("experts", "embed", "mlp"), dtype=pd),
+        "w_up": ParamSpec((e, d, ff), ("experts", "embed", "mlp"), dtype=pd),
+        "w_down": ParamSpec((e, ff, d), ("experts", "mlp", "embed"), dtype=pd),
+        "shared": {
+            "w_gate": ParamSpec((d, sff), ("embed", "mlp"), dtype=pd),
+            "w_up": ParamSpec((d, sff), ("embed", "mlp"), dtype=pd),
+            "w_down": ParamSpec((sff, d), ("mlp", "embed"), dtype=pd),
+        },
+    }
+
+
+def sigmoid_route(xt: torch.Tensor, router: torch.Tensor,
+                  score_bias: torch.Tensor, cfg
+                  ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """xt [T,D] -> (weights [T,K] float32, experts [T,K]): sigmoid scores
+    in float32, the top-k of scores + `score_bias` (ties to the lower
+    expert), weights the selected scores normalised over the k (the
+    published `norm_topk_prob`), times `routed_scaling_factor`."""
+    scores = torch.sigmoid(xt.float() @ router.float())
+    _, idx = top_k(scores + score_bias, cfg.top_k)
+    w = torch.gather(scores, -1, idx)
+    w = w / (torch.sum(w, dim=-1, keepdim=True) + const(1e-20, w))
+    return w * const(cfg.routed_scaling_factor, w), idx
+
+
+def _grouped(x: torch.Tensor, w: torch.Tensor,
+             offs: torch.Tensor) -> torch.Tensor:
+    """Rows of x [P,D], sorted by group, each times its group's w [G,D,F]
+    (`offs` [G]: the groups' cumulative ends, on the device) -> [P,F].
+    bfloat16 runs torch's grouped matrix product; other dtypes (the
+    float32 smoke configurations) multiply every row by each group's
+    matrix and keep its own group's product."""
+    if x.dtype == torch.bfloat16:
+        return torch._grouped_mm(x, w, offs=offs)
+    rows = torch.arange(x.shape[0], device=x.device, dtype=offs.dtype)
+    gid = torch.searchsorted(offs, rows, right=True)
+    out = torch.zeros((x.shape[0], w.shape[-1]), dtype=x.dtype,
+                      device=x.device)
+    for g in range(w.shape[0]):
+        out = torch.where((gid == g)[:, None], x @ w[g], out)
+    return out
+
+
+def dropless_experts(xt: torch.Tensor, weights: torch.Tensor,
+                     idx: torch.Tensor, w_gate: torch.Tensor,
+                     w_up: torch.Tensor, w_down: torch.Tensor
+                     ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Every (token, expert) pair of idx [T,K] through its expert's SwiGLU,
+    summed per token with `weights` in float32 -> ([T,D] in xt's dtype,
+    pairs per expert [E]).  Pairs are sorted by expert (stable) and run as
+    grouped matrix products whose group ends stay on the device, so no
+    count comes to the host."""
+    T, K = idx.shape
+    E = w_gate.shape[0]
+    flat = idx.reshape(-1)
+    order = torch.argsort(flat, stable=True)
+    counts = torch.zeros(E, dtype=torch.int64, device=flat.device
+                         ).index_add_(0, flat, torch.ones_like(flat))
+    offs = torch.cumsum(counts, 0).to(torch.int32)
+    xs = xt[order // K]
+    h = silu(_grouped(xs, w_gate, offs)) * _grouped(xs, w_up, offs)
+    ys = _grouped(h, w_down, offs)
+    y = torch.empty_like(ys)
+    y[order] = ys
+    out = torch.sum(y.view(T, K, -1).float() * weights[..., None], dim=1)
+    return out.to(xt.dtype), counts
+
+
+def routed_block(params, x: torch.Tensor, cfg
+                 ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """x [B,S,D] -> (routed experts plus shared experts [B,S,D], pairs per
+    expert [E], the experts chosen [B*S, K])."""
+    B, S, D = x.shape
+    dt = x.dtype
+    xt = x.reshape(B * S, D)
+    w, idx = sigmoid_route(xt, params["router"], params["score_bias"], cfg)
+    routed, counts = dropless_experts(
+        xt, w, idx, params["w_gate"].to(dt), params["w_up"].to(dt),
+        params["w_down"].to(dt))
+    sp = params["shared"]
+    h = silu(xt @ sp["w_gate"].to(dt)) * (xt @ sp["w_up"].to(dt))
+    out = routed + h @ sp["w_down"].to(dt)
+    return out.reshape(B, S, D), counts, idx

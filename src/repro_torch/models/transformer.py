@@ -11,6 +11,17 @@ digital.  Training checkpoints each layer under the reference's remat
 modes (`apply(remat=...)`) with `torch.utils.checkpoint`.  The decode
 step updates the cache's tensors in place and returns the cache with its
 index advanced.
+
+`prefill` fills a fresh cache from a batch of prompts.  For the ten
+reference architectures it is the teacher-forced loop of `decode_step`
+(the semantics their engine tests pin).  For the MLA block (`MLAConfig`,
+Moonlight) it is one batched forward: latent attention's prefill path
+(`models/mla.py`) writes the latent cache of every position, and the
+sigmoid-routed dropless MoE (`moe.routed_block`) runs every (token,
+expert) pair.  While a profiler trace runs, each MLA layer's attention is
+a `mla_attend` span with its device time; `expert_tally`, where the
+caller sets it, gathers the pairs each expert took in each MoE layer, and
+`route_log` keeps the experts each MoE layer chose.
 """
 from __future__ import annotations
 
@@ -22,6 +33,7 @@ from torch.utils.checkpoint import checkpoint
 
 from repro_torch.core.ternary import ternary_quantize
 from repro_torch.models import attention as attn_mod
+from repro_torch.models import mla as mla_mod
 from repro_torch.models import mlp as mlp_mod
 from repro_torch.models import moe as moe_mod
 from repro_torch.models import rwkv as rwkv_mod
@@ -33,6 +45,7 @@ from repro_torch.models.common import (REMAT_MODES, ParamSpec, abstract,
                                        sinusoidal_positions, softcap,
                                        tree_map)
 from repro_torch.models.lm_config import LMConfig
+from repro_torch.obs import spans
 from repro_torch.runtime import DeviceLike, resolve_device
 from repro_torch.sharding import dtensor as dist_mod
 
@@ -80,7 +93,8 @@ def _write_layer(stacked: PyTree, l: int, new: PyTree, old: PyTree) -> None:
 
 @dataclasses.dataclass(frozen=True)
 class Segment:
-    kind: str        # "dense" | "moe" | "hybrid" | "rwkv"
+    kind: str        # "dense" | "moe" | "hybrid" | "rwkv" | "mla_dense" |
+                     # "mla_moe"
     count: int
     layer_offset: int
 
@@ -96,6 +110,12 @@ class LM:
         self.act_overrides = None
         self.attn_mode = None
         self.moe_groups = 1
+        # [MoE layers, experts] pairs routed, gathered where a caller sets
+        # it (the serving engine, while a trace runs)
+        self.expert_tally = None
+        # where a caller sets a list: each MoE layer appends the experts it
+        # chose [tokens, k] (int16, compact), in the order the layers run
+        self.route_log = None
 
     def use_mesh(self, mesh, act_overrides=None) -> "LM":
         """Shard the forward over `mesh` (a DeviceMesh with the reference's
@@ -116,6 +136,8 @@ class LM:
                      and the PV contraction reduce over the model axis
         MoE dispatch groups = the DP shard count (group-local capacity)."""
         from repro_torch.sharding.rules import mesh_axis_sizes
+        if self.cfg.block == "mla":
+            raise NotImplementedError("the MLA block runs on one device")
         self.mesh = mesh
         self.act_overrides = act_overrides
         sizes = mesh_axis_sizes(mesh)
@@ -218,6 +240,16 @@ class LM:
             return [Segment("rwkv", cfg.n_layers, 0)]
         if cfg.block == "hybrid":
             return [Segment("hybrid", cfg.n_layers, 0)]
+        if cfg.block == "mla":
+            # the MoE layers stacked in as few equal segments as keep each
+            # expert leaf under the threefry draw's 2^32 words (one key a
+            # leaf): Moonlight's 26 layers as two of 13
+            n, lo = cfg.n_layers - cfg.n_dense_prefix, cfg.n_dense_prefix
+            per = (2 ** 32 - 1) // (cfg.n_experts * cfg.d_model * cfg.d_ff)
+            size = -(-n // -(-n // per))
+            return [Segment("mla_dense", lo, 0)] + [
+                Segment("mla_moe", min(size, n - i), lo + i)
+                for i in range(0, n, size)]
         if cfg.moe:
             segs = []
             if cfg.n_dense_prefix:
@@ -234,6 +266,12 @@ class LM:
             s["ln1"] = _norm_spec(cfg)
             s["ln2"] = _norm_spec(cfg)
             return s
+        if kind.startswith("mla"):
+            return {"ln1": _norm_spec(cfg), "ln2": _norm_spec(cfg),
+                    "attn": mla_mod.mla_specs(cfg),
+                    **({"moe": moe_mod.routed_specs(cfg)}
+                       if kind == "mla_moe" else
+                       {"mlp": mlp_mod.mlp_specs(cfg, d_ff=cfg.dense_d_ff)})}
         specs: Dict[str, PyTree] = {
             "ln1": _norm_spec(cfg),
             "ln2": _norm_spec(cfg),
@@ -333,6 +371,8 @@ class LM:
         cfg = self.cfg
         lp = self._gathered(lp)
         aux = torch.zeros((), dtype=torch.float32, device=x.device)
+        if kind.startswith("mla"):
+            return self._mla_layer(kind, lp, x, positions, None, None), aux
         if kind == "rwkv":
             B = x.shape[0]
             H, hd = rwkv_mod._heads(cfg)
@@ -447,6 +487,81 @@ class LM:
         metrics["loss"] = loss
         return loss, metrics
 
+    # ------------------------------------------------------------ MLA block
+    def _mla_layer(self, kind: str, lp: PyTree, x: torch.Tensor,
+                   positions, latent, cur_index, layer: int = 0
+                   ) -> torch.Tensor:
+        """Layer `layer` of the model: the attention's prefill path over
+        `positions` (writing `latent` where given), or its absorbed decode
+        at `cur_index` (an int or a `mla.DecodeAt`) over `latent`; then the
+        dense SwiGLU or the routed experts."""
+        cfg = self.cfg
+        h = self._norm(x, lp["ln1"])
+        with spans.device_span("mla_attend", h.device, layer=layer,
+                               kind="decode" if positions is None
+                               else "prefill"):
+            if positions is None:
+                a = mla_mod.decode(lp["attn"], h, latent, cfg, cur_index)
+            else:
+                a = mla_mod.prefill(lp["attn"], h, cfg, positions, latent)
+        x = x + a
+        h = self._norm(x, lp["ln2"])
+        if kind == "mla_moe":
+            m, counts, chosen = moe_mod.routed_block(lp["moe"], h, cfg)
+            if self.expert_tally is not None:
+                self.expert_tally[layer - cfg.n_dense_prefix].add_(counts)
+            if self.route_log is not None:
+                self.route_log.append(chosen.to(torch.int16))
+        else:
+            m = mlp_mod.mlp(lp["mlp"], h, cfg)
+        return x + m
+
+    def prefill(self, params: PyTree, tokens: torch.Tensor,
+                cache: PyTree) -> Tuple[torch.Tensor, PyTree]:
+        """tokens [B,S] into a fresh `cache` -> (the last position's logits
+        [B,1,V] float32, the cache holding positions 0..S-1 with its index
+        at S).  The MLA block runs one batched forward; every other block
+        steps `decode_step` through the prompt (teacher-forced)."""
+        if self.cfg.block != "mla":
+            logits = None
+            for t in range(tokens.shape[1]):
+                logits, cache = self.decode_step(params, tokens[:, t:t + 1],
+                                                 cache)
+            return logits, cache
+        if int(cache["index"]) != 0:
+            raise ValueError("prefill fills a fresh cache (index 0)")
+        B, S = tokens.shape
+        x = self._embed(params, tokens)
+        positions = torch.arange(S, dtype=torch.int32,
+                                 device=x.device)[None].expand(B, S)
+        out: Dict[str, PyTree] = {"index": S}
+        for i, seg in enumerate(self.segments):
+            name = f"seg{i}_{seg.kind}"
+            stacked, latent = params[name], cache[name]["latent"]
+            for l in range(seg.count):
+                x = self._mla_layer(seg.kind, _layer(stacked, l), x,
+                                    positions, latent[l], None,
+                                    seg.layer_offset + l)
+            out[name] = cache[name]
+        return self._logits(params, x[:, -1:]), out
+
+    def decode_at(self, params: PyTree, tokens: torch.Tensor, cache: PyTree,
+                  at: "mla_mod.DecodeAt") -> torch.Tensor:
+        """The MLA block's decode step of tokens [B,1] placed by `at` over
+        `cache` (its index left as it is) -> logits [B,1,V] float32.  It
+        launches the same kernels at every position `at` holds, so one
+        capture as a CUDA graph serves them all."""
+        if self.cfg.block != "mla":
+            raise ValueError("decode_at steps the MLA block")
+        x = self._embed(params, tokens)
+        for i, seg in enumerate(self.segments):
+            name = f"seg{i}_{seg.kind}"
+            stacked, latent = params[name], cache[name]["latent"]
+            for l in range(seg.count):
+                x = self._mla_layer(seg.kind, _layer(stacked, l), x, None,
+                                    latent[l], at, seg.layer_offset + l)
+        return self._logits(params, x)
+
     # ------------------------------------------------------------ decode
     def init_cache(self, batch: int, s_max: int,
                    device: DeviceLike = "cuda") -> PyTree:
@@ -460,6 +575,9 @@ class LM:
             if seg.kind == "rwkv":
                 cache[name] = rwkv_mod.init_rwkv_state(cfg, batch, seg.count,
                                                        dev)
+            elif seg.kind.startswith("mla"):
+                cache[name] = mla_mod.init_latent_cache(cfg, batch, s_max,
+                                                        seg.count, dev)
             elif seg.kind == "hybrid":
                 cache[name] = {
                     "kv": attn_mod.init_kv_cache(cfg, batch, s_max, seg.count,
@@ -501,17 +619,21 @@ class LM:
                 lc = _layer(cache[name], l)
                 x, new_lc = self._layer_decode(
                     seg.kind, _layer(stacked, l), x,
-                    cfg.layer_is_global(seg.layer_offset + l), lc, idx)
+                    cfg.layer_is_global(seg.layer_offset + l), lc, idx,
+                    layer=seg.layer_offset + l)
                 _write_layer(cache[name], l, new_lc, lc)
             new_cache[name] = cache[name]
         x = self._constrain(x, ("act_batch", "act_seq", "act_embed"))
         return self._logits(params, x), new_cache
 
     def _layer_decode(self, kind: str, lp: PyTree, x: torch.Tensor,
-                      is_global: bool, lc: PyTree, idx: int
+                      is_global: bool, lc: PyTree, idx: int, layer: int = 0
                       ) -> Tuple[torch.Tensor, PyTree]:
         cfg = self.cfg
         lp = self._gathered(lp)
+        if kind.startswith("mla"):
+            return (self._mla_layer(kind, lp, x, None, lc["latent"], idx,
+                                    layer), lc)
         if kind == "rwkv":
             h, ts, wkv = rwkv_mod.time_mix(
                 lp["time"], self._norm(x, lp["ln1"]), cfg, lc["tshift"],

@@ -21,6 +21,11 @@ them on the trace's clock afterwards.
 Finished spans go into one bounded in-memory buffer; past `MAX_SPANS` they
 are counted as dropped instead.  `drain_spans` empties it.  Nothing is
 written while a trace runs.
+
+A device-timed span (`device_span`) also records a timing event on the
+device's current stream where it opens and where it closes; once the
+device has passed both (after a wait of the caller's that covers them),
+`settle_device_ms` sets its `device_ms`, with no wait of its own.
 """
 from __future__ import annotations
 
@@ -42,6 +47,8 @@ _buffer: List["Span"] = []
 _dropped = 0
 _local = threading.local()
 _next_id = itertools.count(1)
+# device-timed spans whose `device_ms` is not set yet: (span, start, end)
+_unsettled: List[Tuple["Span", Any, Any]] = []
 
 
 def spans_on() -> bool:
@@ -144,6 +151,64 @@ class _Off:
 
 
 OFF = _Off()
+
+
+class _DeviceTimed(Span):
+    """A span that also brackets its block with timing events on the
+    device's current stream (`device_span`)."""
+
+    __slots__ = ("_device", "_start_ev")
+
+    def __init__(self, name: str, ids: Dict[str, Any],
+                 device: torch.device):
+        super().__init__(name, ids)
+        self._device = device
+        self._start_ev = None
+
+    def __enter__(self) -> "Span":
+        super().__enter__()
+        self._start_ev = device_mark(self._device)
+        return self
+
+    def __exit__(self, *exc) -> bool:
+        end = device_mark(self._device)
+        if self._start_ev is not None and end is not None:
+            with _lock:
+                _unsettled.append((self, self._start_ev, end))
+        self._start_ev = None
+        return super().__exit__(*exc)
+
+
+def device_span(name: str, device: torch.device, **ids):
+    """A span named `name` with `ids` whose device time between its start
+    and its end `settle_device_ms` sets as `device_ms` (CUDA devices);
+    `OFF` while no trace runs, and while a CUDA graph is being captured
+    (whose replays no span sees)."""
+    if not _profiler._is_profiler_enabled or (
+            torch.cuda.is_available()
+            and torch.cuda.is_current_stream_capturing()):
+        return OFF
+    return _DeviceTimed(name, ids, device)
+
+
+def settle_device_ms() -> int:
+    """Set `device_ms` on every device-timed span whose end event the
+    device has passed (no wait here: the others stay for a later call);
+    returns how many were set."""
+    with _lock:
+        todo = list(_unsettled)
+        _unsettled.clear()
+    left, done = [], 0
+    for s, start, end in todo:
+        if end.query():
+            s.set(device_ms=start.elapsed_time(end))
+            done += 1
+        else:
+            left.append((s, start, end))
+    if left:
+        with _lock:
+            _unsettled.extend(left)
+    return done
 
 
 def span(name: str, **ids):
